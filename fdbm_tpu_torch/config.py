@@ -3,7 +3,7 @@
 The port's own copy of ``fdbm_tpu/config.py``. The port depends on no YAML
 package, so it reads the subset of YAML that the repo's configs use: block
 mappings nested by indentation, ``#`` comments, plain and quoted scalars and
-flow lists of scalars, with scalars typed as PyYAML's ``safe_load`` (YAML
+flow lists and flow mappings of scalars, with scalars typed as PyYAML's ``safe_load`` (YAML
 1.1) types them. Anything else raises ``ValueError``. Top-level keys may
 reference one another with ``${key}``, resolved like OmegaConf
 interpolation.
@@ -36,8 +36,9 @@ def _scalar(text: str) -> Any:
         return body.replace("''", "'") if s[0] == "'" else bytes(
             body, "utf-8").decode("unicode_escape")
     if s.startswith("[") and s.endswith("]"):
-        inner = s[1:-1].strip()
-        return [_scalar(p) for p in inner.split(",")] if inner else []
+        return [_scalar(p) for p in _flow_items(s)]
+    if s.startswith("{") and s.endswith("}"):
+        return dict(_flow_pair(p) for p in _flow_items(s))
     if s.startswith(("{", "&", "*", "!", "|", ">")):
         raise ValueError(f"unsupported YAML value: {text!r}")
     if _NULL.match(s):
@@ -63,6 +64,23 @@ def _scalar(text: str) -> Any:
             return float("nan")
         return float(t)
     return s
+
+
+def _flow_items(s: str) -> List[str]:
+    """The comma-separated items of a flow list or mapping of scalars."""
+    inner = s[1:-1].strip()
+    if any(ch in inner for ch in "[]{}"):
+        raise ValueError(f"unsupported YAML value (nested flow collection): {s!r}")
+    return [p for p in inner.split(",") if p.strip()] if inner else []
+
+
+def _flow_pair(item: str) -> Tuple[Any, Any]:
+    """``key: value`` of a flow mapping; a bare key maps to None."""
+    item = item.strip()
+    if item.endswith(":"):
+        return _scalar(item[:-1]), None
+    key, sep, value = item.partition(": ")
+    return (_scalar(key), _scalar(value)) if sep else (_scalar(item), None)
 
 
 def _strip_comment(line: str) -> str:

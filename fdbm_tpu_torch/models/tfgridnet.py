@@ -6,15 +6,27 @@ full-band frame self-attention, and a per-block additive bias from a
 Gaussian-Fourier embedding of log(t). Channel-last canvases
 ``[B, T, Q, C]`` as in the JAX package.
 
-Kernel routes sit where the JAX package puts its Pallas routes
-(``tfgridnet.py:114-147`` and ``:308-356``): each RNN path calls
-``ops.gridrnn.grid_rnn_seq1_pair`` on a canvas with its sequence on axis 1
-(intra on the (1,2)-swapped canvas, inter on the swap back), and the
-attention calls ``ops.attention.frame_attention`` with the q/k/v norms
-fused in. On CPU tensors those wrappers run their plain versions; with
+Two kernel routes share one parameter set, chosen by the module's mode:
+
+* eval mode is the serving route, the JAX package's ``use_pallas``
+  (``tfgridnet.py:114-147`` and ``:308-356``): each RNN path calls
+  ``ops.gridrnn.grid_rnn_seq1_pair`` on a canvas with its sequence on
+  axis 1 (intra on the (1,2)-swapped canvas, inter on the swap back), and
+  the attention calls ``ops.attention.frame_attention`` with the q/k/v
+  norms fused in. These kernels have no backward.
+* train mode is the training route, the JAX package's ``use_pallas_train``
+  (``tfgridnet.py:148-172``): each RNN path turns its canvas into
+  sequence-major lines and calls ``ops.gridrnn_train.grid_fold_train_pair``
+  (kernels with a backward), or ``ops.gridrnn.grid_bilstm_fold`` when no
+  gradient is needed; the attention is the plain PyTorch version under
+  autograd, as the JAX package trains it on plain XLA ops.
+
+On CPU tensors the wrappers run their plain versions; with
 ``use_kernels=False`` the model calls the plain versions on any device,
-which is the reference the card's kernels are held against. ``conv_in``,
-the output ConvTranspose and the Dense layers stay ``torch.nn``.
+which is the reference the card's kernels are held against. ``remat``
+recomputes each block in the backward (``torch.utils.checkpoint``), the
+JAX package's ``nn.remat``. ``conv_in``, the output ConvTranspose and the
+Dense layers stay ``torch.nn``.
 """
 
 from __future__ import annotations
@@ -22,12 +34,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fdbm_tpu_torch.models import BackboneRegistry
 from fdbm_tpu_torch.models.layers import BiLSTM, GaussianFourierProjection, PReLU, layer_norm_f32
 from fdbm_tpu_torch.ops.attention import (flat_group_norm_plain, frame_attention,
                                           frame_attention_plain)
-from fdbm_tpu_torch.ops.gridrnn import grid_rnn_seq1_pair, grid_rnn_seq1_pair_plain
+from fdbm_tpu_torch.ops.gridrnn import (grid_bilstm_fold, grid_rnn_seq1_pair,
+                                        grid_rnn_seq1_pair_plain)
+from fdbm_tpu_torch.ops.gridrnn_train import grid_fold_train_pair, grid_fold_train_pair_plain
 
 _OLP_KS = 4  # emb_ks
 _OLP_HS = 1  # emb_hs
@@ -58,24 +73,46 @@ class _RnnPath(nn.Module):
                                           / (2 * hidden) ** 0.5)
         self.deconv_bias = nn.Parameter(torch.zeros(c))
 
-    def _rnn(self, x: torch.Tensor):
+    def _kernel_ok(self, x: torch.Tensor) -> bool:
+        """Whether the fused kernels take this path; on the card a path
+        outside their gate raises (its fallback is not ported)."""
         if not self.use_kernels:
-            return grid_rnn_seq1_pair_plain
+            return False
         if _kernel_fast_path_ok(x.shape[-1], self.hidden):
-            return grid_rnn_seq1_pair
+            return True
         if x.is_cuda:
             raise NotImplementedError(
                 f"TF-GridNet RNN path with C={x.shape[-1]}, H={self.hidden} is outside "
-                "the fused kernel's gate (C % 8 == 0, C <= 64, H <= 128); its fallback, "
-                "fdbm_tpu/ops/lstm.py:537 bilstm_fused_forward, is not ported yet")
-        return grid_rnn_seq1_pair_plain
+                "the fused kernel's gate (C % 8 == 0, C <= 64, H <= 128); its fallbacks, "
+                "fdbm_tpu/ops/lstm.py:537 bilstm_fused_forward and :298 lstm_core, are "
+                "not ported yet")
+        return False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = layer_norm_f32(x, self.ln_gamma, self.ln_beta).contiguous()
+        h = layer_norm_f32(x, self.ln_gamma, self.ln_beta)
         lstm = self.bilstm
-        outf, outb = self._rnn(x)(h, lstm.w_ih, lstm.w_hh, lstm.bias, self.deconv_kernel)
+        weights = (lstm.w_ih, lstm.w_hh, lstm.bias, self.deconv_kernel)
+        kernel = self._kernel_ok(x)
+        if not self.training:
+            rnn = grid_rnn_seq1_pair if kernel else grid_rnn_seq1_pair_plain
+            outf, outb = rnn(h.contiguous(), *weights)
+            folded = outf + outb
+        else:
+            # Sequence-major lines [S, B*P, C], as the JAX training route
+            # hands them to grid_fold_train_pair.
+            b, s, p, c = h.shape
+            lines = h.transpose(0, 1).reshape(s, b * p, c).contiguous()
+            if not kernel:
+                outf, outb = grid_fold_train_pair_plain(lines, *weights)
+                lines = outf + outb
+            elif torch.is_grad_enabled():
+                outf, outb = grid_fold_train_pair(lines, *weights)
+                lines = outf + outb
+            else:
+                lines = grid_bilstm_fold(lines, *weights)
+            folded = lines.reshape(s, b, p, c).transpose(0, 1)
         # Rows outside [3, L-1] of the fold are cropped by GridNetBlock.
-        return outf + outb + self.deconv_bias + x
+        return folded + self.deconv_bias + x
 
 
 class _AllHeadPReLULayerNorm(nn.Module):
@@ -134,7 +171,9 @@ class GridNetBlock(nn.Module):
 
         norms = (self.attn_norm_Q.params(), self.attn_norm_K.params(),
                  self.attn_norm_V.params())
-        attention = frame_attention if self.use_kernels else frame_attention_plain
+        # The training route trains the attention on plain ops, as JAX does.
+        attention = (frame_attention if self.use_kernels and not self.training
+                     else frame_attention_plain)
         out = attention(self.attn_conv_Q(inter), self.attn_conv_K(inter),
                         self.attn_conv_V(inter), self.n_head, self.e_dim, norms=norms)
         out = self.attn_prelu(self.attn_proj(out))
@@ -147,10 +186,11 @@ class TFGridNet(nn.Module):
 
     def __init__(self, n_layers: int = 6, emb_dim: int = 48, hidden: int = 200,
                  n_head: int = 4, qk_output_channel: int = 2, n_srcs: int = 1,
-                 fourier_scale: float = 16.0, use_kernels: bool = True):
+                 fourier_scale: float = 16.0, use_kernels: bool = True, remat: bool = False):
         super().__init__()
         c = emb_dim
         self.n_srcs = n_srcs
+        self.remat = remat
         self.conv_in = nn.Conv2d(4, c, 3, padding=1)
         self.gn_in = nn.GroupNorm(1, c, eps=1e-5)
         self.time_emb = GaussianFourierProjection(c, fourier_scale)
@@ -172,8 +212,10 @@ class TFGridNet(nn.Module):
 
         temb = self.time_emb(torch.log(t))
         temb = F.silu(self.time_fc2(F.silu(self.time_fc1(temb))))
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for time_block, block in zip(self.time_blocks, self.blocks):
-            h = block(h + time_block(temb)[:, None, None, :])
+            h = h + time_block(temb)[:, None, None, :]
+            h = checkpoint(block, h, use_reentrant=False) if remat else block(h)
 
         out = self.deconv_out(h.permute(0, 3, 1, 2)).float()  # [B, 2*S, T, Q]
         b, _, tt, qq = out.shape

@@ -8,7 +8,10 @@ sources at once in parallel. Nothing here runs at import time: the CPU
 tests import the package on machines with no nvcc.
 
 Every C entry returns ``cudaGetLastError()`` after its launches;
-:func:`check` turns a non-zero code into an exception.
+:func:`check` turns a non-zero code into an exception. A launch through
+ctypes is invisible to autograd, so a wrapper without a backward kernel
+calls :func:`refuse_grad` first: on such a wrapper a gradient would
+silently stop.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -94,22 +99,35 @@ def build_all() -> Dict[str, object]:
                 "ptxas": reports}
 
 
-def load(name: str, signatures: Dict[str, Sequence[object]]) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``, built if needed, with
-    ``argtypes`` set from ``signatures`` and every ``restype`` c_int."""
-    lib = _libs.get(name)
+def load(name: str, signatures: Dict[str, Sequence[object]],
+         restypes: Optional[Dict[str, object]] = None) -> ctypes.CDLL:
+    """The ctypes handle of ``csrc/<name>.cu``, built if needed, with the
+    ``argtypes`` of the functions in ``signatures`` set, and their
+    ``restype`` c_int unless ``restypes`` names another. Several modules
+    may bind functions of one library, each naming its own."""
+    with _lock:
+        lib = _libs.get(name)
     if lib is None:
         path = library_path(name)
         if not path.exists():
             build_all()
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        _libs[name] = lib
+        with _lock:
+            lib = _libs.setdefault(name, ctypes.CDLL(str(path)))
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = (restypes or {}).get(fn, ctypes.c_int)
     return lib
 
 
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise if autograd would need a gradient through a forward-only kernel."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and an input requires grad; "
+            "run it under torch.no_grad(), or take the training route "
+            "(ops.gridrnn_train.grid_fold_train_pair and the plain attention)")

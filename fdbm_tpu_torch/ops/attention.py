@@ -63,7 +63,8 @@ def flat_group_norm(x: torch.Tensor, alpha: torch.Tensor, gamma: torch.Tensor,
     biased two-pass variance, eps 1e-5 inside the root; ``alpha`` ``[H, 1]``
     is the per-head PReLU slope and ``gamma``/``beta`` ``[H, width]`` the
     affine parameters, as ``_AllHeadPReLULayerNorm`` holds them. ``width``
-    must be a power of two up to 64.
+    must be a power of two up to 64. The kernel has no backward: on a CUDA
+    tensor this raises if an input requires grad.
     """
     if x.device.type == "cpu":
         return flat_group_norm_plain(x, alpha, gamma, beta, width)
@@ -75,15 +76,17 @@ def flat_group_norm(x: torch.Tensor, alpha: torch.Tensor, gamma: torch.Tensor,
                          f"<= 64 and divide the lanes {x.shape[-1]} in groups of "
                          f"{n_head} heads")
     dev = x.device
+    _build.refuse_grad("flat_group_norm", x, alpha, gamma, beta)
     _check("flat_group_norm", "x", x, dev)
     _check("flat_group_norm", "alpha", alpha, dev, (n_head, 1))
     _check("flat_group_norm", "gamma", gamma, dev, (n_head, width))
     _check("flat_group_norm", "beta", beta, dev, (n_head, width))
-    out = torch.empty_like(x)
-    lib = _build.load("attention", _SIGNATURES)
-    code = lib.flat_group_norm(
-        x.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-        x.numel(), n_head, width, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        out = torch.empty_like(x)
+        lib = _build.load("attention", _SIGNATURES)
+        code = lib.flat_group_norm(
+            x.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+            x.numel(), n_head, width, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "flat_group_norm")
     flat_group_norm.launches += 1
     return out
@@ -133,12 +136,14 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns:
       ``[B, T, Q, H*D]``: per head softmax(Q K^T * scale) V, channels
-      merged h-slow, d-fast.
+      merged h-slow, d-fast. The kernels have no backward: on a CUDA
+      tensor this raises if an input requires grad.
     """
     if q.device.type == "cpu":
         return frame_attention_plain(q, k, v, n_head, e_dim, norms)
     if q.device.type != "cuda":
         raise ValueError(f"frame_attention: unsupported device {q.device}")
+    _build.refuse_grad("frame_attention", q, k, v, *(t for p in norms or () for t in p))
     if norms is not None:
         q, k, v = _normed(q, k, v, n_head, e_dim, norms, flat_group_norm)
     b, t_len, q_bins, he = q.shape
@@ -150,13 +155,14 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check("frame_attention", "q", q, dev)
     _check("frame_attention", "k", k, dev, q.shape)
     _check("frame_attention", "v", v, dev, (b, t_len, q_bins, hd))
-    scores = torch.empty((b, n_head, t_len, t_len), device=dev, dtype=torch.float32)
-    out = torch.empty_like(v)
-    lib = _build.load("attention", _SIGNATURES)
-    code = lib.frame_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), scores.data_ptr(), out.data_ptr(),
-        b, t_len, q_bins, n_head, e_dim, hd // n_head, 1.0 / math.sqrt(e_dim * q_bins),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        scores = torch.empty((b, n_head, t_len, t_len), device=dev, dtype=torch.float32)
+        out = torch.empty_like(v)
+        lib = _build.load("attention", _SIGNATURES)
+        code = lib.frame_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), scores.data_ptr(), out.data_ptr(),
+            b, t_len, q_bins, n_head, e_dim, hd // n_head, 1.0 / math.sqrt(e_dim * q_bins),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "frame_attention")
     frame_attention.launches += 1
     return out

@@ -81,10 +81,14 @@ class Bridge:
 
     def sample(self, model_fn: ModelFn, y: torch.Tensor,
                generator: Optional[torch.Generator] = None, **kwargs) -> torch.Tensor:
+        """Run the configured sampler. The EI samplers take only the noise
+        overrides ``z`` (ODE) and ``noise`` (SDE); other sampler kwargs
+        (``rtol``/``atol`` of ``ode_int``, ``snr`` of ``pc``) are dropped for
+        them, as ``fdbm_tpu/sampling.py:Bridge.sample`` does."""
         if self.sampler_type == "ode_ei":
-            return self.ode_sampler_ei(model_fn, y, generator, **kwargs)
+            return self.ode_sampler_ei(model_fn, y, generator, z=kwargs.get("z"))
         if self.sampler_type == "sde_ei":
-            return self.sde_sampler_ei(model_fn, y, generator, **kwargs)
+            return self.sde_sampler_ei(model_fn, y, generator, noise=kwargs.get("noise"))
         if self.sampler_type in ("ode_int", "pc"):
             raise NotImplementedError(
                 f"sampler_type={self.sampler_type!r} is not ported to fdbm_tpu_torch "

@@ -29,7 +29,7 @@ _RNN_LEAVES = ("ln_gamma", "ln_beta", "deconv_bias")
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+    return torch.from_numpy(np.array(a, np.float32, order="C"))
 
 
 def _linear(p: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:

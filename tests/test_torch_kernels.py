@@ -31,6 +31,17 @@ from fdbm_tpu_torch.utils import weights
 KS = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the plain versions run many tiny products, and
+    the test workers share the machine's cores (oversubscribed BLAS threads
+    spin instead of working)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rand(rng, shape, scale=1.0):
     return (rng.standard_normal(shape) * scale).astype(np.float32)
 

@@ -10,6 +10,7 @@ module gate; two steps add little to the per-call fp32 difference).
 """
 
 import ast
+import os
 from pathlib import Path
 
 import jax
@@ -32,6 +33,17 @@ from fdbm_tpu_torch.utils.weights import tfgridnet_from_flax
 
 REPO = Path(__file__).resolve().parents[1]
 N_FFT, HOP, N_STEPS = 64, 32, 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the plain versions run many tiny products, and
+    the test workers share the machine's cores (oversubscribed BLAS threads
+    spin instead of working)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -218,3 +230,95 @@ def test_import_checker_matches_module_names_exactly(tmp_path):
                      "import jaxlib_like\nfrom fdbm_tpu.ops import x\nimport flax.linen as nn\n")
     found = [n for n in _imports(probe) if n.split(".")[0] in _FORBIDDEN]
     assert found == ["fdbm_tpu.ops", "flax.linen"]
+
+
+@pytest.fixture(scope="module")
+def small_ckpt(tmp_path_factory):
+    """A random narrow model saved as a model file, and a noisy wav."""
+    tmp = tmp_path_factory.mktemp("serve")
+    torch.manual_seed(0)
+    fdbm = FDBM(FDBMConfig(backbone="tfgridnet_4l32c80", n_fft=N_FFT, hop_length=HOP),
+                device="cpu")
+    ckpt = str(tmp / "model.pt")
+    save_checkpoint(ckpt, fdbm)
+    noisy = str(tmp / "noisy.wav")
+    write_wav(noisy, (0.3 * np.random.default_rng(2).standard_normal(1200)).astype(np.float32),
+              16000)
+    return ckpt, noisy, str(tmp)
+
+
+@pytest.mark.parametrize("sampler", ["sde_ei", "ode_ei"])
+def test_ei_samplers_drop_sampler_kwargs(small_ckpt, sampler):
+    """An infer config's sampler_kwargs (rtol/atol of ode_int) are dropped by
+    the EI samplers, as fdbm_tpu/sampling.py:Bridge.sample drops them."""
+    ckpt, noisy, tmp = small_ckpt
+    out = os.path.join(tmp, f"{sampler}.wav")
+    x_hat = infer_single.main([
+        "-C", str(REPO / "configs" / "config_infer_single.yaml"), "--device", "cpu",
+        f"ckpt={ckpt}", f"noisy_file={noisy}", f"output_file={out}", "N=2",
+        f"sampler_type={sampler}", "sampler_kwargs={rtol: 1e-5, atol: 1e-5}"])
+    assert x_hat.shape == (1200,) and np.isfinite(x_hat).all()
+
+
+@pytest.mark.parametrize("override", [
+    "sampler_kwargs={snr: 0.5, corrector_steps: 1}", "k={rtol: 1e-5, atol: 1.0e-5}",
+    "k={name: x, flag: true, n: null, q: 'a b'}", "k={}", "k={a, b: 2}", "k=[1, 2.5, x]",
+    "lr=5e-4", "N=30", "k=null"])
+def test_cli_overrides_parse_as_jax_parses_them(override):
+    from fdbm_tpu.config import parse_cli_overrides as jax_parse
+    from fdbm_tpu_torch.config import parse_cli_overrides
+
+    assert parse_cli_overrides([override]) == jax_parse([override])
+
+
+@pytest.mark.parametrize("n,max_len,hop", [(5000, 1600, 32), (4000, 1000, 64),
+                                           (10000, 2500, 256), (1700, 1600, 32)])
+def test_long_file_chunks_match_jax(n, max_len, hop):
+    """The chunk starts and contents of fdbm_tpu's _enhance_long, and its
+    cross-fade reassembly (BucketedEnhancer._overlap_add)."""
+    from types import SimpleNamespace
+
+    from fdbm_tpu.infer import BucketedEnhancer
+    from fdbm_tpu_torch.infer import OVERLAP_FRAMES, chunk_starts, overlap_add
+
+    audio = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+
+    class Recorder:  # stands in for the enhancer: records instead of enhancing
+        fdbm = SimpleNamespace(cfg=SimpleNamespace(hop_length=hop))
+
+        def enhance_many(self, chunks, key, clip_scale, max_seconds):
+            return [0.5 * c for c in chunks]
+
+        @staticmethod
+        def _overlap_add(total_len, segments, ramp_len):
+            return total_len, segments, ramp_len
+
+    total, segments, ramp = BucketedEnhancer._enhance_long(Recorder(), audio,
+                                                           jax.random.PRNGKey(0), 0.5, max_len)
+    chunk_len, starts = chunk_starts(n, max_len, hop)
+    assert starts == [s for s, _ in segments] and ramp == OVERLAP_FRAMES * hop
+    for s, e in segments:
+        np.testing.assert_array_equal(0.5 * audio[s:s + chunk_len], e)
+    np.testing.assert_array_equal(overlap_add(total, segments, ramp),
+                                  BucketedEnhancer._overlap_add(total, segments, ramp))
+
+
+def test_long_file_is_enhanced_in_chunks(small_ckpt, monkeypatch):
+    from fdbm_tpu_torch.infer import enhance_single
+
+    ckpt, _, tmp = small_ckpt
+    fdbm = load_checkpoint(ckpt, device="cpu")
+    noisy = os.path.join(tmp, "long.wav")
+    n = 3000
+    write_wav(noisy, (0.3 * np.random.default_rng(3).standard_normal(n)).astype(np.float32),
+              16000)
+    calls = []
+    enhance = fdbm.enhance_batch
+    monkeypatch.setattr(fdbm, "enhance_batch", lambda b, *a, **k: calls.append(b.shape[-1])
+                        or enhance(b, *a, **k))
+    # max 0.1 s = 1600 samples: chunks of 1600 starting every 1600 - 16 * 32
+    x_hat = enhance_single(fdbm, noisy, os.path.join(tmp, "long_out.wav"), sampler_type="ode_ei",
+                           N=1, max_seconds=0.1)
+    assert x_hat.shape == (n,) and np.isfinite(x_hat).all()
+    assert len(calls) == 3
+    assert read_wav(os.path.join(tmp, "long_out.wav"))[0].shape == (1, n)
