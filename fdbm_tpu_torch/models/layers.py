@@ -13,7 +13,8 @@ import math
 import torch
 from torch import nn
 
-from fdbm_tpu_torch.ops.gridrnn import bilstm_plain
+from fdbm_tpu_torch.ops.lstm import (bilstm_fused_forward, bilstm_fused_forward_plain,
+                                     bilstm_train)
 
 
 class GaussianFourierProjection(nn.Module):
@@ -42,9 +43,9 @@ class PReLU(nn.Module):
 
 def layer_norm_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    dim=-1, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over ``dim`` with fp32 two-pass statistics (mean, then
-    E[(x - mu)^2], biased), eps inside the root."""
-    x32 = x.to(torch.float32)
+    """LayerNorm over ``dim`` with two-pass statistics in fp32 or wider
+    (mean, then E[(x - mu)^2], biased), eps inside the root."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     mu = x32.mean(dim=dim, keepdim=True)
     xc = x32 - mu
     var = (xc * xc).mean(dim=dim, keepdim=True)
@@ -52,19 +53,30 @@ def layer_norm_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 class BiLSTM(nn.Module):
-    """Bidirectional single-layer LSTM over axis 1 of ``[N, S, D]`` ->
-    ``[N, S, 2H]`` (forward ++ backward), gates i, f, g, o, fp32 carry.
+    """Bidirectional single-layer LSTM over axis 0 of sequence-major
+    ``[S, N, D]`` -> ``[S, N, 2H]`` (forward ++ backward), gates i, f, g, o,
+    fp32 carry. The JAX package's module is batch-major; TF-GridNet's
+    generic RNN path builds its windows sequence-major, the layout the LSTM
+    kernels take, so the port's module takes them so.
 
-    The TF-GridNet blocks hand these parameters to the fused RNN-path
-    kernel (``ops.gridrnn``); ``forward`` is the plain recurrence."""
+    Routed by mode, as the JAX package's ``use_pallas`` / ``use_pallas_train``
+    route it: eval mode runs ``ops.lstm.bilstm_fused_forward``, train mode
+    ``ops.lstm.bilstm_train``; ``use_kernels=False`` runs the plain
+    recurrence on any device. Inside the fused kernels' gate the TF-GridNet
+    blocks hand these parameters to ``ops.gridrnn`` instead."""
 
-    def __init__(self, in_features: int, hidden: int):
+    def __init__(self, in_features: int, hidden: int, use_kernels: bool = True):
         super().__init__()
         bound = 1.0 / math.sqrt(hidden)
         u = lambda *shape: nn.Parameter(torch.empty(*shape).uniform_(-bound, bound))
+        self.use_kernels = use_kernels
         self.w_ih = u(2, in_features, 4 * hidden)
         self.w_hh = u(2, hidden, 4 * hidden)
         self.bias = u(2, 4 * hidden)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return bilstm_plain(x, self.w_ih, self.w_hh, self.bias)
+        weights = (self.w_ih, self.w_hh, self.bias)
+        if self.use_kernels and self.training:
+            return bilstm_train(x, *weights)
+        both = bilstm_fused_forward if self.use_kernels else bilstm_fused_forward_plain
+        return torch.cat(both(x.contiguous(), *weights), dim=-1)

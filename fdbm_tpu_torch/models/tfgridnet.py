@@ -21,6 +21,16 @@ Two kernel routes share one parameter set, chosen by the module's mode:
   gradient is needed; the attention is the plain PyTorch version under
   autograd, as the JAX package trains it on plain XLA ops.
 
+Outside the fused RNN-path kernels' gate (C % 8 == 0, C <= 64, H <= 128;
+the class defaults C=48, H=200 are outside it) each RNN path takes the JAX
+package's generic path (``tfgridnet.py:179-216``) on either route: unfold,
+the ``BiLSTM`` module, the deconv as a product and the overlap-add. The
+``BiLSTM`` runs ``ops.lstm.bilstm_fused_forward`` in eval mode and
+``ops.lstm.bilstm_train`` (``lstm_core``, or ``lstm_forward`` without a
+gradient) in train mode. The attention fuses its q/k/v norms only where
+their widths E and C/n_head are powers of two, as the JAX package does;
+otherwise it norms on plain ops and calls ``frame_attention`` without them.
+
 On CPU tensors the wrappers run their plain versions; with
 ``use_kernels=False`` the model calls the plain versions on any device,
 which is the reference the card's kernels are held against. ``remat``
@@ -54,10 +64,23 @@ def _kernel_fast_path_ok(c: int, hidden: int) -> bool:
     return c % 8 == 0 and c <= 64 and hidden <= 128
 
 
+def _fused_norms_ok(e: int, d: int) -> bool:
+    """The JAX package's predicate for fusing the q/k/v norms into the
+    attention (``fdbm_tpu/ops/attention.py:166-169``): ``flat_group_norm``
+    takes power-of-two group widths only."""
+    return all(w > 0 and w & (w - 1) == 0 for w in (e, d))
+
+
 class _RnnPath(nn.Module):
     """One intra- or inter- RNN path on a canvas ``[B, S, P, C]`` with the
     sequence on axis 1: LN -> unfold -> BiLSTM -> deconv -> fold -> +res.
-    The canvas is already padded by 3 on both spatial axes."""
+    The canvas is already padded by 3 on both spatial axes.
+
+    Inside the fused kernels' gate (``_kernel_fast_path_ok``) the whole path
+    is one fused RNN-path call; outside it, the JAX package's generic path
+    (``fdbm_tpu/models/tfgridnet.py:179-216``): the k=4 windows, the
+    ``BiLSTM`` module (``ops.lstm``'s kernels), the deconv as a product and
+    the overlap-add in plain PyTorch."""
 
     def __init__(self, emb_dim: int, hidden: int, use_kernels: bool = True):
         super().__init__()
@@ -66,43 +89,45 @@ class _RnnPath(nn.Module):
         self.use_kernels = use_kernels
         self.ln_gamma = nn.Parameter(torch.ones(c))
         self.ln_beta = nn.Parameter(torch.zeros(c))
-        self.bilstm = BiLSTM(_OLP_KS * c, hidden)
+        self.bilstm = BiLSTM(_OLP_KS * c, hidden, use_kernels)
         # ConvTranspose1d(2H -> C, k=4) as a Dense [2H, 4C] (tap-major
         # columns) plus a bias per output position.
         self.deconv_kernel = nn.Parameter(torch.randn(2 * hidden, _OLP_KS * c)
                                           / (2 * hidden) ** 0.5)
         self.deconv_bias = nn.Parameter(torch.zeros(c))
 
-    def _kernel_ok(self, x: torch.Tensor) -> bool:
-        """Whether the fused kernels take this path; on the card a path
-        outside their gate raises (its fallback is not ported)."""
-        if not self.use_kernels:
-            return False
-        if _kernel_fast_path_ok(x.shape[-1], self.hidden):
-            return True
-        if x.is_cuda:
-            raise NotImplementedError(
-                f"TF-GridNet RNN path with C={x.shape[-1]}, H={self.hidden} is outside "
-                "the fused kernel's gate (C % 8 == 0, C <= 64, H <= 128); its fallbacks, "
-                "fdbm_tpu/ops/lstm.py:537 bilstm_fused_forward and :298 lstm_core, are "
-                "not ported yet")
-        return False
+    def _generic(self, lines: torch.Tensor) -> torch.Tensor:
+        """Sequence-major lines ``[S, N, C]`` -> their folds ``[S, N, C]``,
+        exact on every row."""
+        s, n, c = lines.shape
+        length = s - (_OLP_KS - 1)
+        # Windows [L, N, 4C], tap-major (j slow, c fast) as the fused kernels read them.
+        win = torch.cat([lines[j:j + length] for j in range(_OLP_KS)], dim=-1)
+        taps = self.bilstm(win) @ self.deconv_kernel  # [L, N, 4C]
+        # Overlap-add: row r = sum_j taps[r - j, tap j].
+        out = taps.new_zeros(s, n, c)
+        for j in range(_OLP_KS):
+            out[j:j + length] += taps[..., j * c:(j + 1) * c]
+        return out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = layer_norm_f32(x, self.ln_gamma, self.ln_beta)
         lstm = self.bilstm
         weights = (lstm.w_ih, lstm.w_hh, lstm.bias, self.deconv_kernel)
-        kernel = self._kernel_ok(x)
-        if not self.training:
+        b, s, p, c = h.shape
+        fused = _kernel_fast_path_ok(c, self.hidden)
+        kernel = self.use_kernels and fused
+        if fused and not self.training:
             rnn = grid_rnn_seq1_pair if kernel else grid_rnn_seq1_pair_plain
             outf, outb = rnn(h.contiguous(), *weights)
             folded = outf + outb
         else:
             # Sequence-major lines [S, B*P, C], as the JAX training route
             # hands them to grid_fold_train_pair.
-            b, s, p, c = h.shape
             lines = h.transpose(0, 1).reshape(s, b * p, c).contiguous()
-            if not kernel:
+            if not fused:
+                lines = self._generic(lines)
+            elif not kernel:
                 outf, outb = grid_fold_train_pair_plain(lines, *weights)
                 lines = outf + outb
             elif torch.is_grad_enabled():
@@ -111,7 +136,7 @@ class _RnnPath(nn.Module):
             else:
                 lines = grid_bilstm_fold(lines, *weights)
             folded = lines.reshape(s, b, p, c).transpose(0, 1)
-        # Rows outside [3, L-1] of the fold are cropped by GridNetBlock.
+        # Rows outside [3, L-1] of the fused fold are cropped by GridNetBlock.
         return folded + self.deconv_bias + x
 
 
@@ -169,13 +194,17 @@ class GridNetBlock(nn.Module):
         xp = self.inter(xq.transpose(1, 2))
         inter = xp[:, olp:olp + old_t, olp:olp + old_q, :]
 
-        norms = (self.attn_norm_Q.params(), self.attn_norm_K.params(),
-                 self.attn_norm_V.params())
-        # The training route trains the attention on plain ops, as JAX does.
-        attention = (frame_attention if self.use_kernels and not self.training
-                     else frame_attention_plain)
-        out = attention(self.attn_conv_Q(inter), self.attn_conv_K(inter),
-                        self.attn_conv_V(inter), self.n_head, self.e_dim, norms=norms)
+        norm_mods = (self.attn_norm_Q, self.attn_norm_K, self.attn_norm_V)
+        q, k, v = self.attn_conv_Q(inter), self.attn_conv_K(inter), self.attn_conv_V(inter)
+        norms = tuple(m.params() for m in norm_mods)
+        if not self.use_kernels or self.training:
+            # The training route trains the attention on plain ops, as JAX does.
+            out = frame_attention_plain(q, k, v, self.n_head, self.e_dim, norms=norms)
+        elif _fused_norms_ok(self.e_dim, x.shape[-1] // self.n_head):
+            out = frame_attention(q, k, v, self.n_head, self.e_dim, norms=norms)
+        else:
+            q, k, v = (m(a).reshape(a.shape) for m, a in zip(norm_mods, (q, k, v)))
+            out = frame_attention(q, k, v, self.n_head, self.e_dim)
         out = self.attn_prelu(self.attn_proj(out))
         out = layer_norm_f32(out, self.attn_ln_gamma, self.attn_ln_beta)
         return out + inter

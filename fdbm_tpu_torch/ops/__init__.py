@@ -4,7 +4,10 @@ Each wrapper counts its kernel launches in a ``launches`` attribute, so a
 run can show that it went through the kernels: ``grid_rnn_seq1_pair``,
 ``flat_group_norm`` and ``frame_attention`` (serving), ``grid_bilstm_fold``
 (the training route without a gradient), and ``grid_fold_train_pair`` and
-``grid_fold_train_pair_bwd`` (the training route's forward and backward).
+``grid_fold_train_pair_bwd`` (the training route's forward and backward);
+outside the fused grid kernels' gate, ``bilstm_fused_forward`` (serving),
+``lstm_core`` and ``lstm_core_bwd`` (training) and ``lstm_forward`` (the
+training route without a gradient).
 """
 
 from typing import Dict
@@ -12,9 +15,11 @@ from typing import Dict
 from fdbm_tpu_torch.ops.attention import flat_group_norm, frame_attention
 from fdbm_tpu_torch.ops.gridrnn import grid_bilstm_fold, grid_rnn_seq1_pair
 from fdbm_tpu_torch.ops.gridrnn_train import grid_fold_train_pair, grid_fold_train_pair_bwd
+from fdbm_tpu_torch.ops.lstm import bilstm_fused_forward, lstm_core, lstm_core_bwd, lstm_forward
 
 KERNELS = (grid_rnn_seq1_pair, flat_group_norm, frame_attention, grid_bilstm_fold,
-           grid_fold_train_pair, grid_fold_train_pair_bwd)
+           grid_fold_train_pair, grid_fold_train_pair_bwd, bilstm_fused_forward, lstm_core,
+           lstm_core_bwd, lstm_forward)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -27,5 +32,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["grid_rnn_seq1_pair", "flat_group_norm", "frame_attention", "grid_bilstm_fold",
-           "grid_fold_train_pair", "grid_fold_train_pair_bwd", "launch_counts",
-           "reset_launch_counts"]
+           "grid_fold_train_pair", "grid_fold_train_pair_bwd", "bilstm_fused_forward",
+           "lstm_core", "lstm_core_bwd", "lstm_forward", "launch_counts", "reset_launch_counts"]

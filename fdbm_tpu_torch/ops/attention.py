@@ -117,7 +117,7 @@ def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k5 = k.reshape(b, t_len, q_bins, n_head, e_dim)
     v5 = v.reshape(b, t_len, q_bins, n_head, d_dim)
     scores = torch.einsum("btqhe,buqhe->bhtu", q5, k5) * (1.0 / math.sqrt(e_dim * q_bins))
-    attn = torch.softmax(scores.float(), dim=-1)
+    attn = torch.softmax(scores.float(), dim=-1).to(v5.dtype)
     out = torch.einsum("bhtu,buqhd->btqhd", attn, v5)
     return out.reshape(b, t_len, q_bins, n_head * d_dim)
 

@@ -50,6 +50,7 @@
 //   5. then summed over the splits in a fixed order (reduce_kernel). No
 //      atomics: the gradients are the same from run to run.
 #include "gridrnn_core.cuh"
+#include "split_k.cuh"
 
 namespace {
 
@@ -195,7 +196,6 @@ cudaError_t launch_rec_bwd(const float* gates, const float* cs, const float* dhd
 // out[d][m][n] = sum_kk A_d[m][kk] B_d[kk][n] over kk = line * L + l. Block
 // (m tile, n tile, d * splits + sp) sums kk in [sp * depth, (sp+1) * depth)
 // into partial[sp][d][M][N].
-constexpr int WG_BM = 128, WG_BN = 64;
 enum WGrad { W_IH, W_HH, W_DECONV };
 
 template <WGrad KIND>
@@ -269,64 +269,12 @@ wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dout0,
   }
 }
 
-// partial[sp][d][4H] = column sums of dgates[d] over its split of lines x L.
-__global__ void __launch_bounds__(GEMM_THREADS)
-bias_kernel(const float* __restrict__ dgates, float* __restrict__ partial, long long NL, int N,
-            int splits, int depth) {
-  const int d = blockIdx.y / splits, sp = blockIdx.y % splits;
-  const int n = blockIdx.x * GEMM_THREADS + threadIdx.x;
-  if (n >= N) return;
-  const long long k0 = (long long)sp * depth;
-  const long long k1 = k0 + depth < NL ? k0 + depth : NL;
-  const float* g = dgates + (long long)d * NL * N + n;
-  float acc = 0.f;
-  for (long long k = k0; k < k1; ++k) acc += g[k * N];
-  partial[((long long)sp * 2 + d) * N + n] = acc;
-}
-
-// out[i] = sum over sp of partial[sp][i], in split order.
-__global__ void reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                              long long n, int splits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float acc = 0.f;
-  for (int sp = 0; sp < splits; ++sp) acc += partial[sp * n + i];
-  out[i] = acc;
-}
-
-constexpr int SMS = 132;     // H100 SXM streaming multiprocessors
-constexpr int MIN_DEPTH = 512;
-
-// Splits of the lines x L reduction for a product with `tiles` output tiles
-// per direction: about 8 blocks per SM over both directions, each split at
-// least MIN_DEPTH deep.
-int wgrad_splits(long long NL, long long tiles) {
-  long long by_blocks = (8LL * SMS + 2 * tiles - 1) / (2 * tiles);
-  long long by_depth = NL / MIN_DEPTH;
-  long long n = by_blocks < by_depth ? by_blocks : by_depth;
-  return n < 1 ? 1 : (int)n;
-}
-
-int split_depth(long long NL, int splits) {
-  return (int)(((NL + splits - 1) / splits + GEMM_BK - 1) / GEMM_BK * GEMM_BK);
-}
-
-long long tiles_of(int M, int N) {
-  return (long long)((M + WG_BM - 1) / WG_BM) * ((N + WG_BN - 1) / WG_BN);
-}
-
-cudaError_t reduce(const float* partial, float* out, long long n, int splits,
-                   cudaStream_t stream) {
-  reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(partial, out, n, splits);
-  return cudaGetLastError();
-}
-
 template <WGrad KIND>
 cudaError_t wgrad(const float* x, const float* dout0, const float* dout1, const float* hs,
                   const float* dgates, float* work, float* out, int n_lines, int L, int C, int H,
                   int M, int N, cudaStream_t stream) {
   const long long NL = (long long)n_lines * L;
-  const int splits = wgrad_splits(NL, tiles_of(M, N));
+  const int splits = wgrad_splits(NL, tiles_of(M, N), 2);
   const int depth = split_depth(NL, splits);
   dim3 grid((M + WG_BM - 1) / WG_BM, (N + WG_BN - 1) / WG_BN, 2 * splits);
   wgrad_kernel<KIND><<<grid, GEMM_THREADS, 0, stream>>>(x, dout0, dout1, hs, dgates, work,
@@ -334,10 +282,6 @@ cudaError_t wgrad(const float* x, const float* dout0, const float* dout1, const 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce(work, out, 2LL * M * N, splits, stream);
-}
-
-long long wgrad_floats(long long NL, int M, int N) {
-  return (long long)wgrad_splits(NL, tiles_of(M, N)) * 2 * M * N;
 }
 
 }  // namespace
@@ -383,10 +327,10 @@ int grid_fold_train_fwd(const float* x, const float* w_ih, const float* w_hh, co
 // Floats of the backward's reduction workspace.
 long long grid_fold_train_bwd_workspace(int S, int n_lines, int C, int H) {
   const long long NL = (long long)n_lines * (S - (KS - 1));
-  const long long a = wgrad_floats(NL, KS * C, 4 * H);
-  const long long b = wgrad_floats(NL, H, 4 * H);
-  const long long c = wgrad_floats(NL, H, KS * C);
-  const long long e = (long long)wgrad_splits(NL, 1) * 2 * 4 * H;
+  const long long a = wgrad_floats(NL, KS * C, 4 * H, 2);
+  const long long b = wgrad_floats(NL, H, 4 * H, 2);
+  const long long c = wgrad_floats(NL, H, KS * C, 2);
+  const long long e = column_sum_floats(NL, 4 * H, 2);
   const long long ab = a > b ? a : b, ce = c > e ? c : e;
   return ab > ce ? ab : ce;
 }
@@ -427,13 +371,7 @@ int grid_fold_train_bwd(const float* x, const float* doutf, const float* doutb,
   err = wgrad<W_DECONV>(x, doutf, doutb, hs, dgates, work, dwd, n_lines, L, C, H, H, KS * C,
                         stream);
   if (err != cudaSuccess) return err;
-  const int splits = wgrad_splits(NL, 1);
-  dim3 bgrid((N + GEMM_THREADS - 1) / GEMM_THREADS, 2 * splits);
-  bias_kernel<<<bgrid, GEMM_THREADS, 0, stream>>>(dgates, work, NL, N, splits,
-                                                  split_depth(NL, splits));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce(work, dbias, 2LL * N, splits, stream);
+  return column_sums(dgates, work, dbias, NL, N, 2, stream);
 }
 
 }  // extern "C"

@@ -10,8 +10,10 @@ function in plain PyTorch. The source notes of the ``.cu`` files say what
 bounds the kernels on the H100 and how they are laid out. The
 differentiable twin is ``ops/gridrnn_train.py``.
 
-The plain BiLSTM recurrence, :func:`bilstm_plain`, lives here because the
-plain version needs it; ``models/layers.BiLSTM`` wraps it.
+The plain LSTM recurrences, :func:`lstm_plain` (one direction) and
+:func:`bilstm_plain`, live here because the plain version needs them;
+:func:`lstm_plain` is also the plain version of ``ops/lstm.py``'s kernels,
+and so of ``models/layers.BiLSTM``.
 """
 
 from __future__ import annotations
@@ -38,24 +40,30 @@ def _lstm_cell(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torc
     return torch.sigmoid(o) * torch.tanh(c), c
 
 
+def lstm_plain(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
+               reverse: bool = False) -> torch.Tensor:
+    """One LSTM direction over axis 0 of ``x [S, B, D]`` -> ``[S, B, H]``,
+    with ``w_ih [D, 4H]``, ``w_hh [H, 4H]``, ``bias [4H]``; ``reverse`` runs
+    it back to front and keeps the outputs in time order."""
+    s, b, _ = x.shape
+    xp = x @ w_ih + bias
+    h = x.new_zeros(b, w_hh.shape[0])
+    c = torch.zeros_like(h, dtype=torch.float32)
+    ys = [None] * s
+    for t in (range(s - 1, -1, -1) if reverse else range(s)):
+        h, c = _lstm_cell(xp[t] + h @ w_hh, c)
+        ys[t] = h
+    return torch.stack(ys)
+
+
 def bilstm_plain(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
                  bias: torch.Tensor) -> torch.Tensor:
     """Bidirectional LSTM over axis 1 of ``x [N, S, D]`` -> ``[N, S, 2H]``
     (forward ++ backward), with the JAX packing ``w_ih [2, D, 4H]``,
     ``w_hh [2, H, 4H]``, ``bias [2, 4H]`` (direction 1 runs reversed)."""
-    n, s, _ = x.shape
-    hidden = w_hh.shape[1]
-    xp = torch.einsum("nsd,zdg->znsg", x, w_ih) + bias[:, None, None, :]
-    outs = []
-    for z, order in ((0, range(s)), (1, range(s - 1, -1, -1))):
-        h = x.new_zeros(n, hidden)
-        c = x.new_zeros(n, hidden, dtype=torch.float32)
-        ys = [None] * s
-        for t in order:
-            h, c = _lstm_cell(xp[z, :, t] + h @ w_hh[z], c)
-            ys[t] = h
-        outs.append(torch.stack(ys, dim=1))
-    return torch.cat(outs, dim=-1)
+    xs = x.transpose(0, 1)
+    outs = [lstm_plain(xs, w_ih[z], w_hh[z], bias[z], reverse=z == 1) for z in (0, 1)]
+    return torch.cat(outs, dim=-1).transpose(0, 1)
 
 
 def _fold(z: torch.Tensor, c: int) -> torch.Tensor:

@@ -14,6 +14,8 @@ versions only in the order of their sums, so they are held at 1e-4 relative
 kernels' gradients are held at 1e-3 norm-relative per gradient, and a
 training step's parameter gradients at 1e-3 norm-relative per leaf (the JAX
 package's own gates for its training kernel, tests/test_gridrnn_train.py).
+The LSTM kernels of ops/lstm.py are held to the same: 1e-4 on hidden
+states, 1e-3 per gradient.
 """
 
 import numpy as np
@@ -24,6 +26,7 @@ from fdbm_tpu_torch import ops
 from fdbm_tpu_torch.ops import attention as attn_ops
 from fdbm_tpu_torch.ops import gridrnn
 from fdbm_tpu_torch.ops import gridrnn_train
+from fdbm_tpu_torch.ops import lstm as lstm_ops
 
 
 @pytest.fixture
@@ -97,6 +100,17 @@ def test_frame_attention_matches_plain(dev, b, t, q_bins, n_head, e, c):
         assert _rel(got, want) < 1e-4
 
 
+def test_frame_attention_matches_plain_at_head_width_12(dev):
+    """C = 48, 4 heads: D = 12, which the norm kernel does not take, so the
+    model norms on plain ops and calls the attention without norms."""
+    rng = np.random.default_rng(2)
+    q = _rand(rng, (1, 40, 17, 8), 1.0, dev)
+    k = _rand(rng, (1, 40, 17, 8), 1.0, dev)
+    v = _rand(rng, (1, 40, 17, 48), 1.0, dev)
+    got = attn_ops.frame_attention(q, k, v, 4, 2)
+    assert _rel(got, attn_ops.frame_attention_plain(q, k, v, 4, 2)) < 1e-4
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros(1, 10, 4, 12, device=dev)  # C % 8 != 0
     w = torch.zeros(1, device=dev)
@@ -107,12 +121,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         attn_ops.frame_attention(q, q, q, 4, 2)
 
 
-def test_rnn_path_outside_the_gate_raises_on_the_card(dev):
+def test_rnn_path_outside_the_gate_matches_plain_on_the_card(dev):
+    """C > 64: the generic path, whose BiLSTM runs kernel 7 in eval mode."""
     from fdbm_tpu_torch.models.tfgridnet import _RnnPath
 
-    path = _RnnPath(emb_dim=72, hidden=16).to(dev)  # C > 64: JAX's fallback kernel 7
-    with pytest.raises(NotImplementedError, match="bilstm_fused_forward"):
-        path(torch.zeros(1, 10, 3, 72, device=dev))
+    torch.manual_seed(0)
+    path = _RnnPath(emb_dim=72, hidden=16).to(dev).eval()
+    ref = _RnnPath(emb_dim=72, hidden=16, use_kernels=False).to(dev).eval()
+    ref.load_state_dict(path.state_dict())
+    x = torch.randn(2, 13, 3, 72, device=dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = path(x)
+        want = ref(x)
+    assert ops.launch_counts()["bilstm_fused_forward"] == 1
+    assert ops.launch_counts()["grid_rnn_seq1_pair"] == 0
+    assert _rel(got, want) < 1e-4
 
 
 def test_small_backbone_kernels_match_plain_route(dev):
@@ -131,7 +155,9 @@ def test_small_backbone_kernels_match_plain_route(dev):
         want = ref(x, y, t)
     assert ops.launch_counts() == {"grid_rnn_seq1_pair": 4, "flat_group_norm": 6,
                                    "frame_attention": 2, "grid_bilstm_fold": 0,
-                                   "grid_fold_train_pair": 0, "grid_fold_train_pair_bwd": 0}
+                                   "grid_fold_train_pair": 0, "grid_fold_train_pair_bwd": 0,
+                                   "bilstm_fused_forward": 0, "lstm_core": 0,
+                                   "lstm_core_bwd": 0, "lstm_forward": 0}
     assert _rel(got, want) < 1e-4
 
 
@@ -260,6 +286,150 @@ def test_small_backbone_train_step_kernel_route_matches_plain(dev):
         losses.append(float(loss.detach()))
     assert ops.launch_counts()["grid_fold_train_pair"] == 4
     assert ops.launch_counts()["grid_fold_train_pair_bwd"] == 4
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    gnorm = float(torch.sqrt(sum((g * g).sum() for g in grads[1].values())))
+    worst = max(_grad_rel(grads[0][k], grads[1][k], gnorm) for k in grads[1])
+    assert worst < 1e-3
+
+
+LSTM_SHAPES = [
+    (37, 5, 24, 20),     # tests/test_pallas_lstm.py's unaligned sizes (S, B, D, H)
+    (21, 9, 12, 132),    # H > 128; lines not a multiple of the 8-line tile
+    (30, 11, 192, 200),  # the class-default width: D = 4C = 192, H = 200
+    (6, 3, 8, 256),      # the kernels' upper corner, 4H = 1024 threads
+]
+
+
+def _lstm_args(rng, s, b, d, hidden, dev, dirs=()):
+    scale = hidden ** -0.5
+    return (_rand(rng, (s, b, d), 1.0, dev), _rand(rng, (*dirs, d, 4 * hidden), scale, dev),
+            _rand(rng, (*dirs, hidden, 4 * hidden), scale, dev),
+            _rand(rng, (*dirs, 4 * hidden), scale, dev))
+
+
+@pytest.mark.parametrize("s,b,d,hidden", LSTM_SHAPES)
+def test_lstm_forward_kernels_match_plain(dev, s, b, d, hidden):
+    """Kernels 7 and 10 against their plain versions."""
+    rng = np.random.default_rng(8)
+    args = _lstm_args(rng, s, b, d, hidden, dev, dirs=(2,))
+    ops.reset_launch_counts()
+    got = lstm_ops.bilstm_fused_forward(*args)
+    torch.cuda.synchronize()
+    want = lstm_ops.bilstm_fused_forward_plain(*args)
+    for g, w in zip(got, want):
+        assert g.shape == (s, b, hidden) and torch.isfinite(g).all()
+        assert _rel(g, w) < 1e-4
+    one = [a[1] for a in args[1:]]
+    for reverse in (False, True):
+        got = lstm_ops.lstm_forward(args[0], *one, reverse=reverse)
+        torch.cuda.synchronize()
+        assert _rel(got, gridrnn.lstm_plain(args[0], *one, reverse=reverse)) < 1e-4
+    assert ops.launch_counts()["bilstm_fused_forward"] == 1
+    assert ops.launch_counts()["lstm_forward"] == 2
+
+
+@pytest.mark.parametrize("s,b,d,hidden", LSTM_SHAPES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_core_kernels_match_plain(dev, s, b, d, hidden, reverse):
+    """Kernel 8's hidden states and kernel 9's four gradients against the
+    plain recurrence and its autograd, under a random cotangent."""
+    rng = np.random.default_rng(9)
+    args = _lstm_args(rng, s, b, d, hidden, dev)
+    ops.reset_launch_counts()
+    h, stash = lstm_ops.lstm_core_fwd(*args, reverse=reverse)
+    assert _rel(h, gridrnn.lstm_plain(*args, reverse=reverse)) < 1e-4
+    cot = _rand(rng, (s, b, hidden), 1.0, dev)
+    got = lstm_ops.lstm_core_bwd(*args, cot, stash=stash, reverse=reverse)
+    torch.cuda.synchronize()
+    want = lstm_ops.lstm_core_bwd_plain(*args, cot, reverse=reverse)
+    for name, g, w in zip(("dx", "dw_ih", "dw_hh", "dbias"), got, want):
+        assert g.shape == w.shape, name
+        assert _rel(g, w) < 1e-3, name
+    assert ops.launch_counts()["lstm_core"] == 1
+    assert ops.launch_counts()["lstm_core_bwd"] == 1
+
+
+def test_lstm_core_backward_is_deterministic(dev):
+    rng = np.random.default_rng(10)
+    args = _lstm_args(rng, 40, 70, 192, 200, dev)
+    _, stash = lstm_ops.lstm_core_fwd(*args)
+    cot = _rand(rng, (40, 70, 200), 1.0, dev)
+    first = lstm_ops.lstm_core_bwd(*args, cot, stash=stash)
+    again = lstm_ops.lstm_core_bwd(*args, cot, stash=stash)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_gradients_flow_through_lstm_train(dev):
+    """bilstm_train under autograd: kernels 8 and 9 once per direction;
+    without a gradient, kernel 10 once per direction."""
+    rng = np.random.default_rng(11)
+    x, w_ih, w_hh, bias = _lstm_args(rng, 23, 6, 16, 40, dev, dirs=(2,))
+    args = [a.requires_grad_(True) for a in (x, w_ih, w_hh, bias)]
+    cot = _rand(rng, (23, 6, 80), 1.0, dev)
+    ops.reset_launch_counts()
+    (lstm_ops.bilstm_train(*args) * cot).sum().backward()
+    assert ops.launch_counts()["lstm_core"] == 2 and ops.launch_counts()["lstm_core_bwd"] == 2
+    plain = [a.detach().clone().requires_grad_(True) for a in args]
+    plain_out = torch.cat(lstm_ops.bilstm_fused_forward_plain(*plain), dim=-1)
+    (plain_out * cot).sum().backward()
+    for a, p in zip(args, plain):
+        assert a.grad is not None and _rel(a.grad, p.grad) < 1e-3
+    with torch.no_grad():
+        out = lstm_ops.bilstm_train(*args)
+    assert ops.launch_counts()["lstm_forward"] == 2
+    assert _rel(out, plain_out.detach()) < 1e-4
+
+
+def test_lstm_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(12)
+    x, w_ih, w_hh, bias = _lstm_args(rng, 7, 3, 8, 16, dev, dirs=(2,))
+    with pytest.raises(ValueError, match="cpu"):  # a device mix
+        lstm_ops.bilstm_fused_forward(x, w_ih.cpu(), w_hh, bias)
+    with pytest.raises(ValueError, match="H=257"):
+        big = _lstm_args(rng, 2, 1, 4, 257, dev, dirs=(2,))
+        lstm_ops.bilstm_fused_forward(*big)
+    with pytest.raises(ValueError):
+        lstm_ops.lstm_forward(x, w_ih, w_hh, bias)  # packed weights into one direction
+    w = w_ih.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        lstm_ops.bilstm_fused_forward(x, w, w_hh, bias)
+    with pytest.raises(RuntimeError, match="no backward"):
+        lstm_ops.lstm_forward(x, w[0], w_hh[0], bias[0])
+    with torch.no_grad():  # the serving path runs under no_grad
+        lstm_ops.bilstm_fused_forward(x, w, w_hh, bias)
+
+
+def test_small_wide_train_step_kernel_route_matches_plain(dev):
+    """Outside the gate (C = 48, H = 132): one training step through kernels
+    8 and 9 against the all-plain route."""
+    from fdbm_tpu_torch.model import FDBM, FDBMConfig, TrainState
+    from fdbm_tpu_torch.models.tfgridnet import TFGridNet
+
+    cfg = FDBMConfig(backbone="tfgridnet_4l32c80", n_fft=64, hop_length=32, num_frames=16)
+    torch.manual_seed(0)
+    fdbms = []
+    for use_kernels in (True, False):
+        fdbm = FDBM(cfg, device="cuda")
+        fdbm.dnn = TFGridNet(n_layers=1, emb_dim=48, hidden=132,
+                             use_kernels=use_kernels).to(dev)
+        fdbms.append(fdbm)
+    fdbms[1].dnn.load_state_dict(fdbms[0].dnn.state_dict())
+    rng = np.random.default_rng(13)
+    audio = rng.standard_normal((2, 2, 15 * 32)).astype(np.float32) * 0.3
+    batch = fdbms[0].to_device((audio[0], audio[1]))
+    t = torch.tensor([0.3, 0.8], device=dev)
+    z = torch.complex(*(_rand(rng, (2, 1, 33, 16), 0.7, dev) for _ in range(2)))
+    losses, grads = [], []
+    ops.reset_launch_counts()
+    for fdbm in fdbms:
+        state = TrainState(fdbm.dnn)
+        loss = fdbm.loss_fn(batch, prior=(t, z))
+        grads.append(dict(zip(state.params, torch.autograd.grad(loss, list(state.params.values())))))
+        losses.append(float(loss.detach()))
+    assert ops.launch_counts()["lstm_core"] == 4
+    assert ops.launch_counts()["lstm_core_bwd"] == 4
+    assert ops.launch_counts()["grid_fold_train_pair"] == 0
     assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
     gnorm = float(torch.sqrt(sum((g * g).sum() for g in grads[1].values())))
     worst = max(_grad_rel(grads[0][k], grads[1][k], gnorm) for k in grads[1])

@@ -84,8 +84,8 @@ def test_bilstm_matches_flax():
     want = jm.apply(params, jnp.asarray(x))
     pm = players.BiLSTM(12, 10)
     pm.load_state_dict({k: torch.as_tensor(v) for k, v in params["params"].items()})
-    with torch.no_grad():
-        got = pm(torch.as_tensor(x))
+    with torch.no_grad():  # the port's module is sequence-major
+        got = pm(torch.as_tensor(x).transpose(0, 1)).transpose(0, 1)
     assert got.shape == (3, 9, 20)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
@@ -204,7 +204,7 @@ def test_registered_variants_and_gate():
         assert ptfg._kernel_fast_path_ok(32, hidden)
         assert ptfg._kernel_fast_path_ok(32, hidden) == jtfg._pallas_fast_path_ok(32, hidden)
     assert not ptfg._kernel_fast_path_ok(72, 16) and not ptfg._kernel_fast_path_ok(32, 129)
-    # Outside the gate, CPU tensors take the plain route (on the card it raises).
+    # Outside the gate, CPU tensors take the plain route (on the card ops.lstm).
     path = ptfg._RnnPath(emb_dim=12, hidden=6)
     with torch.no_grad():
         assert path(torch.zeros(1, 8, 3, 12)).shape == (1, 8, 3, 12)

@@ -1,7 +1,9 @@
 """The port's training against fdbm_tpu, on the CPU.
 
 A narrow TF-GridNet (1 layer, C=16, H=24, n_fft 64) gets the same Flax
-weights in both packages through ``utils/weights.py``, the same batch, and
+weights in both packages (the one-step test also a wide one, C=48 and H=132:
+outside the fused RNN kernels' gate, so the generic path through
+``ops.lstm``, and with V-norm width 12, so the unfused attention norms) through ``utils/weights.py``, the same batch, and
 JAX's ``(t, z)`` draw from ``FDBM._sample_prior`` injected into the port.
 Tolerances: the loss to rel 1e-5 (fp32, sums in another order); the
 gradients per leaf to norm-rel 1e-3 with the denominator floored at 1e-4 of
@@ -38,6 +40,7 @@ from fdbm_tpu_torch.utils.weights import tfgridnet_from_flax
 
 REPO = Path(__file__).resolve().parents[1]
 NET = dict(n_layers=1, emb_dim=16, hidden=24)
+WIDE_NET = dict(n_layers=1, emb_dim=48, hidden=132)
 MODEL = dict(n_fft=64, hop_length=32, num_frames=16)
 WARMUP = {"scheduler": "warmup", "config": {"warmup_steps": 2, "decay_until_step": 10,
                                             "max_lr": 1e-3, "min_lr": 1e-5}}
@@ -62,18 +65,17 @@ def _batch(seed=0, b=2, frames=16, hop=32):
     return x, y
 
 
-def _jax_fdbm(accumulate=1):
+def _jax_fdbm(accumulate=1, net=NET):
     jf = jmodel.FDBM(jmodel.FDBMConfig(scheduler_config=WARMUP,
                                        accumulate_grad_batches=accumulate, **MODEL))
-    jf.dnn = jf.dnn_sample = jtfg.TFGridNet(**NET)
+    jf.dnn = jf.dnn_sample = jtfg.TFGridNet(**net)
     return jf
 
 
-@pytest.fixture(scope="module")
-def jax_side():
-    """Perturbed Flax params of the narrow net (so ones/zeros inits hide no
-    swapped leaf) and the JAX loss's value_and_grad, compiled once."""
-    jf = _jax_fdbm()
+def _jax_side(net):
+    """Perturbed Flax params of ``net`` (so ones/zeros inits hide no swapped
+    leaf) and the JAX loss's value_and_grad, compiled once."""
+    jf = _jax_fdbm(net=net)
     params = jf.init_params(jax.random.PRNGKey(0))
     rng = np.random.default_rng(1)
     params = jax.tree_util.tree_map(
@@ -82,11 +84,16 @@ def jax_side():
     return jf, params, jax.jit(jax.value_and_grad(jf.loss_fn))
 
 
-def _port(params, accumulate=1):
+@pytest.fixture(scope="module")
+def jax_side():
+    return _jax_side(NET)
+
+
+def _port(params, accumulate=1, net=NET):
     pf = pmodel.FDBM(pmodel.FDBMConfig(scheduler_config=WARMUP,
                                        accumulate_grad_batches=accumulate, **MODEL),
                      device="cpu")
-    pf.dnn = TFGridNet(**NET)
+    pf.dnn = TFGridNet(**net)
     pf.dnn.load_state_dict(tfgridnet_from_flax(params))
     return pf
 
@@ -96,9 +103,10 @@ def _from_jax(tree, keys):
     return {k: sd[k] for k in keys}
 
 
-def test_one_train_step_loss_and_grads_match_jax(jax_side):
-    jf, params, value_and_grad = jax_side
-    pf = _port(params)
+@pytest.mark.parametrize("net", [NET, WIDE_NET], ids=["narrow", "wide"])
+def test_one_train_step_loss_and_grads_match_jax(jax_side, net):
+    jf, params, value_and_grad = jax_side if net is NET else _jax_side(net)
+    pf = _port(params, net=net)
     x, y = _batch()
     key = jax.random.PRNGKey(3)
     t, _, z, _ = jf._sample_prior(key, jf.audio_to_spec(jnp.asarray(x)),
