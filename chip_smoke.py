@@ -19,7 +19,8 @@ and drives the port's paths at the full width of two TF-GridNets:
 * ``TFGridNet()`` at its class defaults (6 blocks, C=48, H=200; called
   6l48c200 here; no registered name), outside the gate, through the
   generic RNN path and the LSTM kernels of ``ops/lstm.py``. Each LSTM
-  kernel against its plain version and beside cuDNN's LSTM, the backbone
+  kernel against its plain version and beside cuDNN's LSTM (with its plan
+  and the time of its forward recurrence alone), the backbone
   against the all-plain route, a 2-step serve against the plain route, one
   4 s request through ``FDBM.enhance_audio`` (profiled once more), one
   training step against the all-plain route, the training rate of steady
@@ -47,7 +48,12 @@ LSTM calls one by one against the plain version (``float64_gate``), and its
     python3 chip_smoke.py --probe-seeds 4 --probe-out readings.json
 
 reads only the 6l48c200 checks over four seeds, the readings the float64
-gate's limits come from.
+gate's limits come from, and
+
+    python3 chip_smoke.py --probe-kernels readings.json
+
+only times the two cluster kernels (frame_attention, the LSTM recurrence)
+with one part of their work switched off at a time.
 """
 
 from __future__ import annotations
@@ -273,6 +279,22 @@ def train_kernel_phase(rand, dev, summary) -> None:
             calls="mean of one intra and one inter call of a B=2, 256-frame step")
 
 
+def recurrence_time(fn, steps: int, calls: int = 3) -> dict:
+    """Device time per call of ``fn`` spent in the forward recurrence
+    (``lstm_rec_kernel``), from torch.profiler, and per step of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms = sum(e.self_device_time_total for e in device_kernels(prof)
+             if "lstm_rec_kernel" in e.key) / 1e3 / calls
+    return {"recurrence_ms": ms, "recurrence_us_per_step": ms / steps * 1e3}
+
+
 def cudnn_lstm(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor, dev):
     """``torch.nn.LSTM`` (cuDNN) computing what the LSTM kernels compute from
     the JAX packing ``w_ih [dirs, D, 4H]``, ``w_hh [dirs, H, 4H]``,
@@ -317,11 +339,13 @@ def lstm_kernel_phase(rand, dev, summary, n_frames: int) -> None:
         lib = cudnn_lstm(*w2, dev)
         rows["bilstm_fused_forward"] = dict(
             shape=list(x.shape), rel_err=err, tol=1e-4, max_abs_err=abs_err,
+            plan=lstm_ops.recurrence_plan(x.shape[1], 2, hidden)._asdict(),
             ms=timed_ms(lambda: lstm_ops.bilstm_fused_forward(x, *w2)),
             plain_ms=timed_ms(lambda: lstm_ops.bilstm_fused_forward_plain(x, *w2), 3),
             bound=bound(2 * n * per_pos, nbytes(x, *w2) + 4 * 2 * n * hidden),
             library_ms=timed_ms(lambda: lib(x)),
             library_rel_err=rel_err(lib(x)[0], torch.cat(want, dim=-1)),
+            **recurrence_time(lambda: lstm_ops.bilstm_fused_forward(x, *w2), length),
             calls="one intra path of a 4 s request (B=1)")
         w1 = tuple(w[0] for w in w2)
         want = gridrnn.lstm_plain(x, *w1)
@@ -329,10 +353,12 @@ def lstm_kernel_phase(rand, dev, summary, n_frames: int) -> None:
         lib = cudnn_lstm(*(w[:1] for w in w2), dev)
         rows["lstm_forward"] = dict(
             shape=list(x.shape), rel_err=err, tol=1e-4, max_abs_err=abs_err,
+            plan=lstm_ops.recurrence_plan(x.shape[1], 1, hidden)._asdict(),
             ms=timed_ms(lambda: lstm_ops.lstm_forward(x, *w1)),
             plain_ms=timed_ms(lambda: gridrnn.lstm_plain(x, *w1), 3),
             bound=bound(n * per_pos, nbytes(x, *w1) + 4 * n * hidden),
             library_ms=timed_ms(lambda: lib(x)), library_rel_err=rel_err(lib(x)[0], want),
+            **recurrence_time(lambda: lstm_ops.lstm_forward(x, *w1), length),
             calls="one direction of one intra path of a 4 s request (B=1)")
     del x, want, lib
 
@@ -351,10 +377,12 @@ def lstm_kernel_phase(rand, dev, summary, n_frames: int) -> None:
     lib_args = [xl, *lib.parameters()]
     rows["lstm_core"] = dict(
         shape=list(x.shape), rel_err=err, tol=1e-4, max_abs_err=abs_err,
+        plan=lstm_ops.recurrence_plan(x.shape[1], 1, hidden, stash=True)._asdict(),
         ms=timed_ms(lambda: lstm_ops.lstm_core_fwd(x, *w1)),
         plain_ms=timed_ms(lambda: gridrnn.lstm_plain(x, *w1), 3),
         bound=bound(n * per_pos, nbytes(x, *w1) + stash_bytes),
         library_ms=timed_ms(lambda: lib(xl)), library_rel_err=rel_err(lib_out.detach(), want),
+        **recurrence_time(lambda: lstm_ops.lstm_core_fwd(x, *w1), length),
         calls="one direction of one intra path of a B=2, 256-frame step, with its stash")
     got = lstm_ops.lstm_core_bwd(x, *w1, cot, stash=stash)
     want = lstm_ops.lstm_core_bwd_plain(x, *w1, cot)
@@ -490,7 +518,19 @@ def wide_serve_phase(rng, dev, noisy: str) -> dict:
           "finite": bool(np.isfinite(enhanced).all())})
     if not ok:
         fail(f"{WIDE} serve: shape {enhanced.shape}, launches {counts}")
-    emit(profile_request(fdbm, noisy, f"profile_{WIDE}"))
+    prof = profile_request(fdbm, noisy, f"profile_{WIDE}")
+    emit(prof)
+    # The forward recurrence on its own: every path of the request runs
+    # S = 260 steps (257 bins + 6 - 3 windows on the intra path, as many
+    # frames on the inter path of a 257-frame request).
+    rec = [k for k in prof.get("top_kernels", ()) if "lstm_rec_kernel" in k["name"]]
+    if not rec:
+        fail(f"{WIDE} request: no lstm_rec_kernel in the profile")
+    calls, ms = sum(k["calls"] for k in rec), sum(k["ms"] for k in rec)
+    steps = 257 + 6 - 3
+    emit({"phase": f"recurrence_{WIDE}", "kernels": [k["name"] for k in rec], "calls": calls,
+          "ms": ms, "ms_per_call": ms / calls, "steps_per_call": steps,
+          "us_per_step": ms / calls / steps * 1e3, "share_of_busy": ms / prof["device_busy_ms"]})
     return counts
 
 
@@ -1007,6 +1047,7 @@ def main() -> None:
     summary["frame_attention"] = dict(
         rel_err=err, tol=1e-4, max_abs_err=abs_err,
         shape=[list(q.shape), list(v.shape)],
+        plan=attn_ops.card_attention_plan(1, n_frames, q_bins, n_head, e_dim, d_dim)._asdict(),
         ms=timed_ms(lambda: attn_ops.frame_attention(q, k, v, n_head, e_dim)),
         plain_ms=timed_ms(lambda: attn_ops.frame_attention_plain(q, k, v, n_head, e_dim)),
         bound=bound(flops, 4 * (q.numel() + k.numel() + 2 * v.numel())),
@@ -1032,14 +1073,26 @@ def main() -> None:
         fail(f"frame_attention at T={long_t} disagrees with its plain version: rel {err}")
     del ql, kl, vl
     # 6l48c200's attention: head width D = C/4 = 12, norms on plain ops first.
+    d12 = WIDE_C // n_head
     vw = rand(1, n_frames, q_bins, WIDE_C)
-    err = rel_err(attn_ops.frame_attention(q, k, vw, n_head, e_dim),
-                  attn_ops.frame_attention_plain(q, k, vw, n_head, e_dim))
+    want = attn_ops.frame_attention_plain(q, k, vw, n_head, e_dim)
+    err = rel_err(attn_ops.frame_attention(q, k, vw, n_head, e_dim), want)
+    vwh = to_heads(vw, d12)
+    sdpa12 = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vwh, scale=scale)
     emit({"phase": "kernel_d12", "name": "frame_attention", "v": list(vw.shape),
-          "rel_err": err, "tol": 1e-4})
+          "rel_err": err, "tol": 1e-4,
+          "plan": attn_ops.card_attention_plan(1, n_frames, q_bins, n_head, e_dim,
+                                               d12)._asdict(),
+          "ms": timed_ms(lambda: attn_ops.frame_attention(q, k, vw, n_head, e_dim)),
+          "plain_ms": timed_ms(lambda: attn_ops.frame_attention_plain(q, k, vw, n_head, e_dim)),
+          "library_ms": timed_ms(sdpa12),
+          "library_rel_err": rel_err(sdpa12().reshape(1, n_head, n_frames, q_bins, d12).permute(
+              0, 2, 3, 1, 4).reshape(want.shape), want),
+          "bound_ms": bound(2 * t2 * q_bins * (e_dim + d12) + 5 * t2,
+                            4 * (q.numel() + k.numel() + 2 * vw.numel()))[0]})
     if not err < 1e-4:
         fail(f"frame_attention at D=12 disagrees with its plain version: rel {err}")
-    del vw
+    del vw, vwh, want
 
     # -- the training kernels at the shapes of one step -----------------------------
     train_kernel_phase(rand, dev, summary)
@@ -1189,6 +1242,142 @@ def probe(first: int, seeds: int, out_path: str) -> None:
         json.dump(readings, f)
 
 
+# Copies of a kernel source with one part of the work switched off
+# (probe_kernels): (file, text to replace, replacement). Timing only: the
+# results of a variant are wrong.
+_ATTN_CU, _LSTM_CU_FILE = "attention.cu", "lstm.cu"
+KERNEL_VARIANTS = {
+    "frame_attention": {
+        "no_values": (_ATTN_CU, "  // -- values: slice `rank` of the value width",
+                      "  return;\n  // -- values"),
+        "no_value_loads": (_ATTN_CU, "      if (ci + p.nvs - 1 < n_chunks) "
+                           "stage_values(ci + p.nvs - 1);", ""),
+        "no_value_fma": (_ATTN_CU, "      if (rgv < p.rg) {\n        const float4* vs",
+                         "      if (rgv < 0) {\n        const float4* vs"),
+        "no_key_loads": (_ATTN_CU, "        copy_lanes(dst + u * AT_KCP + c * ew, ok ? col + "
+                         "(ut0 + u) * qk_row : k, ok, ew);", ""),
+        "no_score_fma": (_ATTN_CU, "    if (dsi < p.ds) {\n      const float* qa",
+                         "    if (dsi < 0) {\n      const float* qa"),
+    },
+    "bilstm_fused_forward": {
+        "no_recurrence": (_LSTM_CU_FILE, "  return launch_rec<false>(xp, w_hh, out, nullptr, S, B, "
+                          "H, dirs, rev, cs, lines, stream);", "  return cudaSuccess;"),
+        "no_product": (_LSTM_CU_FILE, "    for (int k = ks; k < H; k += RC_KS) {",
+                       "    for (int k = ks; k < 0; k += RC_KS) {"),
+        "no_remote_h": (_LSTM_CU_FILE, "      for (int r = 0; r < cs; ++r) cluster.map_shared_rank"
+                        "(hnext, r)[unit * lbp + lq0 + q] = h;",
+                        "      hnext[unit * lbp + lq0 + q] = h;"),
+        "no_cluster_barrier": (_LSTM_CU_FILE, "    }\n    cluster.sync();\n  }\n}",
+                               "    }\n    __syncthreads();\n  }\n  cluster.sync();\n}"),
+        "no_xp_loads": (_LSTM_CU_FILE, "xp[(row0 + q) * N + g * H + unit] : 0.f;", "0.f : 0.f;"),
+    },
+}
+
+
+PROBE_ATTENTION_PLANS = ((24, 3), (32, 3), (40, 3), (40, 4), (48, 4), (24, 2), (8, 1), (16, 1))
+
+
+def probe_kernels(out_path: str) -> None:
+    """Where the time of the two redesigned kernels goes: each variant of
+    KERNEL_VARIANTS is built from a copy of its source and timed at the main
+    path's shape and plan beside the unchanged source, on the same inputs
+    (frame_attention: B=1, T=257, D=8 and 12, and the unchanged kernel at
+    the plans of PROBE_ATTENTION_PLANS; bilstm_fused_forward: 262 lines, two
+    directions, H=200). Writes the times to ``out_path``."""
+    import ctypes
+
+    from fdbm_tpu_torch.ops import _build, attention as attn_ops, lstm as lstm_ops
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+    emit({"phase": "device", "nvidia_smi": smi})
+    _build.build_all()
+    work = tempfile.mkdtemp(prefix="probe_kernels_", dir=_build.BUILD_DIR)
+    rng = np.random.default_rng(SEED)
+    rand = lambda *shape, s=1.0: torch.as_tensor(
+        rng.standard_normal(shape).astype(np.float32) * s, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    readings = {"nvidia_smi": smi}
+    for kernel, variants in KERNEL_VARIANTS.items():
+        src_name = next(iter(variants.values()))[0]
+        src = (_build.CSRC / src_name).read_text()
+        texts = {"unchanged": src}
+        for name, (_, old, new) in variants.items():
+            if src.count(old) != 1:
+                fail(f"probe variant {kernel}/{name}: its text is not in {src_name} once")
+            texts[name] = src.replace(old, new)
+        procs = {}
+        for name, text in texts.items():
+            cu = os.path.join(work, f"{kernel}_{name}.cu")
+            with open(cu, "w") as f:
+                f.write(text)
+            procs[name] = subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+                 cu[:-3] + ".so", cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        libs = {}
+        for name, proc in procs.items():
+            if proc.wait():
+                fail(f"probe variant {kernel}/{name} does not build: {proc.stdout.read()[-2000:]}")
+            libs[name] = ctypes.CDLL(os.path.join(work, f"{kernel}_{name}.so"))
+        if kernel == "frame_attention":
+            for d_dim in (8, 12):
+                q, k = rand(1, 257, 257, 8), rand(1, 257, 257, 8)
+                v = rand(1, 257, 257, 4 * d_dim)
+                out = torch.empty_like(v)
+                plan = attn_ops.card_attention_plan(1, 257, 257, 4, 2, d_dim)
+                row = {"plan": plan._asdict()}
+                for name, lib in libs.items():
+                    fn = lib.frame_attention
+                    fn.argtypes, fn.restype = attn_ops._SIGNATURES["frame_attention"], ctypes.c_int
+                    call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1,
+                                      257, 257, 4, 2, d_dim, 1 / math.sqrt(514), plan.rows,
+                                      plan.slices, stream)
+                    if call():
+                        fail(f"probe variant {kernel}/{name} does not launch")
+                    row[name] = timed_ms(call, 30)
+                # Other plans of the unchanged kernel, with the card's count of their
+                # clusters at once: a grid of more clusters than that runs in two waves.
+                fn = libs["unchanged"].frame_attention
+                mc = libs["unchanged"].frame_attention_max_clusters
+                mc.argtypes = attn_ops._SIGNATURES["frame_attention_max_clusters"]
+                row["plans"] = []
+                for rows_, slices in PROBE_ATTENTION_PLANS:
+                    call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1,
+                                      257, 257, 4, 2, d_dim, 1 / math.sqrt(514), rows_, slices,
+                                      stream)
+                    if call():
+                        continue  # does not fit at this D
+                    row["plans"].append({"rows": rows_, "slices": slices,
+                                         "clusters": 4 * math.ceil(257 / rows_),
+                                         "max_clusters": mc(257, 257, 2, d_dim, rows_, slices),
+                                         "ms": timed_ms(call, 30)})
+                readings[f"{kernel}_d{d_dim}"] = row
+                emit({"phase": "probe_kernels", "kernel": kernel, "D": d_dim, **row})
+        else:
+            x = rand(260, 262, 192)
+            w = (rand(2, 192, 800, s=0.07), rand(2, 200, 800, s=0.07), rand(2, 800, s=0.07))
+            xp, out = torch.empty(2, 260, 262, 800, device=dev), torch.empty(2, 260, 262, 200,
+                                                                              device=dev)
+            plan = lstm_ops.recurrence_plan(262, 2, 200)
+            row = {"plan": plan._asdict()}
+            for name, lib in libs.items():
+                fn = lib.lstm_forward
+                fn.argtypes, fn.restype = lstm_ops._SIGNATURES["lstm_forward"], ctypes.c_int
+                call = lambda: fn(x.data_ptr(), *(t.data_ptr() for t in w), xp.data_ptr(),
+                                  out.data_ptr(), 260, 262, 192, 200, 2, 0, plan.cs, plan.lines,
+                                  stream)
+                if call():
+                    fail(f"probe variant {kernel}/{name} does not launch")
+                row[name] = timed_ms(call, 10)
+            readings[kernel] = row
+            emit({"phase": "probe_kernels", "kernel": kernel, **row})
+    with open(out_path, "w") as f:
+        json.dump(readings, f)
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -1197,8 +1386,13 @@ if __name__ == "__main__":
                         help="only read the 6l48c200 checks over this many seeds (see probe)")
     parser.add_argument("--probe-first", type=int, default=SEED, help="the first probe seed")
     parser.add_argument("--probe-out", help="where --probe-seeds writes its readings (JSON)")
+    parser.add_argument("--probe-kernels", metavar="OUT",
+                        help="only time the redesigned kernels with parts of their work "
+                             "switched off (see probe_kernels), written to OUT (JSON)")
     cli = parser.parse_args()
-    if cli.probe_seeds:
+    if cli.probe_kernels:
+        probe_kernels(cli.probe_kernels)
+    elif cli.probe_seeds:
         if not cli.probe_out:
             parser.error("--probe-seeds needs --probe-out")
         probe(cli.probe_first, cli.probe_seeds, cli.probe_out)

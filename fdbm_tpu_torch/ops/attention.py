@@ -5,15 +5,19 @@ Port of ``fdbm_tpu/ops/attention.py:flat_group_norm`` and
 hand-written kernels from ``csrc/attention.cu``; on a CPU tensor it runs
 its plain PyTorch version (``*_plain`` below). The source note of
 ``csrc/attention.cu`` says what bounds them on the H100 and how they are
-laid out. Unlike the TPU kernel, the CUDA attention takes any number of
-frames T: there is no counterpart of the VMEM gate ``fast_path_ok``.
+laid out. The attention is one launch per call; its plan (query rows per
+block, blocks per cluster) comes from :func:`attention_plan`, which also
+sets its limit on the number of frames T: an 8-row score tile of T floats
+per row must fit in a block's shared memory (about 5180 frames at Q=257;
+the serving path cuts files at 30 s, about 1900 frames).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,11 +26,166 @@ from fdbm_tpu_torch.ops import _build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flat_group_norm": [_P] * 5 + [ctypes.c_longlong, _I, _I, _P],
-    "frame_attention": [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
+    "frame_attention": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+    "frame_attention_smem": [_I] * 6,
+    "frame_attention_max_clusters": [_I] * 6,
 }
+_RESTYPES = {"frame_attention_smem": ctypes.c_longlong}
 _EPS = 1e-5
 
 NormParams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+# The attention kernel's layout constants (csrc/attention.cu: AT_*) and the
+# card's: a block's shared memory and the SMs.
+SMEM_LIMIT, SMS = 232448, 132
+_RM, _UT, _KCP, _DS_MAX, _RING, _NT_MIN, _NT_MAX = 8, 32, 132, 16, 98304, 128, 512
+_STAGES = ((3, 4), (3, 3), (2, 3), (2, 2))  # (key ring, V ring), deepest first
+_PLAN_ROWS = tuple(range(_RM, 65, _RM))
+_PLAN_SLICES = (1, 2, 3, 4)
+
+
+class AttentionPlan(NamedTuple):
+    """How :func:`frame_attention` cuts one call: ``rows`` query rows per
+    block (TR), ``slices`` blocks per cluster, each taking one slice of the
+    value width (NS), ``threads`` per block, ``smem_bytes`` of shared memory
+    per block, ``blocks`` in the grid, and ``max_clusters``, the clusters
+    of this plan the card runs at once."""
+    rows: int
+    slices: int
+    threads: int
+    smem_bytes: int
+    blocks: int
+    max_clusters: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def attention_layout(t_len: int, q_bins: int, e_dim: int, d_dim: int, rows: int,
+                     slices: int) -> Optional[Tuple[int, int]]:
+    """``(threads, shared-memory bytes)`` of a block of the plan (``rows``,
+    ``slices``), as ``csrc/attention.cu:attn_plan`` lays it out, or None if
+    it does not fit a block."""
+    if rows % _RM or not _RM <= rows <= 64 or not 1 <= slices <= 8 or t_len < 1:
+        return None
+    rg = rows // _RM
+    cols = _cdiv(_cdiv(q_bins * d_dim, slices), 8) * 8
+    want = max(rg * (cols // 8), rg * (_UT // 4) * 4)
+    threads = min(_NT_MAX, max(_NT_MIN, _cdiv(want, 32) * 32))
+    tcp = threads // rg
+    ds = min(_DS_MAX, max(1, threads // (rg * (_UT // 4))))
+    for nks, nvs in _STAGES:
+        uk = min(8, max(1, _RING // (nvs * tcp * 8 * 4)))
+        t_pad = _cdiv(t_len, uk) * uk
+        region = max(q_bins * e_dim * rows + nks * _UT * _KCP + ds * rows * _UT,
+                     nvs * uk * tcp * 8, threads + 2 * rows)
+        nbytes = 4 * (t_pad * rows + region)
+        if nbytes <= SMEM_LIMIT:
+            return threads, nbytes
+    return None
+
+
+def attention_max_frames(q_bins: int, e_dim: int, d_dim: int) -> int:
+    """The most frames any plan takes: the T at which an 8-row score tile
+    still fits beside the rest of the block's shared memory."""
+    best = 0
+    for slices in _PLAN_SLICES:
+        lo, hi = 0, 1 << 20
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if attention_layout(mid, q_bins, e_dim, d_dim, _RM, slices) is None:
+                hi = mid - 1
+            else:
+                lo = mid
+        best = max(best, lo)
+    return best
+
+
+def _sectors(width: int, n_head: int) -> float:
+    """32-byte sectors one head's ``width`` lanes of one (frame, bin) touch,
+    averaged over the heads: the heads' lanes share each bin's sectors."""
+    nbytes = 4 * width
+    return sum((h * nbytes + nbytes - 1) // 32 - (h * nbytes) // 32 + 1
+               for h in range(n_head)) / n_head
+
+
+def attention_plan(batch: int, t_len: int, q_bins: int, n_head: int, e_dim: int, d_dim: int,
+                   max_clusters: Optional[Callable[[int, int], int]] = None) -> AttentionPlan:
+    """The plan of one :func:`frame_attention` call. ``max_clusters(rows,
+    slices)`` is the card's count of clusters of that plan that run at once
+    (the wrapper asks the card; by default every SM takes one block). Among
+    the plans that fit (rows a multiple of 8 up to 64, 1-4 slices), those
+    whose grid is one wave come first; then the least estimated time, in
+    cycles of one SM, times the blocks it runs at once: its FMAs at 58 a
+    cycle plus 2 cycles for each 32-byte sector it loads (a head's lanes
+    share their sectors with the other heads', so loads cost by sector, not
+    by byte). Both rates were fitted to the H100 at the main-path shape.
+    Raises ValueError above :func:`attention_max_frames`."""
+    if max_clusters is None:
+        max_clusters = lambda rows, slices: SMS // slices
+    sec_e, sec_d = _sectors(e_dim, n_head), _sectors(d_dim, n_head)
+    best, best_key = None, None
+    for rows in _PLAN_ROWS:
+        for slices in _PLAN_SLICES:
+            lay = attention_layout(t_len, q_bins, e_dim, d_dim, rows, slices)
+            if lay is None:
+                continue
+            at_once = max_clusters(rows, slices)
+            if at_once < 1:
+                continue
+            threads, nbytes = lay
+            clusters = batch * n_head * _cdiv(t_len, rows)
+            waves = _cdiv(clusters, at_once)
+            # Blocks an SM holds at once, and the SMs the clusters spread over.
+            per_sm = _cdiv(at_once * slices, SMS)
+            load = _cdiv(min(clusters, at_once) * slices * per_sm, at_once * slices)
+            keys = _cdiv(t_len, slices)
+            cols = _cdiv(_cdiv(q_bins * d_dim, slices), 8) * 8
+            fma = rows * (keys * q_bins * e_dim + t_len * cols)
+            sectors = (keys + rows) * q_bins * sec_e + t_len * (cols / d_dim) * sec_d
+            cost = waves * load * (fma / 58 + 2 * sectors)
+            key = (waves > 1, cost, slices, -rows)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = AttentionPlan(rows, slices, threads, nbytes, clusters * slices, at_once)
+    if best is None:
+        raise ValueError(
+            f"frame_attention: T={t_len} frames is above the kernel's limit of "
+            f"{attention_max_frames(q_bins, e_dim, d_dim)} at Q={q_bins}, E={e_dim}, "
+            f"D={d_dim}: an 8-row score tile no longer fits in a block's shared memory")
+    return best
+
+
+@functools.lru_cache(maxsize=4096)
+def _card_max_clusters(device_index: int, t_len: int, q_bins: int, e_dim: int, d_dim: int,
+                       rows: int, slices: int) -> int:
+    """The card's ``cudaOccupancyMaxActiveClusters`` for one plan."""
+    with torch.cuda.device(device_index):
+        lib = _build.load("attention", _SIGNATURES, _RESTYPES)
+        n = lib.frame_attention_max_clusters(t_len, q_bins, e_dim, d_dim, rows, slices)
+    if n < 0:
+        raise RuntimeError(f"frame_attention: cudaOccupancyMaxActiveClusters failed "
+                           f"(CUDA error {-n}) for rows={rows}, slices={slices}")
+    return n
+
+
+@functools.lru_cache(maxsize=256)
+def _card_plan(device_index: int, batch: int, t_len: int, q_bins: int, n_head: int, e_dim: int,
+               d_dim: int) -> AttentionPlan:
+    return attention_plan(batch, t_len, q_bins, n_head, e_dim, d_dim,
+                          lambda rows, slices: _card_max_clusters(
+                              device_index, t_len, q_bins, e_dim, d_dim, rows, slices))
+
+
+def card_attention_plan(batch: int, t_len: int, q_bins: int, n_head: int, e_dim: int,
+                        d_dim: int, device: Optional[torch.device] = None) -> AttentionPlan:
+    """:func:`attention_plan` with the card's counts of clusters at once,
+    each queried once: the plan :func:`frame_attention` launches."""
+    dev = torch.device(device if device is not None else "cuda")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _card_plan(index, batch, t_len, q_bins, n_head, e_dim, d_dim)
 
 
 def flat_group_norm_plain(x: torch.Tensor, alpha: torch.Tensor, gamma: torch.Tensor,
@@ -83,7 +242,7 @@ def flat_group_norm(x: torch.Tensor, alpha: torch.Tensor, gamma: torch.Tensor,
     _check("flat_group_norm", "beta", beta, dev, (n_head, width))
     with torch.cuda.device(dev):
         out = torch.empty_like(x)
-        lib = _build.load("attention", _SIGNATURES)
+        lib = _build.load("attention", _SIGNATURES, _RESTYPES)
         code = lib.flat_group_norm(
             x.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
             x.numel(), n_head, width, torch.cuda.current_stream(dev).cuda_stream)
@@ -136,8 +295,9 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns:
       ``[B, T, Q, H*D]``: per head softmax(Q K^T * scale) V, channels
-      merged h-slow, d-fast. The kernels have no backward: on a CUDA
-      tensor this raises if an input requires grad.
+      merged h-slow, d-fast. One kernel launch; no ``[B, H, T, T]`` scores
+      exist in device memory. The kernel has no backward: on a CUDA tensor
+      this raises if an input requires grad.
     """
     if q.device.type == "cpu":
         return frame_attention_plain(q, k, v, n_head, e_dim, norms)
@@ -151,21 +311,30 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if he != n_head * e_dim or hd % n_head:
         raise ValueError(f"frame_attention: lanes {he}/{hd} do not split into "
                          f"{n_head} heads of E={e_dim}")
+    d_dim = hd // n_head
     dev = q.device
     _check("frame_attention", "q", q, dev)
     _check("frame_attention", "k", k, dev, q.shape)
     _check("frame_attention", "v", v, dev, (b, t_len, q_bins, hd))
+    plan = card_attention_plan(b, t_len, q_bins, n_head, e_dim, d_dim, dev)
     with torch.cuda.device(dev):
-        scores = torch.empty((b, n_head, t_len, t_len), device=dev, dtype=torch.float32)
         out = torch.empty_like(v)
-        lib = _build.load("attention", _SIGNATURES)
+        lib = _build.load("attention", _SIGNATURES, _RESTYPES)
         code = lib.frame_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), scores.data_ptr(), out.data_ptr(),
-            b, t_len, q_bins, n_head, e_dim, hd // n_head, 1.0 / math.sqrt(e_dim * q_bins),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "frame_attention")
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, t_len, q_bins, n_head, e_dim, d_dim, 1.0 / math.sqrt(e_dim * q_bins),
+            plan.rows, plan.slices, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, f"frame_attention (plan rows={plan.rows}, slices={plan.slices})")
     frame_attention.launches += 1
     return out
+
+
+def frame_attention_smem(t_len: int, q_bins: int, e_dim: int, d_dim: int, rows: int,
+                         slices: int) -> int:
+    """The kernel's own count of a block's shared memory for a plan (-1 if
+    it does not fit), to hold :func:`attention_layout` to it on the card."""
+    lib = _build.load("attention", _SIGNATURES, _RESTYPES)
+    return lib.frame_attention_smem(t_len, q_bins, e_dim, d_dim, rows, slices)
 
 
 frame_attention.launches = 0

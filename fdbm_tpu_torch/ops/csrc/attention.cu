@@ -16,20 +16,42 @@
 //   S[t, u] = scale * sum_{q, e} Q[t, q, h, e] K[u, q, h, e],
 //   P = softmax_u(S) in fp32, O[t, q, h, d] = sum_u P[t, u] V[u, q, h, d],
 //   with q, k [B, T, Q*H*E], v and o [B, T, Q*H*D], scale 1/sqrt(E*Q).
-//   Bound by operations at the production shape (1.35 GFLOP fp32 per call
-//   at B=1, T=256, Q=257 against 21 MB of tensors). Design: three kernels,
-//   attn_scores_kernel and attn_values_kernel are tiled fp32 products that
-//   read the head's interleaved lanes in place through their offsets, and
-//   attn_softmax_kernel normalises one score row per block. Unlike the TPU
-//   kernel, which keeps a query tile's scores in VMEM, this version writes
-//   the [B, H, T, T] scores to device memory (2 MB at B=2, T=256) and reads
-//   them back twice; in exchange it takes any T, with no tiling ladder or
-//   VMEM gate.
+//
+//   What bounds it on the H100: fp32 operations (1.36 GFLOP at B=1, T=257,
+//   Q=257, D=8 against 21 MB of tensors, 0.020 ms on the CUDA cores), four
+//   fifths of them in the value product, whose width Q*D (2056; 3084 at
+//   D=12) is 4-6 times the score depth Q*E. Then the loads: a head's lanes
+//   are 2 (E) or 8-12 (D) floats at a stride of H*E or H*D, so a copy takes
+//   8 or 32 bytes of each 128-byte line, loads cost by line rather than by
+//   byte, and a warp waits while its copies are dispatched. Measured with
+//   chip_smoke.py --probe-kernels at the main-path shape: of 0.139 ms the
+//   value FMAs take about 46 us, the V loads 21, the key loads 15, the score
+//   FMAs 19.
+//
+//   Design: one kernel per call, no scores in device memory. A block takes
+//   one batch item, one head and TR query rows; a cluster of NS blocks
+//   shares them. Rank r of the cluster computes the scores of keys
+//   [r*T/NS, (r+1)*T/NS) against the TR rows (the q tile staged once in
+//   shared memory, keys streamed through a two-stage cp.async ring, 8 rows
+//   x 4 keys per thread with the depth split over threads) and writes them
+//   into the score tile of every block of its cluster through distributed
+//   shared memory, so no block recomputes a score and each reads only its
+//   share of the keys. After one cluster barrier each block takes the fp32
+//   softmax of its TR x T copy (max, expf, 1/sum) and sweeps slice r of the
+//   value width: P from shared memory, V through a two-stage cp.async ring
+//   of vector copies, 8 rows x 8 columns per thread, written straight to
+//   the head-minor output. Arithmetic is fp32 FMA on the CUDA cores (see
+//   tile_gemm.cuh on TF32). The plan (TR, NS) is chosen by the wrapper
+//   (ops/attention.py: attention_plan) and checked here by attn_plan, whose
+//   shared-memory layout the wrapper mirrors; a plan that does not fit is
+//   refused, never cut short.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 
-#include "tile_gemm.cuh"
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -89,108 +111,383 @@ cudaError_t launch_group_norm(const float* x, const float* alpha, const float* g
 }
 
 // ---- frame_attention ----------------------------------------------------------------
-constexpr int SC_BM = 32, SC_BN = 32;  // score tiles: T x T is small, keep many blocks
-constexpr int VA_BM = 64, VA_BN = 64;
+constexpr int AT_RM = 8;              // query rows per thread in both products
+constexpr int AT_UT = 32;             // keys per score tile (4 per thread, strided by 8)
+constexpr int AT_KC = 128;            // depth of a staged key chunk
+constexpr int AT_KCP = AT_KC + 4;     // its row stride: keys 8 apart land in other banks
+constexpr int AT_DS_MAX = 16;         // depth split of the score product
+constexpr int AT_RING_BYTES = 98304;  // the V ring, all stages
+constexpr int AT_MIN_THREADS = 128, AT_MAX_THREADS = 512;
+// (key ring, V ring) stages, deepest first: the first that fits is taken.
+constexpr int AT_STAGES[4][2] = {{3, 4}, {3, 3}, {2, 3}, {2, 2}};
+constexpr long long SMEM_LIMIT = 232448;  // a block's shared memory on the H100 (227 KB)
 
-// grid (u tiles, t tiles, B*H); scores [B, H, T, T].
-__global__ void __launch_bounds__(GEMM_THREADS)
-attn_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   float* __restrict__ scores, int T, int Q, int H, int E, float scale) {
-  __shared__ __align__(16) float smem[GemmTile<SC_BM, SC_BN>::SMEM_FLOATS];
-  const int bh = blockIdx.z;
-  const long long b = bh / H;
-  const int h = bh % H;
-  const int t0 = blockIdx.y * SC_BM, u0 = blockIdx.x * SC_BN;
-  const long long row_len = (long long)Q * H * E;
-  // Depth index kk = q*E + e reads lane q*H*E + h*E + e of a frame.
-  auto lane = [&](int kk) -> long long { return (long long)(kk / E) * H * E + h * E + kk % E; };
-  auto a_row = [&](int m) -> long long { return t0 + m < T ? (b * T + t0 + m) * row_len : -1; };
-  auto b_n = [&](int n) -> long long { return u0 + n < T ? (b * T + u0 + n) * row_len : -1; };
-  float acc[SC_BM / 16][SC_BN / 16];
-  gemm_tile<SC_BM, SC_BN, true>(Q * E, q, a_row, lane, k, lane, b_n, acc, smem);
-  float* s = scores + (long long)bh * T * T;
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ __forceinline__ int round_up(int a, int b) { return cdiv(a, b) * b; }
+
+struct AttnPlan {
+  int tr, ns;   // query rows per block; blocks per cluster (slices of the value width)
+  int rg;       // row groups of AT_RM rows
+  int nt;       // threads
+  int keys;     // keys per rank, ceil(T / ns)
+  int slice;    // value columns per rank, a multiple of 8
+  int tcp;      // thread columns (8 value columns each) per pass, nt / rg
+  int nks;      // stages of the key ring
+  int nvs;      // stages of the V ring
+  int uk;       // key rows per V ring stage
+  int ds;       // depth split of the score product
+  int t_pad;    // score rows held: T rounded up to uk
+  int region;   // floats shared by the score phase and the value phase
+  long long bytes;
+};
+
+// The layout of a plan; false if it does not fit a block.
+bool attn_plan(int T, int Q, int E, int D, int tr, int ns, AttnPlan& p) {
+  if (T < 1 || tr < AT_RM || tr > 64 || tr % AT_RM || ns < 1 || ns > 8) return false;
+  p.tr = tr;
+  p.ns = ns;
+  p.rg = tr / AT_RM;
+  p.keys = cdiv(T, ns);
+  p.slice = round_up(cdiv(Q * D, ns), 8);
+  const int want = std::max(p.rg * (p.slice / 8), p.rg * (AT_UT / 4) * 4);
+  p.nt = std::min(AT_MAX_THREADS, std::max(AT_MIN_THREADS, round_up(want, 32)));
+  p.tcp = p.nt / p.rg;
+  p.ds = std::min(AT_DS_MAX, std::max(1, p.nt / (p.rg * (AT_UT / 4))));
+  for (const auto& st : AT_STAGES) {
+    p.nks = st[0];
+    p.nvs = st[1];
+    p.uk = std::min(8, std::max(1, AT_RING_BYTES / (p.nvs * p.tcp * 8 * 4)));
+    p.t_pad = round_up(T, p.uk);
+    const int scores = Q * E * tr + p.nks * AT_UT * AT_KCP + p.ds * tr * AT_UT;
+    const int ring = p.nvs * p.uk * p.tcp * 8;
+    p.region = std::max(std::max(scores, ring), p.nt + 2 * tr);
+    p.bytes = 4LL * ((long long)p.t_pad * tr + p.region);
+    if (p.bytes <= SMEM_LIMIT) return true;
+  }
+  return false;
+}
+
+// cp.async of N bytes (4, 8 or 16); zero-fills the destination when !valid.
+template <int N>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? N : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(N),
+               "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// Waits until at most n (0-3) of this thread's newest groups are pending.
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n <= 0) cp_async_wait<0>();
+  else if (n == 1) cp_async_wait<1>();
+  else if (n == 2) cp_async_wait<2>();
+  else cp_async_wait<3>();
+}
+
+__device__ __forceinline__ void copy_lanes(float* dst, const float* src, bool valid, int w) {
+  if (w == 4) cp_async<16>(dst, src, valid);
+  else if (w == 2) cp_async<8>(dst, src, valid);
+  else cp_async<4>(dst, src, valid);
+}
+
+__device__ __forceinline__ void unpack(const float4 a, float* o) {
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+}
+
+// How the nt threads of a block cover an ncols x nrows staging copy: each
+// thread a column (or, past nt columns, every nt-th column) and every
+// rstep-th row, so the column's source offset is computed once per column,
+// not once per copy.
+struct Cover {
+  int c0, cstep, r0, rstep;
+  bool active;
+};
+__device__ __forceinline__ Cover cover(int ncols, int nt, int tid) {
+  if (ncols >= nt) return {tid, nt, 0, 1, true};
+  const int per = nt / ncols;
+  return {tid % ncols, ncols, tid / ncols, per, tid < per * ncols};
+}
+
+// grid (ns * row tiles, H, B), clusters of ns blocks along x; VW the widest
+// vector (4, 2 or 1 floats) that divides D. Every warp stages a share of
+// each copy: dispatching the copies (a sector of each 128-byte line) is what
+// bounds the loads, and it runs on all four schedulers of the SM.
+template <int VW>
+__global__ void __launch_bounds__(AT_MAX_THREADS)
+attn_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+            float* __restrict__ out, int T, int Q, int H, int E, int D, float scale,
+            AttnPlan p) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, nt = p.nt, tr = p.tr;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int t0 = (blockIdx.x / p.ns) * tr;
+  const int QE = Q * E, HE = H * E, HD = H * D;
+  const long long qk_row = (long long)Q * HE, v_row = (long long)Q * HD;
+  float* sP = smem;                         // [t_pad][tr] scores, then probabilities
+  float* sQ = smem + (long long)p.t_pad * tr;  // [QE][tr]
+  float* sK = sQ + QE * tr;                 // [nks][AT_UT][AT_KCP]
+  float* part = sK + p.nks * AT_UT * AT_KCP;  // [ds][tr][AT_UT]
+  float* ring = sQ;                         // value phase: [nvs][uk][2][tcp][4]
+  float* red = sQ;                          // softmax: [nt] partials, [2][tr] row results
+
+  // -- the padding rows of the scores; the query tile rides with the first keys --
+  for (int e = T * tr + tid; e < p.t_pad * tr; e += nt) sP[e] = 0.f;
+  const Cover cq = cover(QE, nt, tid);
+  if (cq.active)
+    for (int kk = cq.c0; kk < QE; kk += cq.cstep) {
+      const float* col = q + b * T * qk_row + (kk / E) * HE + h * E + kk % E;
+      for (int r = cq.r0; r < tr; r += cq.rstep) {
+        const int t = t0 + r;
+        cp_async<4>(sQ + kk * tr + r, t < T ? col + t * qk_row : q, t < T);
+      }
+    }
+  cluster.sync();  // every block of the cluster runs before any remote write
+
+  // -- scores of keys [ua, ub) into every block's sP ----------------------------
+  // The rank's keys go in n_ut tiles of ut keys (a multiple of 8, at most
+  // AT_UT), as even as that allows; key tile x depth chunk is one step.
+  const int ua = rank * p.keys, ub = min(T, ua + p.keys);
+  const int n_ut = ub > ua ? cdiv(ub - ua, AT_UT) : 0;
+  const int ut = n_ut ? round_up(cdiv(ub - ua, n_ut), 8) : 0;
+  const int nkc = cdiv(QE, AT_KC);
+  const int steps = n_ut * nkc;
+  const int ew = E % 4 == 0 ? 4 : (E % 2 == 0 ? 2 : 1);
+  auto stage_keys = [&](int i) {
+    const int ut0 = ua + (i / nkc) * ut, kc0 = (i % nkc) * AT_KC;
+    const int per_key = min(AT_KC, QE - kc0) / ew;
+    float* dst = sK + (i % p.nks) * AT_UT * AT_KCP;
+    const Cover ck = cover(per_key, nt, tid);
+    if (!ck.active) return;
+    for (int c = ck.c0; c < per_key; c += ck.cstep) {
+      const int kg = kc0 + c * ew;
+      const float* col = k + b * T * qk_row + (kg / E) * HE + h * E + kg % E;
+      for (int u = ck.r0; u < ut; u += ck.rstep) {
+        const bool ok = ut0 + u < ub;
+        copy_lanes(dst + u * AT_KCP + c * ew, ok ? col + (ut0 + u) * qk_row : k, ok, ew);
+      }
+    }
+  };
+  const int uq = tid % (AT_UT / 4), rgs = (tid / (AT_UT / 4)) % p.rg;
+  const int dsi = tid / ((AT_UT / 4) * p.rg);
+  float acc[AT_RM][4];
 #pragma unroll
-  for (int i = 0; i < SC_BM / 16; ++i) {
-    const int t = t0 + tile_row<SC_BM, SC_BN>(i);
+  for (int i = 0; i < AT_RM; ++i)
 #pragma unroll
-    for (int j = 0; j < SC_BN / 16; ++j) {
-      const int u = u0 + tile_col(j);
-      if (t < T && u < T) s[(long long)t * T + u] = acc[i][j] * scale;
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < p.nks - 1; ++i) {
+    if (i < steps) stage_keys(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < steps; ++i) {
+    if (i + p.nks - 1 < steps) stage_keys(i + p.nks - 1);
+    cp_async_commit();
+    cp_async_wait_n(p.nks - 1);
+    __syncthreads();
+    const int kc0 = (i % nkc) * AT_KC, kn = min(AT_KC, QE - kc0);
+    if (dsi < p.ds) {
+      const float* qa = sQ + kc0 * tr + rgs * AT_RM;
+      const float* kb = sK + (i % p.nks) * AT_UT * AT_KCP + uq * AT_KCP;
+#pragma unroll 2
+      for (int kk = dsi; kk < kn; kk += p.ds) {
+        float a[AT_RM], bk[4];
+        unpack(*reinterpret_cast<const float4*>(qa + kk * tr), a);
+        unpack(*reinterpret_cast<const float4*>(qa + kk * tr + 4), a + 4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j * 8 < ut) bk[j] = kb[j * 8 * AT_KCP + kk];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j * 8 < ut)
+#pragma unroll
+            for (int r = 0; r < AT_RM; ++r) acc[r][j] = fmaf(a[r], bk[j], acc[r][j]);
+      }
+    }
+    if (i % nkc == nkc - 1) {
+      // Last chunk of this key tile: sum the depth split, scale, scatter.
+      if (dsi < p.ds) {
+#pragma unroll
+        for (int r = 0; r < AT_RM; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            part[(dsi * tr + rgs * AT_RM + r) * AT_UT + uq + 8 * j] = acc[r][j];
+            acc[r][j] = 0.f;
+          }
+      }
+      __syncthreads();
+      const int ut0 = ua + (i / nkc) * ut;
+      for (int o = tid; o < tr * ut; o += nt) {
+        const int r = o / ut, u = o % ut;
+        if (ut0 + u >= ub) continue;
+        float s = 0.f;
+        for (int d = 0; d < p.ds; ++d) s += part[(d * tr + r) * AT_UT + u];
+        s *= scale;
+        for (int rr = 0; rr < p.ns; ++rr)
+          cluster.map_shared_rank(sP, rr)[(long long)(ut0 + u) * tr + r] = s;
+      }
+    }
+    __syncthreads();  // stage i of the ring and the partials are free again
+  }
+  cp_async_wait<0>();
+  cluster.sync();  // every block holds all TR x T scores; no remote access after this
+
+  // -- softmax of each row, in place -----------------------------------------------
+  {
+    const int parts = nt / tr, r = tid % tr, pi = tid / tr;
+    float m = -INFINITY;
+    if (pi < parts)
+      for (int u = pi; u < T; u += parts) m = fmaxf(m, sP[(long long)u * tr + r]);
+    red[tid] = m;
+    __syncthreads();
+    if (tid < tr) {
+      for (int j = 1; j < parts; ++j) m = fmaxf(m, red[j * tr + tid]);
+      red[nt + tid] = m;
+    }
+    __syncthreads();
+    m = red[nt + r];
+    float sum = 0.f;
+    if (pi < parts)
+      for (int u = pi; u < T; u += parts) sum += expf(sP[(long long)u * tr + r] - m);
+    __syncthreads();
+    red[tid] = sum;
+    __syncthreads();
+    if (tid < tr) {
+      for (int j = 1; j < parts; ++j) sum += red[j * tr + tid];
+      red[nt + tr + tid] = 1.f / sum;
+    }
+    __syncthreads();
+    const float inv = red[nt + tr + r];
+    if (pi < parts)
+      for (int u = pi; u < T; u += parts) {
+        float* s = sP + (long long)u * tr + r;
+        *s = expf(*s - m) * inv;
+      }
+    __syncthreads();
+  }
+
+  // -- values: slice `rank` of the value width -------------------------------------
+  const int c_lo = rank * p.slice, c_hi = min(Q * D, c_lo + p.slice);
+  if (c_lo >= c_hi) return;
+  const int tcp = p.tcp, rgv = tid / tcp, tcx = tid % tcp;
+  const int stage_floats = p.uk * 2 * tcp * 4;
+  const int cpr = tcp * (8 / VW);  // vector copies per key row
+  const int passes = cdiv(cdiv(c_hi - c_lo, 8), tcp);
+  const int n_chunks = p.t_pad / p.uk;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int col0 = c_lo + pass * tcp * 8;
+    const Cover cv = cover(cpr, nt, tid);
+    auto stage_values = [&](int ci) {
+      if (!cv.active) return;
+      const int u0 = ci * p.uk;
+      float* dst = ring + (ci % p.nvs) * stage_floats;
+      for (int c = cv.c0; c < cpr; c += cv.cstep) {
+        const int tcl = c / (8 / VW), j = (c % (8 / VW)) * VW, n = col0 + tcl * 8 + j;
+        const float* col = v + b * T * v_row + (n / D) * HD + h * D + n % D;
+        float* dcol = dst + ((j >> 2) * tcp + tcl) * 4 + (j & 3);
+        for (int uu = cv.r0; uu < p.uk; uu += cv.rstep) {
+          const bool ok = u0 + uu < T && n < c_hi;
+          cp_async<VW * 4>(dcol + uu * 2 * tcp * 4, ok ? col + (u0 + uu) * v_row : v, ok);
+        }
+      }
+    };
+    float o[AT_RM][8];
+#pragma unroll
+    for (int i = 0; i < AT_RM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[i][j] = 0.f;
+    for (int ci = 0; ci < p.nvs - 1; ++ci) {
+      if (ci < n_chunks) stage_values(ci);
+      cp_async_commit();
+    }
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      if (ci + p.nvs - 1 < n_chunks) stage_values(ci + p.nvs - 1);
+      cp_async_commit();
+      cp_async_wait_n(p.nvs - 1);
+      __syncthreads();
+      if (rgv < p.rg) {
+        const float4* vs = reinterpret_cast<const float4*>(ring + (ci % p.nvs) * stage_floats);
+        const float* ps = sP + (long long)ci * p.uk * tr + rgv * AT_RM;
+#pragma unroll 2
+        for (int uu = 0; uu < p.uk; ++uu) {
+          float a[AT_RM], w[8];
+          unpack(*reinterpret_cast<const float4*>(ps + uu * tr), a);
+          unpack(*reinterpret_cast<const float4*>(ps + uu * tr + 4), a + 4);
+          unpack(vs[(uu * 2) * tcp + tcx], w);
+          unpack(vs[(uu * 2 + 1) * tcp + tcx], w + 4);
+#pragma unroll
+          for (int i = 0; i < AT_RM; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) o[i][j] = fmaf(a[i], w[j], o[i][j]);
+        }
+      }
+      __syncthreads();
+    }
+    cp_async_wait<0>();
+    if (rgv < p.rg) {
+#pragma unroll
+      for (int i = 0; i < AT_RM; ++i) {
+        const int t = t0 + rgv * AT_RM + i;
+        if (t >= T) continue;
+        float* orow = out + (b * T + t) * v_row + h * D;
+#pragma unroll
+        for (int j = 0; j < 8; j += VW) {
+          const int n = col0 + tcx * 8 + j;
+          if (n >= c_hi) continue;
+          float* dst = orow + (n / D) * HD + n % D;
+          if constexpr (VW == 4) {
+            *reinterpret_cast<float4*>(dst) = make_float4(o[i][j], o[i][j + 1], o[i][j + 2],
+                                                          o[i][j + 3]);
+          } else if constexpr (VW == 2) {
+            *reinterpret_cast<float2*>(dst) = make_float2(o[i][j], o[i][j + 1]);
+          } else {
+            *dst = o[i][j];
+          }
+        }
+      }
     }
   }
 }
 
-// One block per score row: max, sum of exponentials, normalise, in place.
-constexpr int SM_THREADS = 256;
+using AttnKernel = void (*)(const float*, const float*, const float*, float*, int, int, int,
+                           int, int, float, AttnPlan);
 
-__device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = is_max ? fmaxf(v, w) : v + w;
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < SM_THREADS / 32 ? red[lane] : (is_max ? -INFINITY : 0.f);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float w = __shfl_xor_sync(0xffffffffu, v, o);
-      v = is_max ? fmaxf(v, w) : v + w;
-    }
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  v = red[0];
-  __syncthreads();
-  return v;
+AttnKernel attn_kernel_for(int D) {
+  if (D % 4 == 0) return attn_kernel<4>;
+  if (D % 2 == 0) return attn_kernel<2>;
+  return attn_kernel<1>;
 }
 
-__global__ void __launch_bounds__(SM_THREADS)
-attn_softmax_kernel(float* __restrict__ scores, int T) {
-  __shared__ float red[SM_THREADS / 32];
-  float* row = scores + (long long)blockIdx.x * T;
-  float m = -INFINITY;
-  for (int u = threadIdx.x; u < T; u += SM_THREADS) m = fmaxf(m, row[u]);
-  m = block_reduce(m, true, red);
-  float sum = 0.f;
-  for (int u = threadIdx.x; u < T; u += SM_THREADS) sum += expf(row[u] - m);
-  sum = block_reduce(sum, false, red);
-  const float inv = 1.f / sum;
-  for (int u = threadIdx.x; u < T; u += SM_THREADS) row[u] = expf(row[u] - m) * inv;
-}
+// The launch configuration of a plan, with the kernel's shared memory set.
+struct AttnLaunch {
+  AttnKernel fn;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+};
 
-// grid (n tiles over Q*D, t tiles, B*H); out [B, T, Q*H*D].
-__global__ void __launch_bounds__(GEMM_THREADS)
-attn_values_kernel(const float* __restrict__ probs, const float* __restrict__ v,
-                   float* __restrict__ out, int T, int Q, int H, int D) {
-  __shared__ __align__(16) float smem[GemmTile<VA_BM, VA_BN>::SMEM_FLOATS];
-  const int bh = blockIdx.z;
-  const long long b = bh / H;
-  const int h = bh % H;
-  const int t0 = blockIdx.y * VA_BM, n0 = blockIdx.x * VA_BN;
-  const long long row_len = (long long)Q * H * D;
-  const int NQD = Q * D;
-  // Column index n = q*D + d is lane q*H*D + h*D + d of a frame.
-  auto lane = [&](int n) -> long long { return (long long)(n / D) * H * D + h * D + n % D; };
-  const float* p = probs + (long long)bh * T * T;
-  auto a_row = [&](int m) -> long long { return t0 + m < T ? (long long)(t0 + m) * T : -1; };
-  auto a_col = [&](int kk) -> long long { return kk; };
-  auto b_k = [&](int kk) -> long long { return (b * T + kk) * row_len; };
-  auto b_n = [&](int n) -> long long { return n0 + n < NQD ? lane(n0 + n) : -1; };
-  float acc[VA_BM / 16][VA_BN / 16];
-  gemm_tile<VA_BM, VA_BN, false>(T, p, a_row, a_col, v, b_k, b_n, acc, smem);
-#pragma unroll
-  for (int i = 0; i < VA_BM / 16; ++i) {
-    const int t = t0 + tile_row<VA_BM, VA_BN>(i);
-    if (t >= T) continue;
-#pragma unroll
-    for (int j = 0; j < VA_BN / 16; ++j) {
-      const int n = n0 + tile_col(j);
-      if (n < NQD) out[(b * T + t) * row_len + lane(n)] = acc[i][j];
-    }
-  }
+cudaError_t attn_launch_config(AttnLaunch& L, const AttnPlan& p, int D, dim3 grid,
+                               cudaStream_t stream) {
+  L.fn = attn_kernel_for(D);
+  cudaError_t err = cudaFuncSetAttribute(L.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(p.bytes));
+  if (err != cudaSuccess) return err;
+  L.cfg = {};
+  L.cfg.gridDim = grid;
+  L.cfg.blockDim = dim3(p.nt);
+  L.cfg.dynamicSmemBytes = p.bytes;
+  L.cfg.stream = stream;
+  L.attr[0].id = cudaLaunchAttributeClusterDimension;
+  L.attr[0].val.clusterDim.x = p.ns;
+  L.attr[0].val.clusterDim.y = 1;
+  L.attr[0].val.clusterDim.z = 1;
+  L.cfg.attrs = L.attr;
+  L.cfg.numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -214,20 +511,40 @@ int flat_group_norm(const float* x, const float* alpha, const float* gamma, cons
   }
 }
 
-// q, k [B, T, Q*H*E]; v, out [B, T, Q*H*D]; scores scratch [B, H, T, T].
-int frame_attention(const float* q, const float* k, const float* v, float* scores, float* out,
-                    int B, int T, int Q, int H, int E, int D, float scale, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int BH = B * H;
-  dim3 sgrid((T + SC_BN - 1) / SC_BN, (T + SC_BM - 1) / SC_BM, BH);
-  attn_scores_kernel<<<sgrid, GEMM_THREADS, 0, stream>>>(q, k, scores, T, Q, H, E, scale);
-  cudaError_t err = cudaGetLastError();
+// Dynamic shared memory of the attention plan (tr, ns), or -1 if it does not fit.
+long long frame_attention_smem(int T, int Q, int E, int D, int tr, int ns) {
+  AttnPlan p;
+  return attn_plan(T, Q, E, D, tr, ns, p) ? p.bytes : -1;
+}
+
+// The card's most clusters of the plan (tr, ns) that can run at once
+// (cudaOccupancyMaxActiveClusters), 0 if the plan does not fit a block, or
+// minus a CUDA error.
+int frame_attention_max_clusters(int T, int Q, int E, int D, int tr, int ns) {
+  AttnPlan p;
+  if (!attn_plan(T, Q, E, D, tr, ns, p)) return 0;
+  AttnLaunch L;
+  cudaError_t err = attn_launch_config(L, p, D, dim3(ns), nullptr);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, L.fn, &L.cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// q, k [B, T, Q*H*E]; v, out [B, T, Q*H*D]; the plan: tr query rows per
+// block, clusters of ns blocks.
+int frame_attention(const float* q, const float* k, const float* v, float* out, int B, int T,
+                    int Q, int H, int E, int D, float scale, int tr, int ns, void* stream_ptr) {
+  AttnPlan p;
+  if (B < 1 || Q < 1 || H < 1 || E < 1 || D < 1 || B > 65535 || H > 65535 ||
+      !attn_plan(T, Q, E, D, tr, ns, p))
+    return cudaErrorInvalidValue;
+  AttnLaunch L;
+  cudaError_t err = attn_launch_config(L, p, D, dim3(ns * cdiv(T, tr), H, B),
+                                       static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return err;
-  attn_softmax_kernel<<<(unsigned)((long long)BH * T), SM_THREADS, 0, stream>>>(scores, T);
-  err = cudaGetLastError();
+  err = cudaLaunchKernelEx(&L.cfg, L.fn, q, k, v, out, T, Q, H, E, D, scale, p);
   if (err != cudaSuccess) return err;
-  dim3 vgrid((Q * D + VA_BN - 1) / VA_BN, (T + VA_BM - 1) / VA_BM, BH);
-  attn_values_kernel<<<vgrid, GEMM_THREADS, 0, stream>>>(scores, v, out, T, Q, H, D);
   return cudaGetLastError();
 }
 

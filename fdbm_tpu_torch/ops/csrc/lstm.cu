@@ -16,33 +16,34 @@
 //
 // What bounds it on the H100: the recurrence. Each step of a line needs the
 // whole previous state, so the S steps are a chain of [lines, H] x [H, 4H]
-// products. At H = 200, w_hh is 200 x 800 x 4 B = 640 KB per direction:
-// nearly three times the 227 KB of shared memory a block can have, so unlike
-// gridrnn_core.cuh's recurrence (4H <= 512, w_hh on one SM) it cannot stay
-// on chip, and every block re-reads most of it from L2 every step. The
-// recurrence is L2-bandwidth-bound: per step, blocks x (H - R) rows x 16H
-// bytes, R the rows that do fit in shared memory. The input projection
-// (x @ w_ih for all S x B positions) and the backward's reductions are
-// tiled products over all positions at once.
+// products, and a step's time is the latency of that chain. At H = 200,
+// w_hh is 200 x 800 x 4 B = 640 KB per direction: nearly three times the
+// 227 KB of shared memory a block can have, so one block cannot hold it
+// (unlike gridrnn_core.cuh's recurrence, 4H <= 512). A block that streams
+// the rest from L2 every step waits on L2 latency and two barriers per step
+// with a third of the SMs busy. The input projection (x @ w_ih for all
+// S x B positions) and the backward's reductions are tiled products over
+// all positions at once.
 //
 // What the design does about it:
 //   Forward: dense_kernel computes the pre-activations x @ w_ih + b of
 //   every position and direction (tile_gemm.cuh) into device memory; then
-//   lstm_rec_kernel runs the recurrence, one block per direction and LB = 8
-//   lines (so each step's w_hh stream serves 8 lines; 262 lines and two
-//   directions make 66 blocks), one thread per gate column. Thread t sums
-//   h[l] . w_hh[:, t] for the block's 8 lines: the first R rows of w_hh
-//   from shared memory (as many as fit beside the state), the rest read
-//   straight from L2, 8 rows in flight per thread; the 8 lines' states are
-//   two broadcast float4 reads per row. Then thread (line, unit) applies
-//   the cell. With STASH the activated gates overwrite their
-//   pre-activations and c is stashed, so the backward reads the gates
-//   instead of recomputing them.
+//   lstm_rec_kernel runs the recurrence on thread-block clusters: CS blocks
+//   (4 at H = 200) share one tile of lines of one direction, each holding
+//   the weights of H/CS units (160 KB at CS = 4) in shared memory for the
+//   whole sweep and exchanging its slice of h with the others through
+//   distributed shared memory, one cluster barrier per step. No weight
+//   leaves the chip inside the step loop, the products are register-blocked
+//   (a float4 of weights and LINES/4 float4 of state per k, 4 x LINES FMAs),
+//   and the wrapper (ops/lstm.py: recurrence_plan) sizes the tile so that
+//   the grid is one wave of clusters on the card. With STASH the activated
+//   gates overwrite their pre-activations and c is stashed, so the backward
+//   reads the gates instead of recomputing them.
 //   Backward, in four stages on the current stream:
 //   1. lstm_rec_bwd_kernel: the reverse sweep, the forward's recurrence
-//      transposed. Thread (q, j) sums quarter q of dgates . w_hh[j] for
-//      the block's 8 lines, w_hh^T (a copy the wrapper makes) partly in
-//      shared memory and the rest from L2; thread (line, unit) adds the
+//      transposed. One block per 8 lines; thread (q, j) sums quarter q of
+//      dgates . w_hh[j] for them, w_hh^T (a copy the wrapper makes) partly
+//      in shared memory and the rest from L2; thread (line, unit) adds the
 //      four quarters and the output cotangent, carries dc, and writes
 //      dgates.
 //   2. dx = dgates w_ih^T: dense_kernel reading w_ih through strides.
@@ -50,10 +51,13 @@
 //      reductions over all positions, split into per-block partial sums
 //      and added in a fixed order (split_k.cuh). No atomics: two backward
 //      calls give the same gradients, bit for bit.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "split_k.cuh"
 #include "tile_gemm.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -101,8 +105,8 @@ cudaError_t dense(const float* A, const float* Bw, long long b_dir, int b_kst, i
 }
 
 // ---- recurrences ---------------------------------------------------------------------
-constexpr int LB = 8;                    // lines per block: two float4 of state per row
-constexpr int REC_MAX_THREADS = 1024;    // one thread per gate column: 4H <= 1024
+constexpr int LB = 8;                    // lines per block of the reverse sweep
+constexpr int REC_MAX_THREADS = 1024;    // the reverse sweep: one thread per gate column
 constexpr int SMEM_FLOATS = 232448 / 4;  // a block's shared memory on the H100 (227 KB)
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
@@ -139,95 +143,226 @@ int rec_rows(int H, int other) {
 
 int rec_threads(int H) { return (4 * H + 31) / 32 * 32; }
 
+// ---- the forward recurrence: a cluster of blocks per tile of lines ------------------
 // xp [dirs][S][B][4H] pre-activations (bias included), w_hh [dirs][H][4H] ->
 // hout [dirs][S][B][H]. With STASH, xp is overwritten with the activated
 // gates (i, f, g, o) of its position and cout [dirs][S][B][H] receives c.
-// Block = (tile of LB lines, direction). Shared memory: w_hh rows < R
-// [R][4H], the state h [H][LB], the gates [LB][4H]. Thread t < 4H owns gate
-// column t; thread t also owns the cell pairs e = t and t + blockDim (line
-// e / H, unit e % H): blockDim >= 4H makes that all LB * H pairs.
-template <bool STASH>
-__global__ void __launch_bounds__(REC_MAX_THREADS, 1)
+//
+// A cluster of CS blocks runs one tile of LINES lines of one direction.
+// Block r owns units [r*UC, (r+1)*UC) (UC = ceil(H / CS)) and their four
+// gate columns: ws[k][4j + g] = w_hh[k][g*H + r*UC + j], resident for the
+// whole sweep, so no weight is read from L2 inside the step loop. Each block
+// keeps its own copy of the tile's state h, [2][H][LBP] (double-buffered).
+// Per step, lane ks of unit j sums k = ks, ks + 4, ... of the four gates of
+// unit j for all LINES lines (a float4 of weights and LINES/4 float4 of h
+// per k), a reduce-scatter over the unit's four lanes leaves each lane the
+// full gates of LINES/4 lines, and the lane applies their cells (c stays in
+// registers) and writes h into the next buffer of every block of the
+// cluster (distributed shared memory). One cluster barrier ends the step:
+// a block overwrites a buffer only after every block has passed the step
+// that read it.
+constexpr int RC_KS = 4;                 // lanes splitting one unit's product over k
+constexpr int RC_MAX_LINES = 24;         // lines per cluster: a multiple of 4 up to this
+constexpr int RC_MAX_THREADS = 256;      // 255 registers a thread: the gates of 24 lines
+
+struct RecPlan {
+  int uc;   // units per block
+  int wst;  // row stride of ws: 4 * uc padded to 8 (mod 32) floats, so the four
+            // lanes of a unit read k rows that fall in other banks
+  int lbp;  // row stride of h: lines padded so that lbp / 4 is odd (same reason)
+  int nt;   // threads: four lanes per unit, whole warps
+  long long bytes;
+};
+
+bool rec_plan(int H, int cs, int lines, RecPlan& p) {
+  if (H < 1 || (cs != 1 && cs != 2 && cs != 4 && cs != 8)) return false;
+  if (lines < 4 || lines > RC_MAX_LINES || lines % 4) return false;
+  p.uc = (H + cs - 1) / cs;
+  p.wst = 4 * p.uc + (8 - (4 * p.uc) % 32 + 32) % 32;
+  p.lbp = (lines / 4) % 2 ? lines : lines + 4;
+  p.nt = (p.uc * RC_KS + 31) / 32 * 32;
+  p.bytes = 4LL * H * (p.wst + 2LL * p.lbp);
+  return p.nt <= RC_MAX_THREADS && p.bytes <= 4LL * SMEM_FLOATS;
+}
+
+__device__ __forceinline__ void fma_gates(float (&acc)[4], float h, const float4 w) {
+  acc[0] = fmaf(h, w.x, acc[0]);
+  acc[1] = fmaf(h, w.y, acc[1]);
+  acc[2] = fmaf(h, w.z, acc[2]);
+  acc[3] = fmaf(h, w.w, acc[3]);
+}
+
+// grid (CS * tiles, dirs), clusters of CS blocks along x.
+template <int LINES, bool STASH>
+__global__ void __launch_bounds__(RC_MAX_THREADS, 1)
 lstm_rec_kernel(float* __restrict__ xp, const float* __restrict__ w_hh, float* __restrict__ hout,
-                float* __restrict__ cout, int S, int B, int H, int R, int rev) {
+                float* __restrict__ cout, int S, int B, int H, int uc, int wst, int lbp,
+                int rev) {
   extern __shared__ __align__(16) float smem[];
+  constexpr int L4 = LINES / 4;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   const int N = 4 * H;
   const int d = blockIdx.y;
   const bool reverse = (d == 1) != (rev != 0);
-  const int t = threadIdx.x;
-  float* ws = smem;         // [R][N]
-  float* hs = ws + R * N;   // [H][LB]
-  float* gs = hs + H * LB;  // [LB][N]
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int line0 = (blockIdx.x / cs) * LINES;
+  const int u0 = rank * uc;
+  float* ws = smem;                         // [H][wst]
+  float* hb = ws + (long long)H * wst;      // [2][H][lbp]
   const float* w = w_hh + (long long)d * H * N;
-  for (int e = t; e < R * N; e += blockDim.x) ws[e] = w[e];
-  for (int e = t; e < H * LB; e += blockDim.x) hs[e] = 0.f;
-  const int line0 = blockIdx.x * LB;
-  float c_state[2] = {0.f, 0.f};
-  __syncthreads();
+  for (int e = tid; e < H * 4 * uc; e += nt) {
+    const int k = e / (4 * uc), g = (e / uc) % 4, j = e % uc;
+    ws[k * wst + 4 * j + g] = u0 + j < H ? w[(long long)k * N + g * H + u0 + j] : 0.f;
+  }
+  for (int e = tid; e < H * lbp; e += nt) hb[e] = 0.f;
 
-  const float4* hs4 = reinterpret_cast<const float4*>(hs);
+  // Lanes past the last unit repeat its product (every lane of a warp takes
+  // part in the shuffles) and own nothing.
+  const int ks = tid % RC_KS;
+  const int j = min(tid / RC_KS, uc - 1);
+  const int unit = u0 + tid / RC_KS;
+  const bool owner = tid / RC_KS < uc && unit < H;
+  const int lq0 = ks * L4;  // this lane's cells: lines lq0 .. lq0 + L4 - 1 of the tile
+  const bool hi1 = ks & 2, hi0 = ks & 1;
+  float c_state[L4];
+#pragma unroll
+  for (int q = 0; q < L4; ++q) c_state[q] = 0.f;
+  cluster.sync();  // weights and h are in place in every block before any remote write
+
   for (int s = 0; s < S; ++s) {
     const int p = reverse ? S - 1 - s : s;
-    const long long row0 = ((long long)d * S + p) * B + line0;  // (d, p, line0)
-    if (t < N) {
-      // This step's pre-activations, loaded first so that they arrive
-      // during the product.
-      float xv[LB], acc[LB];
+    const long long row0 = ((long long)d * S + p) * B + line0 + lq0;  // (d, p, first cell line)
+    const float* hcur = hb + (s & 1) * H * lbp;
+    float* hnext = hb + ((s + 1) & 1) * H * lbp;
+    // This step's pre-activations of the lane's cells, loaded first so that
+    // they arrive during the product.
+    float xv[L4][4];
 #pragma unroll
-      for (int l = 0; l < LB; ++l) {
-        xv[l] = line0 + l < B ? xp[(row0 + l) * N + t] : 0.f;
-        acc[l] = 0.f;
+    for (int q = 0; q < L4; ++q)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        xv[q][g] = owner && line0 + lq0 + q < B ? xp[(row0 + q) * N + g * H + unit] : 0.f;
+    float acc[LINES][4];
+#pragma unroll
+    for (int l = 0; l < LINES; ++l)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) acc[l][g] = 0.f;
+#pragma unroll 4
+    for (int k = ks; k < H; k += RC_KS) {
+      const float4 wv = *reinterpret_cast<const float4*>(ws + k * wst + 4 * j);
+      const float4* hk = reinterpret_cast<const float4*>(hcur + k * lbp);
+#pragma unroll
+      for (int l4 = 0; l4 < L4; ++l4) {
+        const float4 hv = hk[l4];
+        fma_gates(acc[4 * l4], hv.x, wv);
+        fma_gates(acc[4 * l4 + 1], hv.y, wv);
+        fma_gates(acc[4 * l4 + 2], hv.z, wv);
+        fma_gates(acc[4 * l4 + 3], hv.w, wv);
       }
-      rec_matvec(acc, ws, R, N, t, w + t, N, H, hs4);
-#pragma unroll
-      for (int l = 0; l < LB; ++l) gs[l * N + t] = acc[l] + xv[l];
     }
-    __syncthreads();
+    // Reduce-scatter over the unit's four lanes (xor 2, then xor 1): lane ks
+    // keeps the sums of lines ks*L4 .. ks*L4 + L4 - 1 in acc[0 .. L4).
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int e = t + i * blockDim.x;
-      if (e >= LB * H) break;
-      const int l = e / H, j = e % H;
-      const float* gl = gs + l * N;
-      const float ig = sigmoidf_(gl[j]);
-      const float fg = sigmoidf_(gl[H + j]);
-      const float gg = tanhf(gl[2 * H + j]);
-      const float og = sigmoidf_(gl[3 * H + j]);
-      const float c = fg * c_state[i] + ig * gg;
+    for (int l = 0; l < LINES / 2; ++l)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float lo = acc[l][g], hi = acc[l + LINES / 2][g];
+        acc[l][g] = (hi1 ? hi : lo) + __shfl_xor_sync(0xffffffffu, hi1 ? lo : hi, 2);
+      }
+#pragma unroll
+    for (int l = 0; l < L4; ++l)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float lo = acc[l][g], hi = acc[l + L4][g];
+        acc[l][g] = (hi0 ? hi : lo) + __shfl_xor_sync(0xffffffffu, hi0 ? lo : hi, 1);
+      }
+#pragma unroll
+    for (int q = 0; q < L4; ++q) {
+      const float ig = sigmoidf_(acc[q][0] + xv[q][0]);
+      const float fg = sigmoidf_(acc[q][1] + xv[q][1]);
+      const float gg = tanhf(acc[q][2] + xv[q][2]);
+      const float og = sigmoidf_(acc[q][3] + xv[q][3]);
+      const float c = fg * c_state[q] + ig * gg;
       const float h = og * tanhf(c);
-      c_state[i] = c;
-      hs[j * LB + l] = h;
-      if (line0 + l < B) {
-        const long long pos = row0 + l;
-        hout[pos * H + j] = h;
+      c_state[q] = c;
+      if (!owner) continue;
+      for (int r = 0; r < cs; ++r) cluster.map_shared_rank(hnext, r)[unit * lbp + lq0 + q] = h;
+      if (line0 + lq0 + q < B) {
+        const long long pos = row0 + q;
+        hout[pos * H + unit] = h;
         if (STASH) {
-          // This position's pre-activations were read before the barrier.
-          float* gp = xp + pos * N + j;
+          float* gp = xp + pos * N + unit;
           gp[0] = ig;
           gp[H] = fg;
           gp[2 * H] = gg;
           gp[3 * H] = og;
-          cout[pos * H + j] = c;
+          cout[pos * H + unit] = c;
         }
       }
     }
-    __syncthreads();
+    cluster.sync();
   }
+}
+
+using RecKernel = void (*)(float*, const float*, float*, float*, int, int, int, int, int, int,
+                           int);
+
+template <bool STASH>
+RecKernel rec_kernel(int lines) {
+  switch (lines) {
+    case 4: return lstm_rec_kernel<4, STASH>;
+    case 8: return lstm_rec_kernel<8, STASH>;
+    case 12: return lstm_rec_kernel<12, STASH>;
+    case 16: return lstm_rec_kernel<16, STASH>;
+    case 20: return lstm_rec_kernel<20, STASH>;
+    case 24: return lstm_rec_kernel<24, STASH>;
+    default: return nullptr;
+  }
+}
+
+// The launch configuration of (cs, lines) over `tiles` tiles and `dirs`
+// directions, with the kernel's shared memory set; false if the plan does
+// not fit.
+struct RecLaunch {
+  RecPlan plan;
+  RecKernel fn;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+};
+
+cudaError_t rec_launch_config(RecLaunch& L, int H, int cs, int lines, bool stash, int tiles,
+                              int dirs, cudaStream_t stream) {
+  if (!rec_plan(H, cs, lines, L.plan)) return cudaErrorInvalidValue;
+  L.fn = stash ? rec_kernel<true>(lines) : rec_kernel<false>(lines);
+  cudaError_t err = cudaFuncSetAttribute(L.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L.plan.bytes));
+  if (err != cudaSuccess) return err;
+  L.cfg = {};
+  L.cfg.gridDim = dim3(cs * tiles, dirs);
+  L.cfg.blockDim = dim3(L.plan.nt);
+  L.cfg.dynamicSmemBytes = L.plan.bytes;
+  L.cfg.stream = stream;
+  L.attr[0].id = cudaLaunchAttributeClusterDimension;
+  L.attr[0].val.clusterDim.x = cs;
+  L.attr[0].val.clusterDim.y = 1;
+  L.attr[0].val.clusterDim.z = 1;
+  L.cfg.attrs = L.attr;
+  L.cfg.numAttrs = 1;
+  return cudaSuccess;
 }
 
 template <bool STASH>
 cudaError_t launch_rec(float* xp, const float* w_hh, float* hout, float* cout, int S, int B,
-                       int H, int dirs, int rev, cudaStream_t stream) {
-  const int N = 4 * H;
-  const int other = H * LB + LB * N;
-  const int R = rec_rows(H, other);
-  const size_t smem = (size_t)(R * N + other) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lstm_rec_kernel<STASH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                       int H, int dirs, int rev, int cs, int lines, cudaStream_t stream) {
+  RecLaunch L;
+  cudaError_t err = rec_launch_config(L, H, cs, lines, STASH, (B + lines - 1) / lines, dirs,
+                                      stream);
   if (err != cudaSuccess) return err;
-  dim3 grid((B + LB - 1) / LB, dirs);
-  lstm_rec_kernel<STASH><<<grid, rec_threads(H), smem, stream>>>(xp, w_hh, hout, cout, S, B, H,
-                                                                 R, rev);
+  err = cudaLaunchKernelEx(&L.cfg, L.fn, xp, w_hh, hout, cout, S, B, H, L.plan.uc, L.plan.wst,
+                           L.plan.lbp, rev);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -398,29 +533,48 @@ extern "C" {
 // bias [2][4H], direction 1 reversed. dirs = 1 (lstm_forward): one
 // direction, reversed iff rev.
 int lstm_forward(const float* x, const float* w_ih, const float* w_hh, const float* bias,
-                 float* xp, float* out, int S, int B, int D, int H, int dirs, int rev,
-                 void* stream_ptr) {
+                 float* xp, float* out, int S, int B, int D, int H, int dirs, int rev, int cs,
+                 int lines, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!shape_ok(S, B, D, H) || dirs < 1 || dirs > 2) return cudaErrorInvalidValue;
   const int N = 4 * H;
   cudaError_t err = dense<false>(x, w_ih, (long long)D * N, N, 1, bias, xp, (long long)S * B, D,
                                  N, dirs, stream);
   if (err != cudaSuccess) return err;
-  return launch_rec<false>(xp, w_hh, out, nullptr, S, B, H, dirs, rev, stream);
+  return launch_rec<false>(xp, w_hh, out, nullptr, S, B, H, dirs, rev, cs, lines, stream);
 }
 
 // lstm_core's forward, one direction: h [S][B][H] and the stashes of its
 // backward, gates [S][B][4H] (activated i, f, g, o) and c [S][B][H].
 int lstm_train_fwd(const float* x, const float* w_ih, const float* w_hh, const float* bias,
                    float* gates, float* h, float* c, int S, int B, int D, int H, int rev,
-                   void* stream_ptr) {
+                   int cs, int lines, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!shape_ok(S, B, D, H)) return cudaErrorInvalidValue;
   const int N = 4 * H;
   cudaError_t err = dense<false>(x, w_ih, 0, N, 1, bias, gates, (long long)S * B, D, N, 1,
                                  stream);
   if (err != cudaSuccess) return err;
-  return launch_rec<true>(gates, w_hh, h, c, S, B, H, 1, rev, stream);
+  return launch_rec<true>(gates, w_hh, h, c, S, B, H, 1, rev, cs, lines, stream);
+}
+
+// The card's most clusters of the recurrence plan (cs, lines) at width H
+// that can run at once (cudaOccupancyMaxActiveClusters), 0 if the plan does
+// not fit a block, or minus a CUDA error.
+int lstm_rec_max_clusters(int H, int cs, int lines, int stash) {
+  RecLaunch L;
+  cudaError_t err = rec_launch_config(L, H, cs, lines, stash != 0, 1, 1, nullptr);
+  if (err == cudaErrorInvalidValue) return 0;
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, L.fn, &L.cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// Dynamic shared memory of a block of the recurrence plan, or -1 if it does not fit.
+long long lstm_rec_smem(int H, int cs, int lines) {
+  RecPlan p;
+  return rec_plan(H, cs, lines, p) ? p.bytes : -1;
 }
 
 // Floats of the backward's reduction workspace.

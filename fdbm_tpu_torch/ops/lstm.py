@@ -14,7 +14,8 @@ RNN path, which the model takes outside the fused grid kernels' gate
 
 On a CUDA tensor each launches hand-written kernels from ``csrc/lstm.cu``
 (its source note says what bounds them on the H100 and how they are laid
-out); on a CPU tensor it runs its plain version, the recurrence of
+out; :func:`recurrence_plan` sizes the forward recurrence's clusters); on a
+CPU tensor it runs its plain version, the recurrence of
 ``ops.gridrnn.lstm_plain`` (under autograd for :func:`lstm_core`). Gate
 order i, f, g, o; fp32 with an fp32 carry. Unlike the TPU kernels nothing
 is padded: there is no lane or chunk layout to fill. A direction with
@@ -25,7 +26,8 @@ hidden states in time order.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,13 +36,123 @@ from fdbm_tpu_torch.ops.gridrnn import check_tensor, lstm_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "lstm_forward": [_P] * 6 + [_I] * 6 + [_P],
-    "lstm_train_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "lstm_forward": [_P] * 6 + [_I] * 8 + [_P],
+    "lstm_train_fwd": [_P] * 7 + [_I] * 7 + [_P],
+    "lstm_rec_max_clusters": [_I] * 4,
+    "lstm_rec_smem": [_I] * 3,
     "lstm_train_bwd_workspace": [_I] * 4,
     "lstm_train_bwd": [_P] * 13 + [_I] * 5 + [_P],
 }
-_RESTYPES = {"lstm_train_bwd_workspace": ctypes.c_longlong}
-MAX_HIDDEN = 256  # the kernels run one thread per gate column: 4H <= 1024
+_RESTYPES = {"lstm_train_bwd_workspace": ctypes.c_longlong, "lstm_rec_smem": ctypes.c_longlong}
+MAX_HIDDEN = 256  # the reverse sweep runs one thread per gate column: 4H <= 1024
+
+# The forward recurrence's plans (csrc/lstm.cu: rec_plan): clusters of 1, 2,
+# 4 or 8 blocks, tiles of a multiple of 4 lines up to 24, four lanes per
+# unit and at most 256 threads a block, and a block's shared memory on the H100.
+REC_CLUSTERS = (1, 2, 4, 8)
+REC_LINES = (4, 8, 12, 16, 20, 24)
+_KS, SMEM_LIMIT, SMS = 4, 232448, 132
+
+
+class RecurrencePlan(NamedTuple):
+    """How the forward recurrence runs: clusters of ``cs`` blocks, each
+    cluster one tile of ``lines`` lines of one direction; ``clusters`` in
+    the grid, of which the card runs ``max_clusters`` at once; ``threads``
+    and ``smem_bytes`` per block."""
+    cs: int
+    lines: int
+    clusters: int
+    max_clusters: int
+    threads: int
+    smem_bytes: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def recurrence_layout(hidden: int, cs: int, lines: int) -> Optional[Tuple[int, int]]:
+    """``(threads, shared-memory bytes)`` of a block of the plan (``cs``,
+    ``lines``) at width ``hidden``, as ``csrc/lstm.cu:rec_plan`` lays it
+    out, or None if it does not fit a block."""
+    if cs not in REC_CLUSTERS or lines not in REC_LINES or hidden < 1:
+        return None
+    uc = _cdiv(hidden, cs)
+    wst = 4 * uc + (8 - 4 * uc % 32) % 32
+    lbp = lines if (lines // 4) % 2 else lines + 4
+    threads = _cdiv(uc * _KS, 32) * 32
+    nbytes = 4 * hidden * (wst + 2 * lbp)
+    return (threads, nbytes) if threads <= 256 and nbytes <= SMEM_LIMIT else None
+
+
+def plan_recurrence(lines: int, dirs: int, hidden: int,
+                    max_clusters: Callable[[int, int], int]) -> RecurrencePlan:
+    """The plan for ``lines`` lines in each of ``dirs`` directions at width
+    ``hidden``; ``max_clusters(cs, lines)`` is the card's count of clusters
+    of that plan that run at once. Plans whose grid is one wave come first;
+    then the least estimated step, in cycles: a block's FMA dispatch on its
+    busiest scheduler (4 per SM) at half rate, plus the cluster's exchange
+    of h and its barrier, times the blocks an SM runs at once (fitted to
+    the H100: 6.5 us a step for 4 x 12 lines, 10 us for 4 x 20); then
+    smaller clusters."""
+    best, best_key = None, None
+    for cs in REC_CLUSTERS:
+        for tile in REC_LINES:
+            lay = recurrence_layout(hidden, cs, tile)
+            if lay is None:
+                continue
+            at_once = max_clusters(cs, tile)
+            if at_once < 1:
+                continue
+            threads, nbytes = lay
+            clusters = dirs * _cdiv(lines, tile)
+            waves = _cdiv(clusters, at_once)
+            per_sm = _cdiv(at_once * cs, SMS)
+            load = _cdiv(min(clusters, at_once) * cs * per_sm, at_once * cs)
+            step = (2 * _cdiv(threads // 32, 4) * _cdiv(hidden, _KS) * 4 * tile
+                    + 1000 + 800 * cs)
+            key = (waves > 1, waves * load * step, cs)
+            if best_key is None or key < best_key:
+                best = RecurrencePlan(cs, tile, clusters, at_once, threads, nbytes)
+                best_key = key
+    if best is None:
+        raise ValueError(f"lstm: no recurrence plan fits H={hidden} on this card")
+    return best
+
+
+@functools.lru_cache(maxsize=1024)
+def _card_max_clusters(device_index: int, hidden: int, cs: int, tile: int, stash: bool) -> int:
+    """The card's ``cudaOccupancyMaxActiveClusters`` for one plan."""
+    with torch.cuda.device(device_index):
+        lib = _build.load("lstm", _SIGNATURES, _RESTYPES)
+        n = lib.lstm_rec_max_clusters(hidden, cs, tile, int(stash))
+    if n < 0:
+        raise RuntimeError(f"lstm: cudaOccupancyMaxActiveClusters failed (CUDA error {-n}) "
+                           f"for cs={cs}, lines={tile}, H={hidden}")
+    return n
+
+
+@functools.lru_cache(maxsize=256)
+def _card_plan(device_index: int, lines: int, dirs: int, hidden: int,
+               stash: bool) -> RecurrencePlan:
+    return plan_recurrence(lines, dirs, hidden, lambda cs, tile: _card_max_clusters(
+        device_index, hidden, cs, tile, stash))
+
+
+def recurrence_plan(lines: int, dirs: int, hidden: int, stash: bool = False,
+                    device: Optional[torch.device] = None) -> RecurrencePlan:
+    """:func:`plan_recurrence` with the card's counts, each queried once: the
+    plan the wrappers launch for this shape (``stash``: :func:`lstm_core`'s)."""
+    dev = torch.device(device if device is not None else "cuda")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _card_plan(index, lines, dirs, hidden, stash)
+
+
+def recurrence_smem(hidden: int, cs: int, lines: int) -> int:
+    """The kernel's own count of a block's shared memory for a plan (-1 if
+    it does not fit), to hold :func:`recurrence_layout` to it on the card."""
+    lib = _build.load("lstm", _SIGNATURES, _RESTYPES)
+    return lib.lstm_rec_smem(hidden, cs, lines)
 
 # (h, gates, c): hidden states, activated gates (i, f, g, o) and cell states
 Stash = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -93,15 +205,16 @@ def _forward(fn: str, x, w_ih, w_hh, bias, dirs: int, reverse: bool) -> torch.Te
     """Launch ``lstm_forward`` on checked arguments: ``[dirs, S, B, H]``."""
     s, b, d, hidden = x.shape + (w_hh.shape[-2],)
     dev = x.device
+    cs, tile = recurrence_plan(b, dirs, hidden, device=dev)[:2]
     with torch.cuda.device(dev):
         xp = _empty(dev, dirs, s, b, 4 * hidden)
         out = _empty(dev, dirs, s, b, hidden)
         lib = _build.load("lstm", _SIGNATURES, _RESTYPES)
         code = lib.lstm_forward(
             x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), xp.data_ptr(),
-            out.data_ptr(), s, b, d, hidden, dirs, int(reverse),
+            out.data_ptr(), s, b, d, hidden, dirs, int(reverse), cs, tile,
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, fn)
+    _build.check(code, f"{fn} (recurrence plan cs={cs}, lines={tile})")
     return out
 
 
@@ -155,15 +268,16 @@ def lstm_core_fwd(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, bias:
     ``chip_smoke.py`` call it to reach the backward kernel directly."""
     s, b, d, hidden = _check_args("lstm_core", x, w_ih, w_hh, bias, ())
     dev = x.device
+    cs, tile = recurrence_plan(b, 1, hidden, stash=True, device=dev)[:2]
     with torch.cuda.device(dev):
         gates = _empty(dev, s, b, 4 * hidden)
         h, c = _empty(dev, s, b, hidden), _empty(dev, s, b, hidden)
         lib = _build.load("lstm", _SIGNATURES, _RESTYPES)
         code = lib.lstm_train_fwd(
             x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), gates.data_ptr(),
-            h.data_ptr(), c.data_ptr(), s, b, d, hidden, int(reverse),
+            h.data_ptr(), c.data_ptr(), s, b, d, hidden, int(reverse), cs, tile,
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "lstm_core")
+    _build.check(code, f"lstm_core (recurrence plan cs={cs}, lines={tile})")
     lstm_core.launches += 1
     return h, (h, gates, c)
 

@@ -434,3 +434,144 @@ def test_small_wide_train_step_kernel_route_matches_plain(dev):
     gnorm = float(torch.sqrt(sum((g * g).sum() for g in grads[1].values())))
     worst = max(_grad_rel(grads[0][k], grads[1][k], gnorm) for k in grads[1])
     assert worst < 1e-3
+
+
+# -- the cluster kernels: frame_attention (one launch) and the LSTM recurrence --
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("t", [1, 7, 257, 1900])
+@pytest.mark.parametrize("d", [8, 12])
+def test_frame_attention_is_one_launch_without_scores_in_memory(dev, b, t, d):
+    """At the main path's widths (Q = 257, 4 heads, E = 2, D = 8 or 12): the
+    kernel against its plain version, one kernel on the card per call, and
+    no [B, H, T, T] scores: the call allocates its output and nothing else."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(20)
+    q = _rand(rng, (b, t, 257, 8), 1.0, dev)
+    k = _rand(rng, (b, t, 257, 8), 1.0, dev)
+    v = _rand(rng, (b, t, 257, 4 * d), 1.0, dev)
+    attn_ops.frame_attention(q, k, v, 4, 2)  # builds, plans
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    n0 = attn_ops.frame_attention.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = attn_ops.frame_attention(q, k, v, 4, 2)
+        torch.cuda.synchronize()
+    assert attn_ops.frame_attention.launches == n0 + 1
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
+    assert torch.cuda.max_memory_allocated(dev) - base <= got.numel() * 4 + (2 << 20)
+    assert _rel(got, attn_ops.frame_attention_plain(q, k, v, 4, 2)) < 1e-4
+
+
+def test_attention_layouts_match_the_kernel(dev):
+    """ops.attention mirrors the kernel's shared-memory layout (the plans
+    are chosen and tested on it); the kernel's own count must agree."""
+    for t, e, d in ((1, 2, 8), (257, 2, 8), (257, 2, 12), (1900, 2, 8), (5000, 2, 8),
+                    (33, 4, 8), (70, 2, 6)):
+        for rows in (8, 16, 24, 40, 64):
+            for slices in (1, 2, 3, 4):
+                lay = attn_ops.attention_layout(t, 257, e, d, rows, slices)
+                want = lay[1] if lay else -1
+                assert attn_ops.frame_attention_smem(t, 257, e, d, rows, slices) == want
+
+
+def test_attention_plans_the_card_cannot_launch_are_refused(dev):
+    """A plan that does not fit is refused by the kernel's entry (the
+    wrapper raises on any refusal), never run short; above the frame limit
+    the wrapper raises before launching."""
+    from fdbm_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(21)
+    q = _rand(rng, (1, 257, 257, 8), 1.0, dev)
+    v = _rand(rng, (1, 257, 257, 32), 1.0, dev)
+    out = torch.empty_like(v)
+    lib = _build.load("attention", attn_ops._SIGNATURES, attn_ops._RESTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for rows, slices in ((64, 1), (12, 1), (8, 9)):  # too much shared memory; not plans
+        code = lib.frame_attention(q.data_ptr(), q.data_ptr(), v.data_ptr(), out.data_ptr(), 1,
+                                   257, 257, 4, 2, 8, 0.05, rows, slices, stream)
+        assert code != 0, (rows, slices)
+    with pytest.raises(ValueError, match="limit"):
+        long = _rand(rng, (1, 6000, 257, 8), 1.0, dev)
+        attn_ops.frame_attention(long, long, long, 4, 2)
+
+
+def _lstm_stash_plain(x, w_ih, w_hh, bias, reverse):
+    """The recurrence step by step: hidden states, activated gates (i, f, g,
+    o) and cell states, each in time order: what kernel 8 stashes."""
+    s, b, _ = x.shape
+    hidden = w_hh.shape[0]
+    xp = x @ w_ih + bias
+    h = x.new_zeros(b, hidden)
+    c = x.new_zeros(b, hidden)
+    hs, gs, cs = [None] * s, [None] * s, [None] * s
+    for p in (range(s - 1, -1, -1) if reverse else range(s)):
+        z = xp[p] + h @ w_hh
+        i, f, g, o = z.split(hidden, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs[p], gs[p], cs[p] = h, torch.cat([i, f, g, o], dim=-1), c
+    return torch.stack(hs), torch.stack(gs), torch.stack(cs)
+
+
+@pytest.mark.parametrize("hidden", [200, 197])
+@pytest.mark.parametrize("lines", [13, 70, 262])
+def test_lstm_recurrence_matches_plain(dev, hidden, lines):
+    """Kernels 7, 8 (its stash included) and 10 on the cluster recurrence:
+    H = 200 (the class-default width) and 197 (not a multiple of the
+    cluster), lines not a multiple of the tile, both directions."""
+    rng = np.random.default_rng(22)
+    x, w_ih, w_hh, bias = _lstm_args(rng, 31, lines, 192, hidden, dev, dirs=(2,))
+    with torch.no_grad():
+        got = lstm_ops.bilstm_fused_forward(x, w_ih, w_hh, bias)
+        want = lstm_ops.bilstm_fused_forward_plain(x, w_ih, w_hh, bias)
+        for g, w in zip(got, want):
+            assert _rel(g, w) < 1e-4
+        one = (w_ih[1], w_hh[1], bias[1])
+        for reverse in (False, True):
+            assert _rel(lstm_ops.lstm_forward(x, *one, reverse=reverse),
+                        gridrnn.lstm_plain(x, *one, reverse)) < 1e-4
+            h, (h2, gates, c) = lstm_ops.lstm_core_fwd(x, *one, reverse=reverse)
+            want_h, want_g, want_c = _lstm_stash_plain(x, *one, reverse)
+            assert h is h2
+            assert _rel(h, want_h) < 1e-4
+            assert _rel(gates, want_g) < 1e-4
+            assert _rel(c, want_c) < 1e-4
+
+
+def test_recurrence_layouts_match_the_kernel(dev):
+    for hidden in (1, 20, 132, 197, 200, 256):
+        for cs in lstm_ops.REC_CLUSTERS + (3, 16):
+            for tile in lstm_ops.REC_LINES + (6,):
+                lay = lstm_ops.recurrence_layout(hidden, cs, tile)
+                assert lstm_ops.recurrence_smem(hidden, cs, tile) == (lay[1] if lay else -1)
+
+
+def test_recurrence_plan_is_one_wave_on_the_card(dev):
+    """The main-path shapes (262 lines in one or two directions, 524 with
+    the stash) run in one wave of clusters on this card."""
+    for lines, dirs, stash in ((262, 1, False), (262, 2, False), (524, 1, True)):
+        plan = lstm_ops.recurrence_plan(lines, dirs, 200, stash, dev)
+        assert plan.clusters <= plan.max_clusters, plan
+
+
+def test_recurrence_plans_the_card_cannot_launch_are_refused(dev):
+    from fdbm_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(23)
+    x, w_ih, w_hh, bias = _lstm_args(rng, 9, 10, 16, 200, dev)
+    xp, h, c = (torch.empty(9, 10, n, device=dev) for n in (800, 200, 200))
+    lib = _build.load("lstm", lstm_ops._SIGNATURES, lstm_ops._RESTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in (x, w_ih, w_hh, bias)]
+    for cs, tile in ((1, 24), (2, 8), (16, 8), (4, 6), (4, 28)):
+        assert lib.lstm_forward(*ptrs, xp.data_ptr(), h.data_ptr(), 9, 10, 16, 200, 1, 0, cs,
+                                tile, stream) != 0, (cs, tile)
+        assert lib.lstm_train_fwd(*ptrs, xp.data_ptr(), h.data_ptr(), c.data_ptr(), 9, 10, 16,
+                                  200, 0, cs, tile, stream) != 0, (cs, tile)
+    torch.cuda.synchronize()
