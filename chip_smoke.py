@@ -8,7 +8,8 @@ and drives the port's paths at the full width of two TF-GridNets:
 
 * ``tfgridnet_5l32c100`` (5 blocks, C=32, H=100), inside the fused RNN
   kernels' gate. Serving: each serving kernel against its plain PyTorch
-  version at the shapes of the path, the backbone against its all-plain
+  version at the shapes of the path (the RNN path with its plan and its two
+  stages), the backbone against its all-plain
   route, three files through ``fdbm_tpu_torch.infer_single``, one profiled
   request. Training: each training kernel (the summed fold, the stashing
   forward and its backward) against its plain version at the shapes of a
@@ -20,7 +21,8 @@ and drives the port's paths at the full width of two TF-GridNets:
   6l48c200 here; no registered name), outside the gate, through the
   generic RNN path and the LSTM kernels of ``ops/lstm.py``. Each LSTM
   kernel against its plain version and beside cuDNN's LSTM (with its plan
-  and the time of its forward recurrence alone), the backbone
+  and the time of its forward recurrence alone; the backward with its
+  stages and checked for equal bits in two calls), the backbone
   against the all-plain route, a 2-step serve against the plain route, one
   4 s request through ``FDBM.enhance_audio`` (profiled once more), one
   training step against the all-plain route, the training rate of steady
@@ -52,8 +54,9 @@ gate's limits come from, and
 
     python3 chip_smoke.py --probe-kernels readings.json
 
-only times the two cluster kernels (frame_attention, the LSTM recurrence)
-with one part of their work switched off at a time.
+only times the four cluster kernels (frame_attention, the LSTM recurrence,
+kernel 1's fused recurrence, kernel 9's reverse sweep) with one part of
+their work switched off at a time.
 """
 
 from __future__ import annotations
@@ -279,9 +282,11 @@ def train_kernel_phase(rand, dev, summary) -> None:
             calls="mean of one intra and one inter call of a B=2, 256-frame step")
 
 
-def recurrence_time(fn, steps: int, calls: int = 3) -> dict:
-    """Device time per call of ``fn`` spent in the forward recurrence
-    (``lstm_rec_kernel``), from torch.profiler, and per step of it."""
+def kernel_times(fn, names: dict, calls: int = 3) -> dict:
+    """Device time per launch of each stage of ``fn`` (each launches its
+    kernel once a call), from torch.profiler: ``names`` maps a stage to a
+    substring of its kernels' names. The mean is over the launches the
+    profiler recorded, which may miss one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -290,8 +295,19 @@ def recurrence_time(fn, steps: int, calls: int = 3) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    ms = sum(e.self_device_time_total for e in device_kernels(prof)
-             if "lstm_rec_kernel" in e.key) / 1e3 / calls
+    kernels = device_kernels(prof)
+    times = {}
+    for stage, sub in names.items():
+        hits = [e for e in kernels if sub in e.key]
+        launches = sum(e.count for e in hits)
+        times[stage] = sum(e.self_device_time_total for e in hits) / 1e3 / max(launches, 1)
+    return times
+
+
+def recurrence_time(fn, steps: int, calls: int = 3) -> dict:
+    """Device time per call of ``fn`` spent in the forward recurrence
+    (``lstm_rec_kernel``), and per step of it."""
+    ms = kernel_times(fn, {"rec": "lstm_rec_kernel"}, calls)["rec"]
     return {"recurrence_ms": ms, "recurrence_us_per_step": ms / steps * 1e3}
 
 
@@ -385,18 +401,36 @@ def lstm_kernel_phase(rand, dev, summary, n_frames: int) -> None:
         **recurrence_time(lambda: lstm_ops.lstm_core_fwd(x, *w1), length),
         calls="one direction of one intra path of a B=2, 256-frame step, with its stash")
     got = lstm_ops.lstm_core_bwd(x, *w1, cot, stash=stash)
+    again = lstm_ops.lstm_core_bwd(x, *w1, cot, stash=stash)
+    deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
     want = lstm_ops.lstm_core_bwd_plain(x, *w1, cot)
     errs = {nm: grad_rel(g, r) for nm, g, r in zip(("dx", "dw_ih", "dw_hh", "dbias"), got, want)}
     lib_bwd = lambda: torch.autograd.grad(lib_out, lib_args, cot, retain_graph=True)
     lib_dx = lib_bwd()[0]
+    bwd = lambda: lstm_ops.lstm_core_bwd(x, *w1, cot, stash=stash)
+    # Its three stages: the reverse sweep, dx, and dW_ih / dW_hh / db as one
+    # product (its split sums added by reduce_kernel).
+    stages = kernel_times(bwd, {"sweep": "lstm_sweep_kernel", "dx": "lstm_dx_kernel",
+                                "wgrad": "lstm_wgrad_kernel",
+                                "wgrad_reduce": "namespace)::reduce_kernel"})
+    wgrad_ms = stages["wgrad"] + stages["wgrad_reduce"]
+    wgrad_flops = 2 * n * (d + hidden) * 4 * hidden + n * 4 * hidden
     rows["lstm_core_bwd"] = dict(
         shape=list(x.shape), rel_err=max(errs.values()), grad_rel=errs, tol=1e-3,
         max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got, want)),
-        ms=timed_ms(lambda: lstm_ops.lstm_core_bwd(x, *w1, cot, stash=stash)),
+        deterministic=deterministic,
+        plan=lstm_ops.sweep_plan(x.shape[1], hidden)._asdict(),
+        ms=timed_ms(bwd),
         plain_ms=timed_ms(lambda: lstm_ops.lstm_core_bwd_plain(x, *w1, cot), 3),
         bound=bound(2 * n * per_pos, nbytes(x, cot, *w1) + stash_bytes + nbytes(x, *w1)),
         library_ms=timed_ms(lib_bwd), library_rel_err=grad_rel(lib_dx, want[0]),
+        stages_ms=stages, sweep_us_per_step=stages["sweep"] / length * 1e3,
+        wgrad_ms=wgrad_ms, wgrad_tflops=wgrad_flops / wgrad_ms / 1e9,
+        dx_tflops=2 * n * 4 * hidden * d / stages["dx"] / 1e9,
         calls="the backward of one lstm_core call (plain: its forward + autograd)")
+    rows["lstm_core_bwd"]["below_library"] = (rows["lstm_core_bwd"]["ms"]
+                                              < rows["lstm_core_bwd"]["library_ms"])
     del x, h, stash, got, want, lib, xl, lib_out, lib_args
     torch.cuda.empty_cache()
 
@@ -405,6 +439,8 @@ def lstm_kernel_phase(rand, dev, summary, n_frames: int) -> None:
         emit({"phase": "kernel", "name": name, **r})
         if not r["rel_err"] < r["tol"]:
             fail(f"{name} disagrees with its plain version: rel {r['rel_err']} >= {r['tol']}")
+        if r.get("deterministic") is False:
+            fail(f"{name}: two calls on the same inputs gave different bits")
         summary[name] = r
 
 
@@ -1006,8 +1042,13 @@ def main() -> None:
     lines = p_len
     flops = 2 * lines * length * 2 * (4 * c * 4 * hidden + hidden * 4 * hidden + hidden * 4 * c)
     nbytes = 4 * (3 * x.numel() + sum(t.numel() for t in w))
+    # Its two stages: the fused recurrence (projection included) and the fold.
+    stages = kernel_times(lambda: gridrnn.grid_rnn_seq1_pair(x, *w),
+                          {"recurrence": "gridrnn_fused_kernel", "fold": "fold_kernel"})
     summary["grid_rnn_seq1_pair"] = dict(
         rel_err=err, tol=1e-4, max_abs_err=abs_err, shape=list(x.shape),
+        plan=gridrnn.fused_plan(lines, c, hidden)._asdict(), stages_ms=stages,
+        recurrence_us_per_step=stages["recurrence"] / length * 1e3,
         ms=timed_ms(lambda: gridrnn.grid_rnn_seq1_pair(x, *w)),
         plain_ms=timed_ms(lambda: gridrnn.grid_rnn_seq1_pair_plain(x, *w), 3),
         bound=bound(flops, nbytes), library_ms=None,
@@ -1243,9 +1284,10 @@ def probe(first: int, seeds: int, out_path: str) -> None:
 
 
 # Copies of a kernel source with one part of the work switched off
-# (probe_kernels): (file, text to replace, replacement). Timing only: the
-# results of a variant are wrong.
-_ATTN_CU, _LSTM_CU_FILE = "attention.cu", "lstm.cu"
+# (probe_kernels): (file, text to replace, replacement[, further (text,
+# replacement) pairs of the same variant]). Timing only: the results of a
+# variant are wrong.
+_ATTN_CU, _LSTM_CU_FILE, _GRID_CU = "attention.cu", "lstm.cu", "gridrnn.cu"
 KERNEL_VARIANTS = {
     "frame_attention": {
         "no_values": (_ATTN_CU, "  // -- values: slice `rank` of the value width",
@@ -1271,22 +1313,61 @@ KERNEL_VARIANTS = {
                                "    }\n    __syncthreads();\n  }\n  cluster.sync();\n}"),
         "no_xp_loads": (_LSTM_CU_FILE, "xp[(row0 + q) * N + g * H + unit] : 0.f;", "0.f : 0.f;"),
     },
+    # Kernel 1: the fused recurrence's parts (the fold is unchanged).
+    "grid_rnn_seq1_pair": {
+        "no_window": (_GRID_CU, "    if (s + 1 < L) window(s + 1);", ""),
+        "no_h_product": (_GRID_CU, "    fused_sum<LINES>(acc, ws + KW * wst + 4 * ja, ws + KW * "
+                         "wst + 4 * jb, wst, hcur, lbp, H, ks);", ""),
+        "no_exchange": (_GRID_CU, "          cluster.map_shared_rank(hnext, r)[units[u] * lbp + "
+                        "lq0 + q] = h;", "          hnext[units[u] * lbp + lq0 + q] = h;"),
+        "no_cluster_barrier": (_GRID_CU, "    if (s > 0) cluster_wait();  // every",
+                               "    if (s > 0) __syncthreads();  // every",
+                               (("    cluster_arrive();\n    if (s + 1 < L)", "    if (s + 1 < L)"),
+                                ("  cluster_wait();  // no block leaves",
+                                 "  cluster.sync();  //"))),
+    },
+    # Kernel 9: the reverse sweep's parts (dx and the weight gradients unchanged).
+    "lstm_core_bwd": {
+        "no_product": (_LSTM_CU_FILE, "    for (int nq = ks; nq < uc; nq += RC_KS) {",
+                       "    for (int nq = ks; nq < 0; nq += RC_KS) {"),
+        "no_reduce_scatter": (_LSTM_CU_FILE, "        for (int q = 0; q < L4; ++q) dst[i][buf + "
+                              "(ks * L4 + q) * uc + dst_col[i]] = acc[q][i];", ""),
+        "no_barrier": (_LSTM_CU_FILE, "    // 3.\n    cluster.sync();", "    // 3.",
+                       (("    // 5.\n    __syncthreads();\n  }\n}",
+                         "    // 5.\n    __syncthreads();\n  }\n  cluster.sync();\n}"),)),
+        "no_stash_loads": (_LSTM_CU_FILE, "    // Each thread copies its own cells' stashes (so it "
+                           "alone reads them).\n#pragma unroll\n    for (int i = 0; i < CELLS;",
+                           "    // Each thread copies its own cells' stashes (so it alone reads "
+                           "them).\n#pragma unroll\n    for (int i = 0; i < 0;"),
+    },
 }
+
+
+def variant_text(src: str, kernel: str, name: str, spec) -> str:
+    """The source of one variant: each of its replacements must match once."""
+    pairs = [(spec[1], spec[2]), *(spec[3] if len(spec) > 3 else ())]
+    for old, new in pairs:
+        if src.count(old) != 1:
+            fail(f"probe variant {kernel}/{name}: its text is not in {spec[0]} once")
+        src = src.replace(old, new)
+    return src
 
 
 PROBE_ATTENTION_PLANS = ((24, 3), (32, 3), (40, 3), (40, 4), (48, 4), (24, 2), (8, 1), (16, 1))
 
 
 def probe_kernels(out_path: str) -> None:
-    """Where the time of the two redesigned kernels goes: each variant of
+    """Where the time of the redesigned kernels goes: each variant of
     KERNEL_VARIANTS is built from a copy of its source and timed at the main
     path's shape and plan beside the unchanged source, on the same inputs
     (frame_attention: B=1, T=257, D=8 and 12, and the unchanged kernel at
     the plans of PROBE_ATTENTION_PLANS; bilstm_fused_forward: 262 lines, two
-    directions, H=200). Writes the times to ``out_path``."""
+    directions, H=200; grid_rnn_seq1_pair: the canvas [1, 263, 263, 32],
+    H=100; lstm_core_bwd: [260, 524, 192], H=200). Writes the times to
+    ``out_path``."""
     import ctypes
 
-    from fdbm_tpu_torch.ops import _build, attention as attn_ops, lstm as lstm_ops
+    from fdbm_tpu_torch.ops import _build, attention as attn_ops, gridrnn, lstm as lstm_ops
 
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -1305,10 +1386,8 @@ def probe_kernels(out_path: str) -> None:
         src_name = next(iter(variants.values()))[0]
         src = (_build.CSRC / src_name).read_text()
         texts = {"unchanged": src}
-        for name, (_, old, new) in variants.items():
-            if src.count(old) != 1:
-                fail(f"probe variant {kernel}/{name}: its text is not in {src_name} once")
-            texts[name] = src.replace(old, new)
+        for name, spec in variants.items():
+            texts[name] = variant_text(src, kernel, name, spec)
         procs = {}
         for name, text in texts.items():
             cu = os.path.join(work, f"{kernel}_{name}.cu")
@@ -1356,7 +1435,7 @@ def probe_kernels(out_path: str) -> None:
                                          "ms": timed_ms(call, 30)})
                 readings[f"{kernel}_d{d_dim}"] = row
                 emit({"phase": "probe_kernels", "kernel": kernel, "D": d_dim, **row})
-        else:
+        elif kernel == "bilstm_fused_forward":
             x = rand(260, 262, 192)
             w = (rand(2, 192, 800, s=0.07), rand(2, 200, 800, s=0.07), rand(2, 800, s=0.07))
             xp, out = torch.empty(2, 260, 262, 800, device=dev), torch.empty(2, 260, 262, 200,
@@ -1372,6 +1451,52 @@ def probe_kernels(out_path: str) -> None:
                 if call():
                     fail(f"probe variant {kernel}/{name} does not launch")
                 row[name] = timed_ms(call, 10)
+            readings[kernel] = row
+            emit({"phase": "probe_kernels", "kernel": kernel, **row})
+        elif kernel == "grid_rnn_seq1_pair":
+            # One RNN path of the 4 s request: canvas [1, 263, 263, 32], H = 100.
+            x = rand(1, 263, 263, 32, s=0.5)
+            w = (rand(2, 128, 400, s=0.1), rand(2, 100, 400, s=0.1), rand(2, 400, s=0.1),
+                 rand(200, 128, s=0.1))
+            hs = torch.empty(2, 263, 260, 100, device=dev)
+            outf, outb = torch.empty_like(x), torch.empty_like(x)
+            plan = gridrnn.fused_plan(263, 32, 100)
+            row = {"plan": plan._asdict()}
+            for name, lib in libs.items():
+                fn = lib.gridrnn_seq1_pair
+                fn.argtypes, fn.restype = gridrnn._SIGNATURES["gridrnn_seq1_pair"], ctypes.c_int
+                call = lambda: fn(x.data_ptr(), *(t.data_ptr() for t in w), hs.data_ptr(),
+                                  outf.data_ptr(), outb.data_ptr(), 1, 263, 263, 32, 100,
+                                  plan.cs, plan.lines, stream)
+                if call():
+                    fail(f"probe variant {kernel}/{name} does not launch")
+                row[name] = timed_ms(call, 20)
+            readings[kernel] = row
+            emit({"phase": "probe_kernels", "kernel": kernel, **row})
+        else:
+            # One lstm_core backward of a 6l48c200 step: [260, 524, 192], H = 200.
+            s_len, lines, d, hidden = 260, 524, 192, 200
+            x = rand(s_len, lines, d)
+            w = (rand(d, 800, s=0.07), rand(hidden, 800, s=0.07), rand(800, s=0.07))
+            _, (h, gates, c) = lstm_ops.lstm_core_fwd(x, *w)
+            cot = rand(s_len, lines, hidden)
+            dgates = torch.empty_like(gates)
+            lib9 = _build.load("lstm", lstm_ops._SIGNATURES, lstm_ops._RESTYPES)
+            work = torch.empty(lib9.lstm_train_bwd_workspace(s_len, lines, d, hidden), device=dev)
+            dx, dwg = torch.empty_like(x), torch.empty(d + hidden + 1, 800, device=dev)
+            plan = lstm_ops.sweep_plan(lines, hidden)
+            row = {"plan": plan._asdict()}
+            for name, lib in libs.items():
+                fn = lib.lstm_train_bwd
+                fn.argtypes, fn.restype = lstm_ops._SIGNATURES["lstm_train_bwd"], ctypes.c_int
+                call = lambda: fn(x.data_ptr(), h.data_ptr(), c.data_ptr(), gates.data_ptr(),
+                                  cot.data_ptr(), w[0].data_ptr(), w[1].data_ptr(),
+                                  dgates.data_ptr(), work.data_ptr(), dx.data_ptr(),
+                                  dwg.data_ptr(), s_len, lines, d, hidden, 0, plan.cs,
+                                  plan.lines, stream)
+                if call():
+                    fail(f"probe variant {kernel}/{name} does not launch")
+                row[name] = timed_ms(call, 5)
             readings[kernel] = row
             emit({"phase": "probe_kernels", "kernel": kernel, **row})
     with open(out_path, "w") as f:

@@ -1,5 +1,7 @@
-// The three stages of the TF-GridNet RNN path on the H100, shared by the
-// serving kernel (gridrnn.cu) and the training kernels (gridrnn_train.cu).
+// The three stages of the TF-GridNet RNN path on the H100, run in turn by
+// the training kernels (gridrnn_train.cu); the serving kernel (gridrnn.cu)
+// fuses the first two into one cluster recurrence and takes only the fold
+// from here.
 //
 // Layout: a canvas x [B, S, P, C] with the sequence on axis 1; each (b, p)
 // is one line of S rows, L = S - 3 unfold windows per line. A

@@ -16,14 +16,13 @@
 //
 // What bounds it on the H100: the recurrence. Each step of a line needs the
 // whole previous state, so the S steps are a chain of [lines, H] x [H, 4H]
-// products, and a step's time is the latency of that chain. At H = 200,
-// w_hh is 200 x 800 x 4 B = 640 KB per direction: nearly three times the
-// 227 KB of shared memory a block can have, so one block cannot hold it
-// (unlike gridrnn_core.cuh's recurrence, 4H <= 512). A block that streams
-// the rest from L2 every step waits on L2 latency and two barriers per step
-// with a third of the SMs busy. The input projection (x @ w_ih for all
-// S x B positions) and the backward's reductions are tiled products over
-// all positions at once.
+// products (and, in the backward, [lines, 4H] x [4H, H]), and a step's time
+// is the latency of that chain. At H = 200, w_hh is 200 x 800 x 4 B = 640 KB
+// per direction: nearly three times the 227 KB of shared memory a block can
+// have, so one block cannot hold it (unlike gridrnn.cu's recurrence). The
+// input projection (x @ w_ih for all S x B positions), dx and the weight
+// gradients are products over all positions at once, bound by the fp32
+// FMA rate of the CUDA cores (no TF32: tile_gemm.cuh).
 //
 // What the design does about it:
 //   Forward: dense_kernel computes the pre-activations x @ w_ih + b of
@@ -39,21 +38,31 @@
 //   the grid is one wave of clusters on the card. With STASH the activated
 //   gates overwrite their pre-activations and c is stashed, so the backward
 //   reads the gates instead of recomputing them.
-//   Backward, in four stages on the current stream:
-//   1. lstm_rec_bwd_kernel: the reverse sweep, the forward's recurrence
-//      transposed. One block per 8 lines; thread (q, j) sums quarter q of
-//      dgates . w_hh[j] for them, w_hh^T (a copy the wrapper makes) partly
-//      in shared memory and the rest from L2; thread (line, unit) adds the
-//      four quarters and the output cotangent, carries dc, and writes
-//      dgates.
-//   2. dx = dgates w_ih^T: dense_kernel reading w_ih through strides.
-//   3. dW_ih = x^T dgates, dW_hh = h_{s-1}^T dgates, db = sum dgates:
-//      reductions over all positions, split into per-block partial sums
-//      and added in a fixed order (split_k.cuh). No atomics: two backward
-//      calls give the same gradients, bit for bit.
+//   Backward, in three stages on the current stream:
+//   1. lstm_sweep_kernel: the reverse sweep on the forward's clusters,
+//      transposed. Each block holds the forward's slice of w_hh (its units'
+//      gate columns, staged n-major from w_hh itself: no transposed copy in
+//      device memory) and computes its part of dh_prev for every unit from
+//      its own dgates columns; a reduce-scatter through distributed shared
+//      memory hands each part to the unit's owner; after one cluster
+//      barrier each block runs its cells' backward (the stashes loaded
+//      during the product) and writes dgates, and one block barrier hands
+//      the new dgates to the next step's product. The wrapper
+//      (ops/lstm.py: sweep_plan) sizes the tile to one wave.
+//   2. dx = dgates w_ih^T: lstm_dx_kernel on simt_gemm.cuh, both operands
+//      read as they lie (8 x 8 per thread, a three-stage cp.async ring).
+//   3. dW_ih, dW_hh and db as one product over [x | h_{s-1} | 1] against
+//      dgates (lstm_wgrad_kernel on simt_gemm.cuh: 8 x 8 per thread, a
+//      four-stage cp.async ring), so dgates is read once for all three;
+//      split over positions into per-block partial sums added in a fixed
+//      order (split_k.cuh). No atomics anywhere: two backward calls give
+//      the same gradients, bit for bit.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "simt_gemm.cuh"
 #include "split_k.cuh"
 #include "tile_gemm.cuh"
 
@@ -61,27 +70,25 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// ---- dense products ------------------------------------------------------------
-// out[d][m][n] = sum_k A[m][k] B_d[k][n] (+ bias[d][n]) with A [M][K] row-major
-// (shared by the directions) and B_d[k][n] = Bw[d*b_dir + k*b_kst + n*b_nst]:
-// the input projection (B = w_ih, K = D) and dx (B = w_ih^T through strides).
+// ---- the input projection --------------------------------------------------------
+// out[d][m][n] = sum_k A[m][k] W_d[k][n] + bias[d][n] with A [M][K] row-major
+// (shared by the directions) and W_d = W + d * w_dir, [K][N] row-major.
 constexpr int DN_BM = 128, DN_BN = 64;
 
-template <bool B_K_FAST>
 __global__ void __launch_bounds__(GEMM_THREADS)
-dense_kernel(const float* __restrict__ A, const float* __restrict__ Bw, long long b_dir,
-             int b_kst, int b_nst, const float* __restrict__ bias, float* __restrict__ out,
-             long long M, int K, int N) {
+dense_kernel(const float* __restrict__ A, const float* __restrict__ W, long long w_dir,
+             const float* __restrict__ bias, float* __restrict__ out, long long M, int K,
+             int N) {
   __shared__ __align__(16) float smem[GemmTile<DN_BM, DN_BN>::SMEM_FLOATS];
   const int d = blockIdx.z;
   const long long m0 = (long long)blockIdx.x * DN_BM;
   const int n0 = blockIdx.y * DN_BN;
   auto a_row = [&](int m) -> long long { return m0 + m < M ? (m0 + m) * K : -1; };
   auto a_col = [&](int k) -> long long { return k; };
-  auto b_k = [&](int k) -> long long { return d * b_dir + (long long)k * b_kst; };
-  auto b_n = [&](int n) -> long long { return n0 + n < N ? (long long)(n0 + n) * b_nst : -1; };
+  auto b_k = [&](int k) -> long long { return d * w_dir + (long long)k * N; };
+  auto b_n = [&](int n) -> long long { return n0 + n < N ? n0 + n : -1; };
   float acc[DN_BM / 16][DN_BN / 16];
-  gemm_tile<DN_BM, DN_BN, B_K_FAST>(K, A, a_row, a_col, Bw, b_k, b_n, acc, smem);
+  gemm_tile<DN_BM, DN_BN, false>(K, A, a_row, a_col, W, b_k, b_n, acc, smem);
 #pragma unroll
   for (int i = 0; i < DN_BM / 16; ++i) {
     const long long row = m0 + tile_row<DN_BM, DN_BN>(i);
@@ -89,59 +96,22 @@ dense_kernel(const float* __restrict__ A, const float* __restrict__ Bw, long lon
 #pragma unroll
     for (int j = 0; j < DN_BN / 16; ++j) {
       const int n = n0 + tile_col(j);
-      if (n < N) out[((long long)d * M + row) * N + n] = acc[i][j] + (bias ? bias[d * N + n] : 0.f);
+      if (n < N) out[((long long)d * M + row) * N + n] = acc[i][j] + bias[d * N + n];
     }
   }
 }
 
-template <bool B_K_FAST>
-cudaError_t dense(const float* A, const float* Bw, long long b_dir, int b_kst, int b_nst,
-                  const float* bias, float* out, long long M, int K, int N, int dirs,
-                  cudaStream_t stream) {
+cudaError_t dense(const float* A, const float* W, long long w_dir, const float* bias, float* out,
+                  long long M, int K, int N, int dirs, cudaStream_t stream) {
   dim3 grid((unsigned)((M + DN_BM - 1) / DN_BM), (N + DN_BN - 1) / DN_BN, dirs);
-  dense_kernel<B_K_FAST><<<grid, GEMM_THREADS, 0, stream>>>(A, Bw, b_dir, b_kst, b_nst, bias,
-                                                            out, M, K, N);
+  dense_kernel<<<grid, GEMM_THREADS, 0, stream>>>(A, W, w_dir, bias, out, M, K, N);
   return cudaGetLastError();
 }
 
 // ---- recurrences ---------------------------------------------------------------------
-constexpr int LB = 8;                    // lines per block of the reverse sweep
-constexpr int REC_MAX_THREADS = 1024;    // the reverse sweep: one thread per gate column
 constexpr int SMEM_FLOATS = 232448 / 4;  // a block's shared memory on the H100 (227 KB)
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
-
-__device__ __forceinline__ void fma8(float (&acc)[LB], float w, const float4* st, int k) {
-  const float4 a = st[2 * k], b = st[2 * k + 1];
-  acc[0] = fmaf(a.x, w, acc[0]);
-  acc[1] = fmaf(a.y, w, acc[1]);
-  acc[2] = fmaf(a.z, w, acc[2]);
-  acc[3] = fmaf(a.w, w, acc[3]);
-  acc[4] = fmaf(b.x, w, acc[4]);
-  acc[5] = fmaf(b.y, w, acc[5]);
-  acc[6] = fmaf(b.z, w, acc[6]);
-  acc[7] = fmaf(b.w, w, acc[7]);
-}
-
-// acc[l] += sum_{k < H} st[k][l] * w_k for the LB lines, with w_k = ws[k*N + t]
-// for k < R (shared memory) and wg[k * w_st] beyond (L2).
-__device__ __forceinline__ void rec_matvec(float (&acc)[LB], const float* ws, int R, int N,
-                                           int t, const float* __restrict__ wg, int w_st,
-                                           int H, const float4* st) {
-#pragma unroll 4
-  for (int k = 0; k < R; ++k) fma8(acc, ws[k * N + t], st, k);
-#pragma unroll 8
-  for (int k = R; k < H; ++k) fma8(acc, __ldg(wg + (long long)k * w_st), st, k);
-}
-
-// Rows of w_hh (or of w_hh^T's quarters) that fit in shared memory beside
-// `other` floats.
-int rec_rows(int H, int other) {
-  const int rows = (SMEM_FLOATS - other) / (4 * H);
-  return rows < H ? rows : H;
-}
-
-int rec_threads(int H) { return (4 * H + 31) / 32 * 32; }
 
 // ---- the forward recurrence: a cluster of blocks per tile of lines ------------------
 // xp [dirs][S][B][4H] pre-activations (bias included), w_hh [dirs][H][4H] ->
@@ -366,162 +336,439 @@ cudaError_t launch_rec(float* xp, const float* w_hh, float* hout, float* cout, i
   return cudaGetLastError();
 }
 
-// The reverse sweep of one direction (reversed iff rev). gates [S][B][4H]
-// activated (i, f, g, o), cs [S][B][H] cell states, dout [S][B][H] the
-// cotangent of h, w_t [4H][H] = w_hh^T -> dgates [S][B][4H], the gradient
-// of the pre-activations. Steps run from the forward's last to its first.
-// Shared memory: ws[k][t] = w_t[q*H + k][j] for k < R (t = q*H + j), the
-// previous step's dgates [4H][LB], the quarter sums [LB][4H].
-__global__ void __launch_bounds__(REC_MAX_THREADS, 1)
-lstm_rec_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
-                    const float* __restrict__ dout, const float* __restrict__ w_t,
-                    float* __restrict__ dgates, int S, int B, int H, int R, int rev) {
-  extern __shared__ __align__(16) float smem[];
-  const int N = 4 * H;
-  const int t = threadIdx.x;
-  const int q = t / H, j = t % H;  // phase A: quarter q of dgates . w_hh[j]
-  float* ws = smem;          // [R][N]
-  float* dgs = ws + R * N;   // [N][LB]
-  float* part = dgs + N * LB;  // [LB][N]
-  for (int e = t; e < R * N; e += blockDim.x) {
-    const int k = e / N, tt = e % N;
-    ws[e] = w_t[((long long)(tt / H) * H + k) * H + tt % H];
-  }
-  for (int e = t; e < N * LB; e += blockDim.x) dgs[e] = 0.f;
-  const int line0 = blockIdx.x * LB;
-  float dc_carry[2] = {0.f, 0.f};
-  __syncthreads();
+// ---- the reverse sweep: the forward's clusters, transposed ----------------------------
+// gates [S][B][4H] activated (i, f, g, o), cst [S][B][H] cell states, dout
+// [S][B][H] the cotangent of h, w_hh [H][4H] -> dgates [S][B][4H], the
+// gradient of the pre-activations. Steps run from the forward's last
+// position to its first (front to back iff rev).
+//
+// A cluster of CS blocks runs one tile of LINES lines. Block r owns units
+// J_r = [r*uc, (r+1)*uc) and their gate columns G_r, the forward's slice,
+// and holds it for the whole sweep n-major, wt[n][k] = w_hh[k][G_r(n)]
+// (n = 4j + g), staged once from w_hh itself. Per step:
+//   1. product: the block's part of dh_prev, part[l][k] = sum over n in G_r
+//      of dg[l][n] w_hh[k][n], for every unit k and line l, from its own
+//      dgates columns of the previous step (dgs [LINES][4uc], in shared
+//      memory). Lane ks of group kq sums the n quads ks, ks + 4, ... for
+//      units 4kq .. 4kq + 3 and all LINES lines (per quad four float4 of
+//      weights and one float4 of dgates per line, 16 x LINES FMAs); a
+//      reduce-scatter of shuffles over the group's four lanes leaves each
+//      lane the sums of LINES/4 lines;
+//   2. reduce-scatter across the cluster: each sum goes to the receive tile
+//      of its unit's owner, recv [2][CS][LINES][uc] (distributed shared
+//      memory, double-buffered);
+//   3. one cluster barrier;
+//   4. the cell: thread (line, unit) adds dout and the CS parts in rank
+//      order, runs the cell's backward with dc carried in a register (its
+//      gates, c_prev and dout were copied into shared memory by cp.async
+//      during the product, off the chain; c is the c_prev of the step
+//      before), and writes dgates to device memory and to dgs;
+//   5. one block barrier: dgs is read by every lane of the block.
+// Nothing is summed with atomics, so two calls give the same bits.
+// Cells (line, unit) per thread: at most LINES / 4 + 1 (5 of 6 at H = 200,
+// CS = 4, 20 lines), so that their carried state fits in registers.
+__host__ __device__ constexpr int sweep_cells(int lines) { return lines / 4 + 1; }
+constexpr int SW_STASH = 6;  // floats of a cell's stash per step: 4 gates, c_prev, dout
 
-  const float4* dgs4 = reinterpret_cast<const float4*>(dgs);
+struct SweepPlan {
+  int uc;       // units per block
+  int ncol;     // gate columns per block, 4 * uc
+  int kp;       // units padded to whole float4: the row length of wt
+  int kgroups;  // groups of four units of the product, kp / 4
+  int nt;       // threads: four lanes per group, whole warps
+  long long bytes;
+};
+
+bool sweep_plan(int H, int cs, int lines, SweepPlan& p) {
+  if (H < 1 || (cs != 1 && cs != 2 && cs != 4 && cs != 8)) return false;
+  if (lines < 4 || lines > RC_MAX_LINES || lines % 4) return false;
+  p.uc = (H + cs - 1) / cs;
+  p.ncol = 4 * p.uc;
+  p.kgroups = (H + 3) / 4;
+  p.kp = 4 * p.kgroups;
+  p.nt = (p.kgroups * RC_KS + 31) / 32 * 32;
+  p.bytes = 4LL * ((long long)p.ncol * p.kp + (long long)lines * p.ncol +
+                   (2LL * cs + SW_STASH) * lines * p.uc);
+  const int cells = (lines * p.uc + p.nt - 1) / p.nt;
+  return p.nt <= RC_MAX_THREADS && cells <= sweep_cells(lines) && p.bytes <= 4LL * SMEM_FLOATS;
+}
+
+// grid (CS * tiles), clusters of CS blocks along x.
+template <int LINES>
+__global__ void __launch_bounds__(RC_MAX_THREADS, 1)
+lstm_sweep_kernel(const float* __restrict__ gates, const float* __restrict__ cst,
+                  const float* __restrict__ dout, const float* __restrict__ w_hh,
+                  float* __restrict__ dgates, int S, int B, int H, int rev, int uc, int kp) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int L4 = LINES / 4, CELLS = sweep_cells(LINES);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int N = 4 * H, ncol = 4 * uc, kgroups = kp / 4;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int line0 = (blockIdx.x / cs) * LINES;
+  const int u0 = rank * uc;
+  float* wt = smem;                            // [ncol][kp]
+  float* dgs = wt + ncol * kp;                 // [LINES][ncol]
+  float* recv = dgs + LINES * ncol;            // [2][cs][LINES][uc]
+  float* stash = recv + 2 * cs * LINES * uc;   // [SW_STASH][LINES][uc]
+  for (int e = tid; e < ncol * kp; e += nt) {
+    const int n = e / kp, k = e % kp, u = u0 + n / 4;
+    wt[e] = k < H && u < H ? w_hh[(long long)k * N + (n % 4) * H + u] : 0.f;
+  }
+  for (int e = tid; e < LINES * ncol; e += nt) dgs[e] = 0.f;
+
+  // Product lanes: group kq (units 4kq .. 4kq + 3), lane ks of its four.
+  // Lanes past the last group repeat its product and own nothing.
+  const int ks = tid % RC_KS;
+  const int kq = min(tid / RC_KS, kgroups - 1);
+  const bool sender = tid / RC_KS < kgroups;
+  const bool hi1 = ks & 2, hi0 = ks & 1;
+  float* dst[4];  // the receive tile of each of the lane's units' owners
+  int dst_col[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = min(4 * kq + i, H - 1), owner = k / uc;
+    dst[i] = cluster.map_shared_rank(recv, owner) + rank * LINES * uc;
+    dst_col[i] = k - owner * uc;
+  }
+  // Cell threads: cell i of this thread is (line e / uc, unit e % uc), e =
+  // tid + i * nt. c of a step's position is the c_prev copied a step
+  // earlier (cv), so a step copies c only at the position before it.
+  float dc_carry[CELLS], cv[CELLS];
+  bool cell_ok[CELLS];
+  int off_h[CELLS], off_g[CELLS];  // the cell's offsets in a position's [B][H] and [B][4H]
+#pragma unroll
+  for (int i = 0; i < CELLS; ++i) {
+    const int e = tid + i * nt;
+    const int l = e / uc, u = u0 + e % uc;
+    cell_ok[i] = e < LINES * uc && line0 + l < B && u < H;
+    off_h[i] = (line0 + l) * H + u;
+    off_g[i] = (line0 + l) * N + u;
+    dc_carry[i] = 0.f;
+    cv[i] = cell_ok[i] ? cst[(long long)(rev ? 0 : S - 1) * B * H + off_h[i]] : 0.f;
+  }
+  cluster.sync();  // weights and dgs in place in every block before any remote write
+
   for (int s = 0; s < S; ++s) {
     const int p = rev ? s : S - 1 - s;
     const int pp = rev ? p + 1 : p - 1;  // the position whose state step p consumed
     const bool has_prev = pp >= 0 && pp < S;
-    // Phase B's inputs for this step, loaded first so that they arrive
+    // The cells' stashes for this step, loaded first so that they arrive
     // during the product.
-    float gv[2][4], cc[2], cp[2], dh[2];
+    const float* gates_p = gates + (long long)p * B * N;
+    const float* dout_p = dout + (long long)p * B * H;
+    const float* c_pp = cst + (long long)pp * B * H;
+    // Each thread copies its own cells' stashes (so it alone reads them).
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int e = t + i * blockDim.x;
-      const int l = e / H, jj = e % H;
-      const bool valid = e < LB * H && line0 + l < B;
-      const long long pos = (long long)p * B + line0 + l;
+    for (int i = 0; i < CELLS; ++i) {
+      const int e = tid + i * nt;
+      if (e >= LINES * uc) break;
+      const bool ok = cell_ok[i];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) gv[i][u] = valid ? gates[pos * N + u * H + jj] : 0.f;
-      cc[i] = valid ? cs[pos * H + jj] : 0.f;
-      cp[i] = valid && has_prev ? cs[((long long)pp * B + line0 + l) * H + jj] : 0.f;
-      dh[i] = valid ? dout[pos * H + jj] : 0.f;
+      for (int g = 0; g < 4; ++g)
+        cp_async_to<4>(stash + g * LINES * uc + e, ok ? gates_p + off_g[i] + g * H : gates, ok);
+      cp_async_to<4>(stash + 4 * LINES * uc + e, ok && has_prev ? c_pp + off_h[i] : cst,
+                     ok && has_prev);
+      cp_async_to<4>(stash + 5 * LINES * uc + e, ok ? dout_p + off_h[i] : dout, ok);
     }
-    // Phase A: the previous step's dgates times w_hh^T, quarter q.
-    if (t < N) {
-      float acc[LB];
+    cp_async_commit_group();
+    // 1. The block's part of dh_prev.
+    float acc[LINES][4];
 #pragma unroll
-      for (int l = 0; l < LB; ++l) acc[l] = 0.f;
-      rec_matvec(acc, ws, R, N, t, w_t + (long long)q * H * H + j, H, H, dgs4 + 2 * q * H);
+    for (int l = 0; l < LINES; ++l)
 #pragma unroll
-      for (int l = 0; l < LB; ++l) part[l * N + t] = acc[l];
-    }
-    __syncthreads();
-    // Phase B: the cell's backward for (line l, unit jj).
+      for (int i = 0; i < 4; ++i) acc[l][i] = 0.f;
+#pragma unroll 2
+    for (int nq = ks; nq < uc; nq += RC_KS) {
+      const float* wq = wt + 4 * nq * kp + 4 * kq;
+      const float4 w0 = *reinterpret_cast<const float4*>(wq);
+      const float4 w1 = *reinterpret_cast<const float4*>(wq + kp);
+      const float4 w2 = *reinterpret_cast<const float4*>(wq + 2 * kp);
+      const float4 w3 = *reinterpret_cast<const float4*>(wq + 3 * kp);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int e = t + i * blockDim.x;
-      if (e >= LB * H) break;
-      const int l = e / H, jj = e % H;
-      const float* pl = part + l * N + jj;
-      const float dhv = dh[i] + pl[0] + pl[H] + pl[2 * H] + pl[3 * H];
-      const float ig = gv[i][0], fg = gv[i][1], gg = gv[i][2], og = gv[i][3];
-      const float tc = tanhf(cc[i]);
-      const float dc = dhv * og * (1.f - tc * tc) + dc_carry[i];
-      const float dg[4] = {dc * gg * ig * (1.f - ig), dc * cp[i] * fg * (1.f - fg),
-                           dc * ig * (1.f - gg * gg), dhv * tc * og * (1.f - og)};
-      dc_carry[i] = dc * fg;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) dgs[(u * H + jj) * LB + l] = dg[u];
-      if (line0 + l < B) {
-        float* out = dgates + ((long long)p * B + line0 + l) * N + jj;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) out[u * H] = dg[u];
+      for (int l = 0; l < LINES; ++l) {
+        const float4 dv = *reinterpret_cast<const float4*>(dgs + l * ncol + 4 * nq);
+        fma_gates(acc[l], dv.x, w0);
+        fma_gates(acc[l], dv.y, w1);
+        fma_gates(acc[l], dv.z, w2);
+        fma_gates(acc[l], dv.w, w3);
       }
     }
+    // Reduce-scatter over the group's four lanes (xor 2, then xor 1): lane
+    // ks keeps the sums of lines ks*L4 .. ks*L4 + L4 - 1 in acc[0 .. L4).
+#pragma unroll
+    for (int l = 0; l < LINES / 2; ++l)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float lo = acc[l][i], hi = acc[l + LINES / 2][i];
+        acc[l][i] = (hi1 ? hi : lo) + __shfl_xor_sync(0xffffffffu, hi1 ? lo : hi, 2);
+      }
+#pragma unroll
+    for (int l = 0; l < L4; ++l)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float lo = acc[l][i], hi = acc[l + L4][i];
+        acc[l][i] = (hi0 ? hi : lo) + __shfl_xor_sync(0xffffffffu, hi0 ? lo : hi, 1);
+      }
+    // 2. Each sum to its unit's owner.
+    const int buf = (s & 1) * cs * LINES * uc;
+    if (sender) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (4 * kq + i >= H) break;
+#pragma unroll
+        for (int q = 0; q < L4; ++q) dst[i][buf + (ks * L4 + q) * uc + dst_col[i]] = acc[q][i];
+      }
+    }
+    // 3.
+    cluster.sync();
+    // 4. The cells' backward.
+    const float* rv = recv + buf;
+    cp_async_wait_groups<0>();
+#pragma unroll
+    for (int i = 0; i < CELLS; ++i) {
+      const int e = tid + i * nt;
+      if (e >= LINES * uc) break;
+      const int l = e / uc, j = e % uc;
+      float dhv = stash[5 * LINES * uc + e];
+      for (int r = 0; r < cs; ++r) dhv += rv[(r * LINES + l) * uc + j];
+      const float ig = stash[e], fg = stash[LINES * uc + e], gg = stash[2 * LINES * uc + e],
+                  og = stash[3 * LINES * uc + e], cp = stash[4 * LINES * uc + e];
+      const float tc = tanhf(cv[i]);
+      const float dc = dhv * og * (1.f - tc * tc) + dc_carry[i];
+      float4 dg = make_float4(dc * gg * ig * (1.f - ig), dc * cp * fg * (1.f - fg),
+                              dc * ig * (1.f - gg * gg), dhv * tc * og * (1.f - og));
+      dc_carry[i] = dc * fg;
+      cv[i] = cp;
+      if (!cell_ok[i]) dg = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dgs + l * ncol + 4 * j) = dg;
+      if (cell_ok[i]) {
+        float* out = dgates + (long long)p * B * N + off_g[i];
+        out[0] = dg.x;
+        out[H] = dg.y;
+        out[2 * H] = dg.z;
+        out[3 * H] = dg.w;
+      }
+    }
+    // 5.
     __syncthreads();
   }
 }
 
-cudaError_t launch_rec_bwd(const float* gates, const float* cs, const float* dout,
-                           const float* w_t, float* dgates, int S, int B, int H, int rev,
-                           cudaStream_t stream) {
-  const int N = 4 * H;
-  const int other = 2 * N * LB;
-  const int R = rec_rows(H, other);
-  const size_t smem = (size_t)(R * N + other) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lstm_rec_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+using SweepKernel = void (*)(const float*, const float*, const float*, const float*, float*, int,
+                             int, int, int, int, int);
+
+SweepKernel sweep_kernel(int lines) {
+  switch (lines) {
+    case 4: return lstm_sweep_kernel<4>;
+    case 8: return lstm_sweep_kernel<8>;
+    case 12: return lstm_sweep_kernel<12>;
+    case 16: return lstm_sweep_kernel<16>;
+    case 20: return lstm_sweep_kernel<20>;
+    case 24: return lstm_sweep_kernel<24>;
+    default: return nullptr;
+  }
+}
+
+struct SweepLaunch {
+  SweepPlan plan;
+  SweepKernel fn;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+};
+
+cudaError_t sweep_launch_config(SweepLaunch& L, int H, int cs, int lines, int tiles,
+                                cudaStream_t stream) {
+  if (!sweep_plan(H, cs, lines, L.plan)) return cudaErrorInvalidValue;
+  L.fn = sweep_kernel(lines);
+  cudaError_t err = cudaFuncSetAttribute(L.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L.plan.bytes));
   if (err != cudaSuccess) return err;
-  lstm_rec_bwd_kernel<<<(B + LB - 1) / LB, rec_threads(H), smem, stream>>>(
-      gates, cs, dout, w_t, dgates, S, B, H, R, rev);
+  L.cfg = {};
+  L.cfg.gridDim = dim3(cs * tiles);
+  L.cfg.blockDim = dim3(L.plan.nt);
+  L.cfg.dynamicSmemBytes = L.plan.bytes;
+  L.cfg.stream = stream;
+  L.attr[0].id = cudaLaunchAttributeClusterDimension;
+  L.attr[0].val.clusterDim.x = cs;
+  L.attr[0].val.clusterDim.y = 1;
+  L.attr[0].val.clusterDim.z = 1;
+  L.cfg.attrs = L.attr;
+  L.cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+cudaError_t launch_sweep(const float* gates, const float* cst, const float* dout,
+                         const float* w_hh, float* dgates, int S, int B, int H, int rev, int cs,
+                         int lines, cudaStream_t stream) {
+  SweepLaunch L;
+  cudaError_t err = sweep_launch_config(L, H, cs, lines, (B + lines - 1) / lines, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&L.cfg, L.fn, gates, cst, dout, w_hh, dgates, S, B, H, rev, L.plan.uc,
+                           L.plan.kp);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// ---- weight gradients: split reductions over the S x B positions ----------------------
-// out[m][n] = sum_kk A(kk)[m] dgates[kk][n] over positions kk = p * B + b:
-// W_IH: A(kk) = x[kk] (M = D); W_HH: A(kk) = h at the position step kk
-// consumed (M = H; zero at the direction's first step). Block (m tile,
-// n tile, split sp) writes partial[sp][M][N].
-enum LstmWGrad { WG_IH, WG_HH };
+// ---- the weight gradients: one product over [x | h_prev | 1] -------------------------
+// dwg[m][n] = sum over positions kk of A(kk)[m] dgates[kk][n], with A(kk) =
+// x[kk] (m < D), the h that step kk consumed (D <= m < D + H; zero at the
+// direction's first step) and 1 (m = D + H: the column sums, db). One pass
+// over dgates gives dW_ih, dW_hh and db. Split over positions, block
+// (m tile, n tile, split) writes partial[split][D + H + 1][4H]; the splits
+// are then added in a fixed order (split_k.cuh: reduce).
+using WgTile = SimtTile<200, 160, 16, 4>;  // M = 392 + 1 rows in 2 tiles at D = 192, H = 200
 
-template <LstmWGrad KIND>
-__global__ void __launch_bounds__(GEMM_THREADS)
-lstm_wgrad_kernel(const float* __restrict__ A, const float* __restrict__ dgates,
-                  float* __restrict__ partial, long long NL, int B, int M, int N, int rev,
-                  int depth) {
-  __shared__ __align__(16) float smem[GemmTile<WG_BM, WG_BN>::SMEM_FLOATS];
-  const int sp = blockIdx.z;
+template <bool VEC>
+__global__ void __launch_bounds__(WgTile::THREADS, 1)
+lstm_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ h,
+                  const float* __restrict__ dgates, float* __restrict__ partial, long long NL,
+                  int B, int D, int H, int rev, long long depth) {
+  using T = WgTile;
+  extern __shared__ __align__(16) float smem[];
+  const int MA = D + H, M = MA + 1, N = 4 * H;
+  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN, sp = blockIdx.z;
   const long long k_begin = (long long)sp * depth;
-  const int K = (int)(NL - k_begin < depth ? NL - k_begin : depth);
-  const int m0 = blockIdx.x * WG_BM, n0 = blockIdx.y * WG_BN;
-  auto a_row = [&](int m) -> long long { return m0 + m < M ? m0 + m : -1; };
-  auto a_col = [&](int k) -> long long {
-    long long kk = k_begin + k;
-    if (KIND == WG_HH) {
-      kk = rev ? kk + B : kk - B;
-      if (kk < 0 || kk >= NL) return -1;
-    }
-    return kk * M;
+  const long long k_end = min(NL, k_begin + depth);
+  const int k_tiles = k_end > k_begin ? (int)((k_end - k_begin + T::BK - 1) / T::BK) : 0;
+  // Rows of A that no copy writes: the ones (m = D + H) and beyond M.
+  for (int e = threadIdx.x; e < T::STAGES * T::BK * T::BM; e += T::THREADS) {
+    const int m = m0 + e % T::BM;
+    if (m >= MA) smem[(e / (T::BK * T::BM)) * T::STAGE_FLOATS + e % (T::BK * T::BM)] =
+        m == MA ? 1.f : 0.f;
+  }
+  auto a_src = [&](long long kk, int m, bool& ok) -> const float* {
+    if (m < D) return x + kk * D + m;
+    const long long kp = rev ? kk + B : kk - B;
+    ok = ok && kp >= 0 && kp < NL;
+    return h + kp * H + (m - D);
   };
-  auto b_k = [&](int k) -> long long { return (k_begin + k) * N; };
-  auto b_n = [&](int n) -> long long { return n0 + n < N ? n0 + n : -1; };
-  float acc[WG_BM / 16][WG_BN / 16];
-  gemm_tile<WG_BM, WG_BN, false>(K, A, a_row, a_col, dgates, b_k, b_n, acc, smem);
+  auto load = [&](float* As, float* Bs, int kt) {
+    const long long kb = k_begin + (long long)kt * T::BK;
+    constexpr int AW = VEC ? 4 : 1;  // floats per copy of A
+    for (int e = threadIdx.x; e < T::BK * T::BM / AW; e += T::THREADS) {
+      const int kr = e / (T::BM / AW), mc = (e % (T::BM / AW)) * AW;
+      const int m = m0 + mc;
+      if (m >= MA) continue;
+      const long long kk = kb + kr;
+      bool ok = kk < k_end;
+      const float* src = ok ? a_src(kk, m, ok) : x;
+      cp_async_to<AW * 4>(As + kr * T::BM + mc, ok ? src : x, ok);
+    }
+    for (int e = threadIdx.x; e < T::BK * T::BN / 4; e += T::THREADS) {
+      const int kr = e / (T::BN / 4), nc = (e % (T::BN / 4)) * 4;
+      const long long kk = kb + kr;
+      const bool ok = kk < k_end && n0 + nc < N;
+      cp_async_to<16>(Bs + kr * T::BN + nc, ok ? dgates + kk * N + n0 + nc : dgates, ok);
+    }
+  };
+  float acc[8][8];
+  simt_gemm_tn<T>(k_tiles, load, smem, acc);
   float* out = partial + (long long)sp * M * N;
 #pragma unroll
-  for (int i = 0; i < WG_BM / 16; ++i) {
-    const int m = m0 + tile_row<WG_BM, WG_BN>(i);
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + simt_row<T>(i);
     if (m >= M) continue;
 #pragma unroll
-    for (int jn = 0; jn < WG_BN / 16; ++jn) {
-      const int n = n0 + tile_col(jn);
-      if (n < N) out[(long long)m * N + n] = acc[i][jn];
+    for (int jh = 0; jh < 2; ++jh) {
+      const int n = n0 + simt_col<T>(4 * jh);
+      if (n < N)
+        *reinterpret_cast<float4*>(out + (long long)m * N + n) =
+            make_float4(acc[i][4 * jh], acc[i][4 * jh + 1], acc[i][4 * jh + 2], acc[i][4 * jh + 3]);
     }
   }
 }
 
-template <LstmWGrad KIND>
-cudaError_t lstm_wgrad(const float* A, const float* dgates, float* work, float* out, long long NL,
-                       int B, int M, int N, int rev, cudaStream_t stream) {
-  const int splits = wgrad_splits(NL, tiles_of(M, N), 1);
-  dim3 grid((M + WG_BM - 1) / WG_BM, (N + WG_BN - 1) / WG_BN, splits);
-  lstm_wgrad_kernel<KIND><<<grid, GEMM_THREADS, 0, stream>>>(A, dgates, work, NL, B, M, N, rev,
-                                                             split_depth(NL, splits));
-  cudaError_t err = cudaGetLastError();
+// ---- dx = dgates w_ih^T ------------------------------------------------------------
+// dx[m][n] = sum_k dgates[m][k] w_ih[n][k] over the 4H gate columns k, both
+// operands read as they lie (simt_gemm_nt): [S*B][4H] and w_ih [D][4H].
+// 24 threads across: a quarter warp reads eight consecutive rows of Bs.
+using DxTile = SimtTileNT<128, 192, 16, 3>;  // D = 192 in one tile of columns
+
+__global__ void __launch_bounds__(DxTile::THREADS, 1)
+lstm_dx_kernel(const float* __restrict__ dgates, const float* __restrict__ w_ih,
+               float* __restrict__ dx, long long M, int N, int K) {
+  using T = DxTile;
+  extern __shared__ __align__(16) float smem[];
+  const long long m0 = (long long)blockIdx.x * T::BM;
+  const int n0 = blockIdx.y * T::BN;
+  auto load = [&](float* As, float* Bs, int kt) {
+    const int k0 = kt * T::BK;
+    for (int e = threadIdx.x; e < T::BM * T::BK / 4; e += T::THREADS) {
+      const int m = e / (T::BK / 4), c = 4 * (e % (T::BK / 4));
+      const bool ok = m0 + m < M && k0 + c < K;
+      cp_async_to<16>(As + m * T::LDK + c, ok ? dgates + (m0 + m) * K + k0 + c : dgates, ok);
+    }
+    for (int e = threadIdx.x; e < T::BN * T::BK / 4; e += T::THREADS) {
+      const int n = e / (T::BK / 4), c = 4 * (e % (T::BK / 4));
+      const bool ok = n0 + n < N && k0 + c < K;
+      cp_async_to<16>(Bs + n * T::LDK + c, ok ? w_ih + (long long)(n0 + n) * K + k0 + c : w_ih,
+                      ok);
+    }
+  };
+  float acc[8][8];
+  simt_gemm_nt<T>((K + T::BK - 1) / T::BK, load, smem, acc);
+  const int tx = threadIdx.x % T::TX, ty = threadIdx.x / T::TX;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long long m = m0 + ty + T::TY * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + tx + T::TX * j;
+      if (n < N) dx[m * N + n] = acc[i][j];
+    }
+  }
+}
+
+cudaError_t lstm_dx(const float* dgates, const float* w_ih, float* dx, long long M, int N, int K,
+                    cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(lstm_dx_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DxTile::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  return reduce(work, out, (long long)M * N, splits, stream);
+  dim3 grid((unsigned)((M + DxTile::BM - 1) / DxTile::BM), (N + DxTile::BN - 1) / DxTile::BN);
+  lstm_dx_kernel<<<grid, DxTile::THREADS, DxTile::SMEM_BYTES, stream>>>(dgates, w_ih, dx, M, N,
+                                                                       K);
+  return cudaGetLastError();
+}
+
+// Splits of the positions: one block per SM over all tiles (a block takes
+// an SM: WgTile::THREADS threads), each split at least 8 tiles of k deep.
+int wgrad_split_count(long long NL, int D, int H) {
+  const long long tiles = (long long)((D + H + 1 + WgTile::BM - 1) / WgTile::BM) *
+                          ((4 * H + WgTile::BN - 1) / WgTile::BN);
+  long long n = SMS / tiles;
+  const long long by_depth = NL / (8 * WgTile::BK);
+  if (n > by_depth) n = by_depth;
+  return n < 1 ? 1 : (int)n;
+}
+
+cudaError_t lstm_wgrad(const float* x, const float* h, const float* dgates, float* work,
+                       float* dwg, long long NL, int B, int D, int H, int rev,
+                       cudaStream_t stream) {
+  const int M = D + H + 1, N = 4 * H;
+  const int splits = wgrad_split_count(NL, D, H);
+  const long long depth = ((NL + splits - 1) / splits + WgTile::BK - 1) / WgTile::BK * WgTile::BK;
+  const bool vec = D % 4 == 0 && H % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(h) % 16 == 0;
+  auto fn = vec ? lstm_wgrad_kernel<true> : lstm_wgrad_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         WgTile::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((M + WgTile::BM - 1) / WgTile::BM, (N + WgTile::BN - 1) / WgTile::BN, splits);
+  fn<<<grid, WgTile::THREADS, WgTile::SMEM_BYTES, stream>>>(x, h, dgates, work, NL, B, D, H, rev,
+                                                            depth);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce(work, dwg, (long long)M * N, splits, stream);
 }
 
 // Shapes every entry takes: at least one step, line and input feature, and
-// 4H <= 1024 (one thread per gate column).
+// H <= 256 (the recurrences' four lanes per unit or group in 256 threads).
 inline bool shape_ok(int S, int B, int D, int H) {
-  return S >= 1 && B >= 1 && D >= 1 && H >= 1 && 4 * H <= REC_MAX_THREADS;
+  return S >= 1 && B >= 1 && D >= 1 && H >= 1 && H <= 256;
 }
 
 }  // namespace
@@ -538,8 +785,8 @@ int lstm_forward(const float* x, const float* w_ih, const float* w_hh, const flo
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!shape_ok(S, B, D, H) || dirs < 1 || dirs > 2) return cudaErrorInvalidValue;
   const int N = 4 * H;
-  cudaError_t err = dense<false>(x, w_ih, (long long)D * N, N, 1, bias, xp, (long long)S * B, D,
-                                 N, dirs, stream);
+  cudaError_t err = dense(x, w_ih, (long long)D * N, bias, xp, (long long)S * B, D, N, dirs,
+                          stream);
   if (err != cudaSuccess) return err;
   return launch_rec<false>(xp, w_hh, out, nullptr, S, B, H, dirs, rev, cs, lines, stream);
 }
@@ -552,8 +799,7 @@ int lstm_train_fwd(const float* x, const float* w_ih, const float* w_hh, const f
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!shape_ok(S, B, D, H)) return cudaErrorInvalidValue;
   const int N = 4 * H;
-  cudaError_t err = dense<false>(x, w_ih, 0, N, 1, bias, gates, (long long)S * B, D, N, 1,
-                                 stream);
+  cudaError_t err = dense(x, w_ih, 0, bias, gates, (long long)S * B, D, N, 1, stream);
   if (err != cudaSuccess) return err;
   return launch_rec<true>(gates, w_hh, h, c, S, B, H, 1, rev, cs, lines, stream);
 }
@@ -577,38 +823,49 @@ long long lstm_rec_smem(int H, int cs, int lines) {
   return rec_plan(H, cs, lines, p) ? p.bytes : -1;
 }
 
+// The card's most clusters of the reverse sweep's plan (cs, lines) at width
+// H that can run at once, 0 if the plan does not fit a block, or minus a
+// CUDA error.
+int lstm_sweep_max_clusters(int H, int cs, int lines) {
+  SweepLaunch L;
+  cudaError_t err = sweep_launch_config(L, H, cs, lines, 1, nullptr);
+  if (err == cudaErrorInvalidValue) return 0;
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, L.fn, &L.cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// Dynamic shared memory of a block of the sweep's plan, or -1 if it does not fit.
+long long lstm_sweep_smem(int H, int cs, int lines) {
+  SweepPlan p;
+  return sweep_plan(H, cs, lines, p) ? p.bytes : -1;
+}
+
 // Floats of the backward's reduction workspace.
 long long lstm_train_bwd_workspace(int S, int B, int D, int H) {
   const long long NL = (long long)S * B;
-  const long long a = wgrad_floats(NL, D, 4 * H, 1);
-  const long long b = wgrad_floats(NL, H, 4 * H, 1);
-  const long long c = column_sum_floats(NL, 4 * H, 1);
-  const long long ab = a > b ? a : b;
-  return ab > c ? ab : c;
+  return (long long)wgrad_split_count(NL, D, H) * (D + H + 1) * 4 * H;
 }
 
 // lstm_core's backward. Inputs: x [S][B][D], the forward's h, c and gates,
-// the cotangent dout [S][B][H] of h, w_ih [D][4H], w_t = w_hh^T [4H][H].
-// Scratch: dgates [S][B][4H], work (workspace floats). Outputs: dx [S][B][D],
-// dw_ih [D][4H], dw_hh [H][4H], db [4H].
+// the cotangent dout [S][B][H] of h, w_ih [D][4H], w_hh [H][4H]; the sweep's
+// plan (cs, lines). Scratch: dgates [S][B][4H], work (workspace floats).
+// Outputs: dx [S][B][D] and dwg [D + H + 1][4H]: rows 0 .. D-1 dW_ih, rows
+// D .. D+H-1 dW_hh, row D+H db.
 int lstm_train_bwd(const float* x, const float* h, const float* c, const float* gates,
-                   const float* dout, const float* w_ih, const float* w_t, float* dgates,
-                   float* work, float* dx, float* dw_ih, float* dw_hh, float* db, int S, int B,
-                   int D, int H, int rev, void* stream_ptr) {
+                   const float* dout, const float* w_ih, const float* w_hh, float* dgates,
+                   float* work, float* dx, float* dwg, int S, int B, int D, int H, int rev,
+                   int cs, int lines, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!shape_ok(S, B, D, H)) return cudaErrorInvalidValue;
   const int N = 4 * H;
   const long long NL = (long long)S * B;
-  cudaError_t err = launch_rec_bwd(gates, c, dout, w_t, dgates, S, B, H, rev, stream);
+  cudaError_t err = launch_sweep(gates, c, dout, w_hh, dgates, S, B, H, rev, cs, lines, stream);
   if (err != cudaSuccess) return err;
-  // dx[m][n] = sum_k dgates[m][k] w_ih[n][k]
-  err = dense<true>(dgates, w_ih, 0, 1, N, nullptr, dx, NL, N, D, 1, stream);
+  err = lstm_dx(dgates, w_ih, dx, NL, D, N, stream);
   if (err != cudaSuccess) return err;
-  err = lstm_wgrad<WG_IH>(x, dgates, work, dw_ih, NL, B, D, N, rev, stream);
-  if (err != cudaSuccess) return err;
-  err = lstm_wgrad<WG_HH>(h, dgates, work, dw_hh, NL, B, H, N, rev, stream);
-  if (err != cudaSuccess) return err;
-  return column_sums(dgates, work, db, NL, N, 1, stream);
+  return lstm_wgrad(x, h, dgates, work, dwg, NL, B, D, H, rev, stream);
 }
 
 }  // extern "C"

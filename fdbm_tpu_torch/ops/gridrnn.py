@@ -3,12 +3,13 @@
 Port of ``fdbm_tpu/ops/gridrnn.py``: :func:`grid_rnn_seq1_pair` on the
 canvas (serving) and :func:`grid_bilstm_fold` on sequence-major lines (the
 training route's forward when no gradient is needed). On a CUDA tensor each
-launches hand-written kernels (``csrc/gridrnn.cu`` and
-``csrc/gridrnn_train.cu``: input projection, recurrence, deconv +
-overlap-add); on a CPU tensor it runs its ``*_plain`` version, the same
-function in plain PyTorch. The source notes of the ``.cu`` files say what
-bounds the kernels on the H100 and how they are laid out. The
-differentiable twin is ``ops/gridrnn_train.py``.
+launches hand-written kernels: ``csrc/gridrnn.cu`` (a cluster recurrence
+with the input projection fused in, then deconv + overlap-add; its clusters
+sized by :func:`fused_plan`) and ``csrc/gridrnn_train.cu`` (input
+projection, recurrence, deconv + overlap-add); on a CPU tensor it runs its
+``*_plain`` version, the same function in plain PyTorch. The source notes of
+the ``.cu`` files say what bounds the kernels on the H100 and how they are
+laid out. The differentiable twin is ``ops/gridrnn_train.py``.
 
 The plain LSTM recurrences, :func:`lstm_plain` (one direction) and
 :func:`bilstm_plain`, live here because the plain version needs them;
@@ -19,7 +20,8 @@ and so of ``models/layers.BiLSTM``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,8 +30,138 @@ from fdbm_tpu_torch.ops import _build
 KS = 4  # unfold width (emb_ks)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"gridrnn_seq1_pair": [_P] * 9 + [_I] * 5 + [_P]}
+_SIGNATURES = {"gridrnn_seq1_pair": [_P] * 8 + [_I] * 7 + [_P],
+               "gridrnn_fused_max_clusters": [_I] * 4,
+               "gridrnn_fused_smem": [_I] * 4}
+_RESTYPES = {"gridrnn_fused_smem": ctypes.c_longlong}
 _FOLD_SIGNATURES = {"grid_bilstm_fold": [_P] * 8 + [_I] * 4 + [_P]}
+
+
+# The cluster kernels' plans: clusters of 1, 2, 4 or 8 blocks, within a
+# block's shared memory on the H100, over the card's 132 SMs.
+CLUSTERS = (1, 2, 4, 8)
+SMEM_LIMIT, SMS = 232448, 132
+# Kernel 1's fused recurrence (csrc/gridrnn.cu: fused_plan): tiles of 8 or 16
+# lines, eight lanes per pair of units and at most 256 threads a block, a
+# ring of 8 canvas rows.
+FUSED_LINES = (8, 16)
+FUSED_RING = 8
+
+
+class ClusterPlan(NamedTuple):
+    """How a recurrence runs on clusters: ``cs`` blocks a cluster, each
+    cluster one tile of ``lines`` lines of one direction; ``clusters`` in
+    the grid, of which the card runs ``max_clusters`` at once; ``threads``
+    and ``smem_bytes`` per block."""
+    cs: int
+    lines: int
+    clusters: int
+    max_clusters: int
+    threads: int
+    smem_bytes: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_clusters(lines: int, dirs: int, tiles: Tuple[int, ...],
+                  layout: Callable[[int, int], Optional[Tuple[int, int]]],
+                  max_clusters: Callable[[int, int], int], lane_fmas: Callable[[int, int], int],
+                  what: str) -> ClusterPlan:
+    """The plan of least estimated time for ``lines`` lines in each of
+    ``dirs`` directions: over clusters of CLUSTERS blocks and the ``tiles``
+    of lines whose ``layout(cs, tile)`` (threads, bytes) fits a block and of
+    which the card runs ``max_clusters(cs, tile)`` at once. Plans whose grid
+    is one wave come first; then the least estimated step, in cycles: a
+    block's FMA dispatch on its busiest scheduler (4 per SM; a lane issues
+    ``lane_fmas(cs, tile)`` a step) at half rate, plus the cluster's
+    exchange and barrier, times the blocks an SM runs at once (fitted to the
+    H100's LSTM forward recurrence: 6.5 us a step for 4 x 12 lines, 10 us
+    for 4 x 20); then smaller clusters."""
+    best, best_key = None, None
+    for cs in CLUSTERS:
+        for tile in tiles:
+            lay = layout(cs, tile)
+            if lay is None:
+                continue
+            at_once = max_clusters(cs, tile)
+            if at_once < 1:
+                continue
+            threads, nbytes = lay
+            clusters = dirs * _cdiv(lines, tile)
+            waves = _cdiv(clusters, at_once)
+            per_sm = _cdiv(at_once * cs, SMS)
+            load = _cdiv(min(clusters, at_once) * cs * per_sm, at_once * cs)
+            step = 2 * _cdiv(threads // 32, 4) * lane_fmas(cs, tile) + 1000 + 800 * cs
+            key = (waves > 1, waves * load * step, cs)
+            if best_key is None or key < best_key:
+                best = ClusterPlan(cs, tile, clusters, at_once, threads, nbytes)
+                best_key = key
+    if best is None:
+        raise ValueError(f"{what} fits on this card")
+    return best
+
+
+def fused_layout(c: int, hidden: int, cs: int, lines: int) -> Optional[Tuple[int, int]]:
+    """``(threads, shared-memory bytes)`` of a block of the fused recurrence
+    at widths ``c``, ``hidden`` for the plan (``cs``, ``lines``), as
+    ``csrc/gridrnn.cu:fused_plan`` lays it out (the units' gate columns of
+    the stacked [W_ih; W_hh], two copies of h, the ring of canvas rows), or
+    None if it does not fit a block."""
+    if cs not in CLUSTERS or lines not in FUSED_LINES or hidden < 1 or c < 1:
+        return None
+    uc = _cdiv(hidden, cs)
+    wst = 4 * uc + (8 - 4 * uc % 32) % 32
+    lbp = lines if (lines // 4) % 2 else lines + 4
+    # eight lanes per pair of units, and at least a quarter of a staged row's floats
+    threads = _cdiv(max(8 * _cdiv(uc, 2), _cdiv(lines * c, 4)), 32) * 32
+    nbytes = 4 * ((KS * c + hidden) * wst + 2 * hidden * lbp + FUSED_RING * c * lbp)
+    return (threads, nbytes) if threads <= 256 and nbytes <= SMEM_LIMIT else None
+
+
+def plan_fused(lines: int, c: int, hidden: int,
+               max_clusters: Callable[[int, int], int]) -> ClusterPlan:
+    """Kernel 1's plan for ``lines`` lines in each direction (see
+    :func:`plan_clusters`): a lane sums an eighth of the 4C + H stacked rows
+    for 2 units x 4 gates x tile lines."""
+    return plan_clusters(lines, 2, FUSED_LINES, lambda cs, tile: fused_layout(c, hidden, cs, tile),
+                         max_clusters, lambda cs, tile: _cdiv(KS * c + hidden, 8) * 8 * tile,
+                         f"grid_rnn_seq1_pair: no plan for C={c}, H={hidden}")
+
+
+@functools.lru_cache(maxsize=1024)
+def _card_max_clusters(device_index: int, c: int, hidden: int, cs: int, tile: int) -> int:
+    """The card's ``cudaOccupancyMaxActiveClusters`` for one plan."""
+    with torch.cuda.device(device_index):
+        lib = _build.load("gridrnn", _SIGNATURES, _RESTYPES)
+        n = lib.gridrnn_fused_max_clusters(c, hidden, cs, tile)
+    if n < 0:
+        raise RuntimeError(f"grid_rnn_seq1_pair: cudaOccupancyMaxActiveClusters failed (CUDA "
+                           f"error {-n}) for cs={cs}, lines={tile}, C={c}, H={hidden}")
+    return n
+
+
+@functools.lru_cache(maxsize=256)
+def _card_plan(device_index: int, lines: int, c: int, hidden: int) -> ClusterPlan:
+    return plan_fused(lines, c, hidden, lambda cs, tile: _card_max_clusters(
+        device_index, c, hidden, cs, tile))
+
+
+def fused_plan(lines: int, c: int, hidden: int,
+               device: Optional[torch.device] = None) -> ClusterPlan:
+    """:func:`plan_fused` with the card's counts, each queried once: the plan
+    :func:`grid_rnn_seq1_pair` launches for this shape."""
+    dev = torch.device(device if device is not None else "cuda")
+    return _card_plan(dev.index if dev.index is not None else torch.cuda.current_device(),
+                      lines, c, hidden)
+
+
+def fused_smem(c: int, hidden: int, cs: int, lines: int) -> int:
+    """The kernel's own count of a block's shared memory for a plan (-1 if
+    it does not fit), to hold :func:`fused_layout` to it on the card."""
+    lib = _build.load("gridrnn", _SIGNATURES, _RESTYPES)
+    return lib.gridrnn_fused_smem(c, hidden, cs, lines)
 
 
 def _lstm_cell(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -161,17 +293,17 @@ def grid_rnn_seq1_pair(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     b, s, p, _ = x.shape
     length = s - (KS - 1)
     dev = x.device
+    cs, tile = fused_plan(b * p, c, hidden, dev)[:2]
     with torch.cuda.device(dev):
-        xp = torch.empty((2, b * p, length, 4 * hidden), device=dev, dtype=torch.float32)
         hs = torch.empty((2, b * p, length, hidden), device=dev, dtype=torch.float32)
         outf = torch.empty_like(x)
         outb = torch.empty_like(x)
-        lib = _build.load("gridrnn", _SIGNATURES)
+        lib = _build.load("gridrnn", _SIGNATURES, _RESTYPES)
         code = lib.gridrnn_seq1_pair(
             x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), wd.data_ptr(),
-            xp.data_ptr(), hs.data_ptr(), outf.data_ptr(), outb.data_ptr(),
-            b, s, p, c, hidden, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "grid_rnn_seq1_pair")
+            hs.data_ptr(), outf.data_ptr(), outb.data_ptr(), b, s, p, c, hidden, cs, tile,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, f"grid_rnn_seq1_pair (plan cs={cs}, lines={tile})")
     grid_rnn_seq1_pair.launches += 1
     return outf, outb
 

@@ -14,7 +14,8 @@ RNN path, which the model takes outside the fused grid kernels' gate
 
 On a CUDA tensor each launches hand-written kernels from ``csrc/lstm.cu``
 (its source note says what bounds them on the H100 and how they are laid
-out; :func:`recurrence_plan` sizes the forward recurrence's clusters); on a
+out; :func:`recurrence_plan` sizes the forward recurrence's clusters,
+:func:`sweep_plan` the reverse sweep's); on a
 CPU tensor it runs its plain version, the recurrence of
 ``ops.gridrnn.lstm_plain`` (under autograd for :func:`lstm_core`). Gate
 order i, f, g, o; fp32 with an fp32 carry. Unlike the TPU kernels nothing
@@ -27,12 +28,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from fdbm_tpu_torch.ops import _build
-from fdbm_tpu_torch.ops.gridrnn import check_tensor, lstm_plain
+from fdbm_tpu_torch.ops.gridrnn import (CLUSTERS, SMEM_LIMIT, ClusterPlan, _cdiv, check_tensor,
+                                        lstm_plain, plan_clusters)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -40,41 +42,28 @@ _SIGNATURES = {
     "lstm_train_fwd": [_P] * 7 + [_I] * 7 + [_P],
     "lstm_rec_max_clusters": [_I] * 4,
     "lstm_rec_smem": [_I] * 3,
+    "lstm_sweep_max_clusters": [_I] * 3,
+    "lstm_sweep_smem": [_I] * 3,
     "lstm_train_bwd_workspace": [_I] * 4,
-    "lstm_train_bwd": [_P] * 13 + [_I] * 5 + [_P],
+    "lstm_train_bwd": [_P] * 11 + [_I] * 7 + [_P],
 }
-_RESTYPES = {"lstm_train_bwd_workspace": ctypes.c_longlong, "lstm_rec_smem": ctypes.c_longlong}
-MAX_HIDDEN = 256  # the reverse sweep runs one thread per gate column: 4H <= 1024
+_RESTYPES = {"lstm_train_bwd_workspace": ctypes.c_longlong, "lstm_rec_smem": ctypes.c_longlong,
+             "lstm_sweep_smem": ctypes.c_longlong}
+MAX_HIDDEN = 256  # four lanes per unit (or group of four units) in at most 256 threads
 
-# The forward recurrence's plans (csrc/lstm.cu: rec_plan): clusters of 1, 2,
-# 4 or 8 blocks, tiles of a multiple of 4 lines up to 24, four lanes per
-# unit and at most 256 threads a block, and a block's shared memory on the H100.
-REC_CLUSTERS = (1, 2, 4, 8)
+# The recurrences' plans (csrc/lstm.cu: rec_plan, sweep_plan; planned by
+# ops/gridrnn.plan_clusters): tiles of a multiple of 4 lines up to 24, four
+# lanes per unit (forward) or per group of four units (the reverse sweep), at
+# most 256 threads a block.
+REC_CLUSTERS = CLUSTERS
 REC_LINES = (4, 8, 12, 16, 20, 24)
-_KS, SMEM_LIMIT, SMS = 4, 232448, 132
-
-
-class RecurrencePlan(NamedTuple):
-    """How the forward recurrence runs: clusters of ``cs`` blocks, each
-    cluster one tile of ``lines`` lines of one direction; ``clusters`` in
-    the grid, of which the card runs ``max_clusters`` at once; ``threads``
-    and ``smem_bytes`` per block."""
-    cs: int
-    lines: int
-    clusters: int
-    max_clusters: int
-    threads: int
-    smem_bytes: int
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+_KS = 4
 
 
 def recurrence_layout(hidden: int, cs: int, lines: int) -> Optional[Tuple[int, int]]:
-    """``(threads, shared-memory bytes)`` of a block of the plan (``cs``,
-    ``lines``) at width ``hidden``, as ``csrc/lstm.cu:rec_plan`` lays it
-    out, or None if it does not fit a block."""
+    """``(threads, shared-memory bytes)`` of a block of the forward plan
+    (``cs``, ``lines``) at width ``hidden``, as ``csrc/lstm.cu:rec_plan``
+    lays it out, or None if it does not fit a block."""
     if cs not in REC_CLUSTERS or lines not in REC_LINES or hidden < 1:
         return None
     uc = _cdiv(hidden, cs)
@@ -85,74 +74,105 @@ def recurrence_layout(hidden: int, cs: int, lines: int) -> Optional[Tuple[int, i
     return (threads, nbytes) if threads <= 256 and nbytes <= SMEM_LIMIT else None
 
 
+def sweep_layout(hidden: int, cs: int, lines: int) -> Optional[Tuple[int, int]]:
+    """``(threads, shared-memory bytes)`` of a block of the reverse sweep's
+    plan, as ``csrc/lstm.cu:sweep_plan`` lays it out (the units' gate
+    columns of w_hh n-major, the tile's dgates, two receive tiles of every
+    rank's partial sums, the cells' stashes of a step: 4 gates, c_prev,
+    dout), or None if it does not fit a block."""
+    if cs not in REC_CLUSTERS or lines not in REC_LINES or hidden < 1:
+        return None
+    uc = _cdiv(hidden, cs)
+    kp = 4 * _cdiv(hidden, 4)
+    threads = _cdiv(kp, 32) * 32  # four lanes per group of four units
+    nbytes = 4 * (4 * uc * kp + lines * 4 * uc + (2 * cs + 6) * lines * uc)
+    cells = _cdiv(lines * uc, threads)
+    # a thread of the sweep owns at most lines / 4 + 1 cells (line, unit)
+    fits = threads <= 256 and cells <= lines // 4 + 1 and nbytes <= SMEM_LIMIT
+    return (threads, nbytes) if fits else None
+
+
 def plan_recurrence(lines: int, dirs: int, hidden: int,
-                    max_clusters: Callable[[int, int], int]) -> RecurrencePlan:
-    """The plan for ``lines`` lines in each of ``dirs`` directions at width
-    ``hidden``; ``max_clusters(cs, lines)`` is the card's count of clusters
-    of that plan that run at once. Plans whose grid is one wave come first;
-    then the least estimated step, in cycles: a block's FMA dispatch on its
-    busiest scheduler (4 per SM) at half rate, plus the cluster's exchange
-    of h and its barrier, times the blocks an SM runs at once (fitted to
-    the H100: 6.5 us a step for 4 x 12 lines, 10 us for 4 x 20); then
-    smaller clusters."""
-    best, best_key = None, None
-    for cs in REC_CLUSTERS:
-        for tile in REC_LINES:
-            lay = recurrence_layout(hidden, cs, tile)
-            if lay is None:
-                continue
-            at_once = max_clusters(cs, tile)
-            if at_once < 1:
-                continue
-            threads, nbytes = lay
-            clusters = dirs * _cdiv(lines, tile)
-            waves = _cdiv(clusters, at_once)
-            per_sm = _cdiv(at_once * cs, SMS)
-            load = _cdiv(min(clusters, at_once) * cs * per_sm, at_once * cs)
-            step = (2 * _cdiv(threads // 32, 4) * _cdiv(hidden, _KS) * 4 * tile
-                    + 1000 + 800 * cs)
-            key = (waves > 1, waves * load * step, cs)
-            if best_key is None or key < best_key:
-                best = RecurrencePlan(cs, tile, clusters, at_once, threads, nbytes)
-                best_key = key
-    if best is None:
-        raise ValueError(f"lstm: no recurrence plan fits H={hidden} on this card")
-    return best
+                    max_clusters: Callable[[int, int], int]) -> ClusterPlan:
+    """The forward recurrence's plan for ``lines`` lines in each of ``dirs``
+    directions at width ``hidden``; ``max_clusters(cs, lines)`` is the
+    card's count of clusters of that plan that run at once (see
+    ``ops.gridrnn.plan_clusters``). A lane sums a quarter of H rows for 4
+    gates x tile lines."""
+    return plan_clusters(lines, dirs, REC_LINES,
+                         lambda cs, tile: recurrence_layout(hidden, cs, tile), max_clusters,
+                         lambda cs, tile: _cdiv(hidden, _KS) * 4 * tile,
+                         f"lstm: no recurrence plan for H={hidden}")
+
+
+def plan_sweep(lines: int, hidden: int, max_clusters: Callable[[int, int], int]
+               ) -> ClusterPlan:
+    """The reverse sweep's plan (kernel 9) for ``lines`` lines of one
+    direction: as :func:`plan_recurrence`, with a lane summing a quarter of
+    its block's units' gate quads for 4 units x tile lines (16 x tile FMAs
+    per quad)."""
+    return plan_clusters(lines, 1, REC_LINES, lambda cs, tile: sweep_layout(hidden, cs, tile),
+                         max_clusters, lambda cs, tile: _cdiv(_cdiv(hidden, cs), _KS) * 16 * tile,
+                         f"lstm: no reverse sweep plan for H={hidden}")
 
 
 @functools.lru_cache(maxsize=1024)
-def _card_max_clusters(device_index: int, hidden: int, cs: int, tile: int, stash: bool) -> int:
-    """The card's ``cudaOccupancyMaxActiveClusters`` for one plan."""
+def _card_max_clusters(device_index: int, hidden: int, cs: int, tile: int, kind: str) -> int:
+    """The card's ``cudaOccupancyMaxActiveClusters`` for one plan of the
+    forward (``kind`` "forward" or "stash") or of the sweep ("sweep")."""
     with torch.cuda.device(device_index):
         lib = _build.load("lstm", _SIGNATURES, _RESTYPES)
-        n = lib.lstm_rec_max_clusters(hidden, cs, tile, int(stash))
+        if kind == "sweep":
+            n = lib.lstm_sweep_max_clusters(hidden, cs, tile)
+        else:
+            n = lib.lstm_rec_max_clusters(hidden, cs, tile, int(kind == "stash"))
     if n < 0:
         raise RuntimeError(f"lstm: cudaOccupancyMaxActiveClusters failed (CUDA error {-n}) "
-                           f"for cs={cs}, lines={tile}, H={hidden}")
+                           f"for the {kind} plan cs={cs}, lines={tile}, H={hidden}")
     return n
 
 
 @functools.lru_cache(maxsize=256)
 def _card_plan(device_index: int, lines: int, dirs: int, hidden: int,
-               stash: bool) -> RecurrencePlan:
-    return plan_recurrence(lines, dirs, hidden, lambda cs, tile: _card_max_clusters(
-        device_index, hidden, cs, tile, stash))
+               kind: str) -> ClusterPlan:
+    counts = lambda cs, tile: _card_max_clusters(device_index, hidden, cs, tile, kind)
+    if kind == "sweep":
+        return plan_sweep(lines, hidden, counts)
+    return plan_recurrence(lines, dirs, hidden, counts)
+
+
+def _device_index(device: Optional[torch.device]) -> int:
+    dev = torch.device(device if device is not None else "cuda")
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def recurrence_plan(lines: int, dirs: int, hidden: int, stash: bool = False,
-                    device: Optional[torch.device] = None) -> RecurrencePlan:
+                    device: Optional[torch.device] = None) -> ClusterPlan:
     """:func:`plan_recurrence` with the card's counts, each queried once: the
     plan the wrappers launch for this shape (``stash``: :func:`lstm_core`'s)."""
-    dev = torch.device(device if device is not None else "cuda")
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _card_plan(index, lines, dirs, hidden, stash)
+    return _card_plan(_device_index(device), lines, dirs, hidden,
+                      "stash" if stash else "forward")
+
+
+def sweep_plan(lines: int, hidden: int, device: Optional[torch.device] = None
+               ) -> ClusterPlan:
+    """:func:`plan_sweep` with the card's counts: the plan
+    :func:`lstm_core_bwd` launches for ``lines`` lines at width ``hidden``."""
+    return _card_plan(_device_index(device), lines, 1, hidden, "sweep")
 
 
 def recurrence_smem(hidden: int, cs: int, lines: int) -> int:
-    """The kernel's own count of a block's shared memory for a plan (-1 if
-    it does not fit), to hold :func:`recurrence_layout` to it on the card."""
+    """The kernel's own count of a block's shared memory for a forward plan
+    (-1 if it does not fit), to hold :func:`recurrence_layout` to it on the
+    card."""
     lib = _build.load("lstm", _SIGNATURES, _RESTYPES)
     return lib.lstm_rec_smem(hidden, cs, lines)
+
+
+def sweep_smem(hidden: int, cs: int, lines: int) -> int:
+    """The kernel's own count for a sweep plan, against :func:`sweep_layout`."""
+    lib = _build.load("lstm", _SIGNATURES, _RESTYPES)
+    return lib.lstm_sweep_smem(hidden, cs, lines)
 
 # (h, gates, c): hidden states, activated gates (i, f, g, o) and cell states
 Stash = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -303,21 +323,21 @@ def lstm_core_bwd(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, bias:
     check_tensor(fn, "h", h, (s, b, hidden), dev)
     check_tensor(fn, "gates", gates, (s, b, 4 * hidden), dev)
     check_tensor(fn, "c", c, (s, b, hidden), dev)
+    cs, tile = sweep_plan(b, hidden, device=dev)[:2]
     with torch.cuda.device(dev):
         lib = _build.load("lstm", _SIGNATURES, _RESTYPES)
-        w_t = w_hh.t().contiguous()
         dgates = _empty(dev, s, b, 4 * hidden)
         work = _empty(dev, lib.lstm_train_bwd_workspace(s, b, d, hidden))
-        grads = (torch.empty_like(x), torch.empty_like(w_ih), torch.empty_like(w_hh),
-                 torch.empty_like(bias))
+        dx = torch.empty_like(x)
+        dwg = _empty(dev, d + hidden + 1, 4 * hidden)  # dW_ih, dW_hh, db
         code = lib.lstm_train_bwd(
             x.data_ptr(), h.data_ptr(), c.data_ptr(), gates.data_ptr(), dout.data_ptr(),
-            w_ih.data_ptr(), w_t.data_ptr(), dgates.data_ptr(), work.data_ptr(),
-            *(g.data_ptr() for g in grads), s, b, d, hidden, int(reverse),
+            w_ih.data_ptr(), w_hh.data_ptr(), dgates.data_ptr(), work.data_ptr(),
+            dx.data_ptr(), dwg.data_ptr(), s, b, d, hidden, int(reverse), cs, tile,
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, fn)
+    _build.check(code, f"{fn} (sweep plan cs={cs}, lines={tile})")
     lstm_core_bwd.launches += 1
-    return grads
+    return dx, dwg[:d], dwg[d:d + hidden], dwg[d + hidden]
 
 
 lstm_core_bwd.launches = 0

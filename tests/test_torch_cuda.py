@@ -575,3 +575,135 @@ def test_recurrence_plans_the_card_cannot_launch_are_refused(dev):
         assert lib.lstm_train_fwd(*ptrs, xp.data_ptr(), h.data_ptr(), c.data_ptr(), 9, 10, 16,
                                   200, 0, cs, tile, stream) != 0, (cs, tile)
     torch.cuda.synchronize()
+
+
+# -- the cluster kernels of kernel 1 (the fused recurrence) and kernel 9 (the sweep) --
+
+@pytest.mark.parametrize("s", [4, 23])
+@pytest.mark.parametrize("hidden", [1, 100, 128])
+@pytest.mark.parametrize("c", [8, 32, 64])
+def test_fused_grid_rnn_matches_plain(dev, c, hidden, s):
+    """Kernel 1 on its fused cluster recurrence at the gate's widths, on
+    13 lines of two canvas items (a tile of lines crosses from one item to
+    the next, and 13 is no multiple of a tile), S = 4 (one window) and 23;
+    one launch per call, and no buffer beside hs and the outputs."""
+    rng = np.random.default_rng(24)
+    x = _rand(rng, (2, s, 13, c), 0.5, dev)[:, :, :13]
+    x = x.contiguous()
+    w = (_rand(rng, (2, 4 * c, 4 * hidden), 0.1, dev),
+         _rand(rng, (2, hidden, 4 * hidden), 0.1, dev),
+         _rand(rng, (2, 4 * hidden), 0.1, dev), _rand(rng, (2 * hidden, 4 * c), 0.1, dev))
+    with torch.no_grad():
+        gridrnn.grid_rnn_seq1_pair(x, *w)  # builds, plans
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        n0 = gridrnn.grid_rnn_seq1_pair.launches
+        got = gridrnn.grid_rnn_seq1_pair(x, *w)
+        torch.cuda.synchronize()
+        used = torch.cuda.max_memory_allocated(dev) - base
+        assert gridrnn.grid_rnn_seq1_pair.launches == n0 + 1
+        hs = 2 * 2 * 13 * (s - 3) * hidden * 4
+        assert used <= 2 * x.numel() * 4 + hs + (2 << 20)
+        want = gridrnn.grid_rnn_seq1_pair_plain(x, *w)
+    for g, r in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _rel(g, r) < 1e-4
+
+
+def test_fused_layouts_match_the_kernel(dev):
+    for c in (8, 32, 64):
+        for hidden in (1, 80, 100, 128):
+            for cs in gridrnn.CLUSTERS + (3,):
+                for tile in gridrnn.FUSED_LINES + (6, 20):
+                    lay = gridrnn.fused_layout(c, hidden, cs, tile)
+                    assert gridrnn.fused_smem(c, hidden, cs, tile) == (lay[1] if lay else -1)
+
+
+def test_fused_plan_is_one_wave_on_the_card(dev):
+    """The main path's call (263 lines of a 4 s request, C = 32, H = 100)
+    and tfgridnet_4l32c80's run in one wave of clusters on this card."""
+    for c, hidden in ((32, 100), (32, 80)):
+        plan = gridrnn.fused_plan(263, c, hidden, dev)
+        assert plan.clusters <= plan.max_clusters, plan
+
+
+def test_fused_plans_the_card_cannot_launch_are_refused(dev):
+    from fdbm_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(25)
+    x = _rand(rng, (1, 12, 9, 64), 0.5, dev)
+    w = [_rand(rng, shape, 0.1, dev) for shape in ((2, 256, 512), (2, 128, 512), (2, 512),
+                                                   (256, 256))]
+    hs, out = torch.empty(2, 9, 9, 128, device=dev), torch.empty_like(x)
+    lib = _build.load("gridrnn", gridrnn._SIGNATURES, gridrnn._RESTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for cs, tile in ((1, 4), (2, 8), (16, 4), (4, 6), (4, 20)):  # too large; not plans
+        code = lib.gridrnn_seq1_pair(x.data_ptr(), *(t.data_ptr() for t in w), hs.data_ptr(),
+                                     out.data_ptr(), out.data_ptr(), 1, 12, 9, 64, 128, cs, tile,
+                                     stream)
+        assert code != 0, (cs, tile)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("lines", [13, 70, 524])
+@pytest.mark.parametrize("hidden", [200, 197])
+def test_lstm_sweep_matches_plain(dev, hidden, lines, reverse):
+    """Kernel 9 on its cluster sweep: H = 200 (the class-default width) and
+    197 (not a multiple of the cluster or of four), lines not a multiple of
+    the tile and the main path's 524, both directions."""
+    rng = np.random.default_rng(26)
+    args = _lstm_args(rng, 9, lines, 192, hidden, dev)
+    _, stash = lstm_ops.lstm_core_fwd(*args, reverse=reverse)
+    cot = _rand(rng, (9, lines, hidden), 1.0, dev)
+    got = lstm_ops.lstm_core_bwd(*args, cot, stash=stash, reverse=reverse)
+    torch.cuda.synchronize()
+    want = lstm_ops.lstm_core_bwd_plain(*args, cot, reverse=reverse)
+    for name, g, w in zip(("dx", "dw_ih", "dw_hh", "dbias"), got, want):
+        assert g.shape == w.shape, name
+        assert _rel(g, w) < 1e-3, name
+
+
+def test_lstm_sweep_is_deterministic_at_the_main_path_width(dev):
+    rng = np.random.default_rng(27)
+    args = _lstm_args(rng, 12, 524, 192, 200, dev)
+    _, stash = lstm_ops.lstm_core_fwd(*args)
+    cot = _rand(rng, (12, 524, 200), 1.0, dev)
+    first = lstm_ops.lstm_core_bwd(*args, cot, stash=stash)
+    again = lstm_ops.lstm_core_bwd(*args, cot, stash=stash)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_sweep_layouts_match_the_kernel(dev):
+    for hidden in (1, 20, 132, 197, 200, 256):
+        for cs in lstm_ops.REC_CLUSTERS + (3, 16):
+            for tile in lstm_ops.REC_LINES + (6, 28):
+                lay = lstm_ops.sweep_layout(hidden, cs, tile)
+                assert lstm_ops.sweep_smem(hidden, cs, tile) == (lay[1] if lay else -1)
+
+
+def test_sweep_plan_is_one_wave_on_the_card(dev):
+    plan = lstm_ops.sweep_plan(524, 200, dev)
+    assert plan.clusters <= plan.max_clusters, plan
+
+
+def test_sweep_plans_the_card_cannot_launch_are_refused(dev):
+    from fdbm_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(28)
+    x, w_ih, w_hh, bias = _lstm_args(rng, 5, 10, 16, 200, dev)
+    _, (h, gates, c) = lstm_ops.lstm_core_fwd(x, w_ih, w_hh, bias)
+    lib = _build.load("lstm", lstm_ops._SIGNATURES, lstm_ops._RESTYPES)
+    dgates, dx = torch.empty_like(gates), torch.empty_like(x)
+    work = torch.empty(lib.lstm_train_bwd_workspace(5, 10, 16, 200), device=dev)
+    dwg = torch.empty(16 + 200 + 1, 800, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for cs, tile in ((1, 8), (2, 8), (16, 8), (4, 6), (4, 28)):
+        code = lib.lstm_train_bwd(x.data_ptr(), h.data_ptr(), c.data_ptr(), gates.data_ptr(),
+                                  h.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(),
+                                  dgates.data_ptr(), work.data_ptr(), dx.data_ptr(),
+                                  dwg.data_ptr(), 5, 10, 16, 200, 0, cs, tile, stream)
+        assert code != 0, (cs, tile)
+    torch.cuda.synchronize()
