@@ -12,8 +12,10 @@ and drives the port's paths at the full width of two TF-GridNets:
   stages), the backbone against its all-plain
   route, three files through ``fdbm_tpu_torch.infer_single``, one profiled
   request. Training: each training kernel (the summed fold, the stashing
-  forward and its backward) against its plain version at the shapes of a
-  step (B=2, 256 frames), one training step's loss and gradients against
+  forward and its backward; the last two with their plans and stages, the
+  backward checked for equal bits in two calls) against its plain version
+  at the shapes of a step (B=2, 256 frames), one training step's loss and
+  gradients against
   the all-plain route, ``fdbm_tpu_torch.train`` on a synthetic dataset
   (train, resume, then serve the ``last`` slot), and the training rate of
   steady steps with one profiled step.
@@ -54,9 +56,10 @@ gate's limits come from, and
 
     python3 chip_smoke.py --probe-kernels readings.json
 
-only times the four cluster kernels (frame_attention, the LSTM recurrence,
-kernel 1's fused recurrence, kernel 9's reverse sweep) with one part of
-their work switched off at a time.
+only times the six cluster kernels (frame_attention, the LSTM recurrence,
+kernel 1's fused recurrence, kernel 5's (the same with its stash), kernel
+6's reverse sweep, kernel 9's reverse sweep) with one part of their work
+switched off at a time.
 """
 
 from __future__ import annotations
@@ -87,7 +90,8 @@ REPLACES = {
     "flat_group_norm": ("fdbm_tpu_torch/ops/csrc/attention.cu", "fdbm_tpu/ops/attention.py:180"),
     "frame_attention": ("fdbm_tpu_torch/ops/csrc/attention.cu", "fdbm_tpu/ops/attention.py:324"),
     "grid_bilstm_fold": (_TRAIN_CU, "fdbm_tpu/ops/gridrnn.py:217"),
-    "grid_fold_train_pair": (_TRAIN_CU, "fdbm_tpu/ops/gridrnn_train.py:217"),
+    "grid_fold_train_pair": ("fdbm_tpu_torch/ops/csrc/gridrnn.cu",
+                             "fdbm_tpu/ops/gridrnn_train.py:217"),
     "grid_fold_train_pair_bwd": (_TRAIN_CU, "fdbm_tpu/ops/gridrnn_train.py:508"),
     "bilstm_fused_forward": (_LSTM_CU, "fdbm_tpu/ops/lstm.py:537"),
     "lstm_core": (_LSTM_CU, "fdbm_tpu/ops/lstm.py:298"),
@@ -205,6 +209,21 @@ def rnn_flops(lines: int, length: int, c: int, hidden: int) -> dict:
     return {"forward": fwd, "backward": 2 * fwd}
 
 
+# The stages of kernels 5 and 6 by the names of their kernels: those of the
+# cluster design and those of the three-stage design it replaced (PRs 6-9),
+# so that this script also reads the parent commit's kernels (run from its
+# checkout) for a before/after on one card; a stage that launched nothing
+# is left out of a row.
+TRAIN_FWD_STAGES = {"projection": "window_proj_kernel",
+                    "recurrence": ("gridrnn_rec_kernel", "gridrnn_fused_kernel"),
+                    "fold": "fold_kernel"}
+TRAIN_BWD_STAGES = {"dh": "window_proj_kernel",
+                    "sweep": ("gridrnn_rec_bwd_kernel", "train_sweep_kernel"),
+                    "dx": ("fold_kernel", "train_dx_kernel"),
+                    "wgrad": "wgrad_kernel", "dwd": "train_dwd_kernel",
+                    "column_sums": "bias_kernel", "reduce": "reduce_kernel"}
+
+
 def train_kernel_phase(rand, dev, summary) -> None:
     """Kernels 4-6 at the shapes of one training step: the intra path's
     [S=263, 524 lines] and the inter path's [S=262, 526 lines], C=32,
@@ -243,8 +262,12 @@ def train_kernel_phase(rand, dev, summary) -> None:
 
             outf, outb, st = gridrnn_train.grid_fold_train_pair_fwd(x, *w)
             err, abs_err = agreement([(outf[crop], want_f[crop]), (outb[crop], want_b[crop])])
+            stages = kernel_times(lambda: gridrnn_train.grid_fold_train_pair_fwd(x, *w),
+                                  TRAIN_FWD_STAGES)
             rows["grid_fold_train_pair"].append(dict(
                 path=path, shape=[s_len, lines, c], rel_err=err, max_abs_err=abs_err,
+                **train_plans(gridrnn_train, "fwd", lines, c, hidden), stages_ms=stages,
+                recurrence_us_per_step=stages["recurrence"] / length * 1e3,
                 ms=timed_ms(lambda: gridrnn_train.grid_fold_train_pair_fwd(x, *w)),
                 plain_ms=timed_ms(lambda: gridrnn_train.grid_fold_train_pair_plain(x, *w), 3),
                 bound=bound(flops["forward"], io + 8 * x.numel() + stash)))
@@ -252,12 +275,18 @@ def train_kernel_phase(rand, dev, summary) -> None:
 
         bwd = lambda: gridrnn_train.grid_fold_train_pair_bwd(x, *w, cot[0], cot[1], stash=st)
         plain_bwd = lambda: gridrnn_train.grid_fold_train_pair_bwd_plain(x, *w, cot[0], cot[1])
-        got, want = bwd(), plain_bwd()
+        got, again = bwd(), bwd()
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = plain_bwd()
         names = ("dx", "dw_ih", "dw_hh", "dbias", "dwd")
         errs = {n: grad_rel(g, r) for n, g, r in zip(names, got, want)}
+        stages = kernel_times(bwd, TRAIN_BWD_STAGES)
         rows["grid_fold_train_pair_bwd"].append(dict(
             path=path, shape=[s_len, lines, c], rel_err=max(errs.values()), grad_rel=errs,
             max_abs_err=max(float((g - r).abs().max()) for g, r in zip(got, want)),
+            deterministic=deterministic, **train_plans(gridrnn_train, "bwd", lines, c, hidden),
+            stages_ms=stages, sweep_us_per_step=stages["sweep"] / length * 1e3,
             ms=timed_ms(bwd), plain_ms=timed_ms(plain_bwd, 3),
             bound=bound(flops["backward"], io + 8 * x.numel() + stash + 4 * x.numel() + grads)))
         del got, want, st
@@ -271,6 +300,8 @@ def train_kernel_phase(rand, dev, summary) -> None:
             if not r["rel_err"] < tol:
                 fail(f"{name} ({r['path']}) disagrees with its plain version: rel "
                      f"{r['rel_err']} >= {tol}")
+            if r.get("deterministic") is False:
+                fail(f"{name} ({r['path']}): two calls on the same inputs gave different bits")
         # Per call, the mean of one intra and one inter call (a step makes
         # five of each).
         mean = lambda key: sum(r[key] for r in rows[name]) / len(rows[name])
@@ -282,11 +313,34 @@ def train_kernel_phase(rand, dev, summary) -> None:
             calls="mean of one intra and one inter call of a B=2, 256-frame step")
 
 
+def train_plans(module, which: str, lines: int, c: int, hidden: int) -> dict:
+    """The cluster plan of kernel 5 (``which`` "fwd") or 6 ("bwd") at this
+    shape, with the waves its grid takes, and the card's count of clusters
+    at once of every plan that fits a block (blocks x lines: count; the H100
+    counts of tests/test_torch_cluster_plans.py)."""
+    from fdbm_tpu_torch.ops import gridrnn
+
+    if not hasattr(module, "train_sweep_plan"):  # the three-stage design plans nothing
+        return {}
+    plan = (module.train_fwd_plan if which == "fwd" else module.train_sweep_plan)(lines, c, hidden)
+    if which == "fwd":
+        tiles, layout = gridrnn.FUSED_LINES, lambda cs, t: gridrnn.fused_layout(c, hidden, cs, t)
+    else:
+        tiles, layout = module.SWEEP_LINES, lambda cs, t: module.train_sweep_layout(c, hidden,
+                                                                                    cs, t)
+    counts = {f"{cs}x{t}": module._card_max_clusters(torch.cuda.current_device(), which, c,
+                                                     hidden, cs, t)
+              for cs in gridrnn.CLUSTERS for t in tiles if layout(cs, t)}
+    return {"plan": {**plan._asdict(), "waves": -(-plan.clusters // plan.max_clusters)},
+            "max_clusters_by_plan": counts}
+
+
 def kernel_times(fn, names: dict, calls: int = 3) -> dict:
-    """Device time per launch of each stage of ``fn`` (each launches its
-    kernel once a call), from torch.profiler: ``names`` maps a stage to a
-    substring of its kernels' names. The mean is over the launches the
-    profiler recorded, which may miss one."""
+    """Device time per call of ``fn`` in each of its stages, from
+    torch.profiler: ``names`` maps a stage to a substring of its kernels'
+    names, or to a tuple of such substrings. A stage's time is the mean over
+    the launches the profiler recorded (it may miss one) times its launches
+    per call; a stage that launched nothing is left out."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -297,10 +351,13 @@ def kernel_times(fn, names: dict, calls: int = 3) -> dict:
         torch.cuda.synchronize()
     kernels = device_kernels(prof)
     times = {}
-    for stage, sub in names.items():
-        hits = [e for e in kernels if sub in e.key]
+    for stage, subs in names.items():
+        subs = (subs,) if isinstance(subs, str) else subs
+        hits = [e for e in kernels if any(sub in e.key for sub in subs)]
         launches = sum(e.count for e in hits)
-        times[stage] = sum(e.self_device_time_total for e in hits) / 1e3 / max(launches, 1)
+        if launches:
+            per_call = max(1, round(launches / calls))
+            times[stage] = sum(e.self_device_time_total for e in hits) / 1e3 / launches * per_call
     return times
 
 
@@ -1288,6 +1345,7 @@ def probe(first: int, seeds: int, out_path: str) -> None:
 # replacement) pairs of the same variant]). Timing only: the results of a
 # variant are wrong.
 _ATTN_CU, _LSTM_CU_FILE, _GRID_CU = "attention.cu", "lstm.cu", "gridrnn.cu"
+_TRAIN_CU_FILE = "gridrnn_train.cu"
 KERNEL_VARIANTS = {
     "frame_attention": {
         "no_values": (_ATTN_CU, "  // -- values: slice `rank` of the value width",
@@ -1316,8 +1374,8 @@ KERNEL_VARIANTS = {
     # Kernel 1: the fused recurrence's parts (the fold is unchanged).
     "grid_rnn_seq1_pair": {
         "no_window": (_GRID_CU, "    if (s + 1 < L) window(s + 1);", ""),
-        "no_h_product": (_GRID_CU, "    fused_sum<LINES>(acc, ws + KW * wst + 4 * ja, ws + KW * "
-                         "wst + 4 * jb, wst, hcur, lbp, H, ks);", ""),
+        "no_h_product": (_GRID_CU, "    fused_sum<LINES>(acc, wh_cols, wst, hcur, lbp, H, ks);",
+                         ""),
         "no_exchange": (_GRID_CU, "          cluster.map_shared_rank(hnext, r)[units[u] * lbp + "
                         "lq0 + q] = h;", "          hnext[units[u] * lbp + lq0 + q] = h;"),
         "no_cluster_barrier": (_GRID_CU, "    if (s > 0) cluster_wait();  // every",
@@ -1325,6 +1383,20 @@ KERNEL_VARIANTS = {
                                (("    cluster_arrive();\n    if (s + 1 < L)", "    if (s + 1 < L)"),
                                 ("  cluster_wait();  // no block leaves",
                                  "  cluster.sync();  //"))),
+    },
+    # Kernel 6: the reverse sweep's parts (dx and the weight gradients unchanged).
+    "grid_fold_train_pair_bwd": {
+        "no_sweep_product": (_TRAIN_CU_FILE, "        for (int n = ks; n < ncol; n += SW_KS) {",
+                             "        for (int n = ks; n < 0; n += SW_KS) {"),
+        "no_reduce_scatter": (_TRAIN_CU_FILE, "            dst[i][buf + (ks * L8 + q) * uc + "
+                              "dst_col[i]] = acc[q][i];", "            ;"),
+        "no_cluster_barrier": (_TRAIN_CU_FILE, "    cluster_arrive();\n    if (in_warp && s + 1 "
+                               "< L) window(s + 1);\n    cluster_wait();",
+                               "    if (in_warp && s + 1 < L) window(s + 1);\n    __syncthreads();",
+                               (("    __syncthreads();  // dgs is read by every lane of the "
+                                 "block's next product\n  }\n}",
+                                 "    __syncthreads();\n  }\n  cluster.sync();\n}"),)),
+        "no_dh_window": (_TRAIN_CU_FILE, "    if (in_warp && s + 1 < L) window(s + 1);", ""),
     },
     # Kernel 9: the reverse sweep's parts (dx and the weight gradients unchanged).
     "lstm_core_bwd": {
@@ -1340,6 +1412,14 @@ KERNEL_VARIANTS = {
                            "    // Each thread copies its own cells' stashes (so it alone reads "
                            "them).\n#pragma unroll\n    for (int i = 0; i < 0;"),
     },
+}
+
+
+# Kernel 5 runs kernel 1's recurrence with its stash: the same parts, and the stash writes.
+KERNEL_VARIANTS["grid_fold_train_pair"] = {
+    **KERNEL_VARIANTS["grid_rnn_seq1_pair"],
+    "no_stash_writes": (_GRID_CU, "        if constexpr (STASH) {",
+                        "        if constexpr (false) {"),
 }
 
 
@@ -1363,11 +1443,13 @@ def probe_kernels(out_path: str) -> None:
     (frame_attention: B=1, T=257, D=8 and 12, and the unchanged kernel at
     the plans of PROBE_ATTENTION_PLANS; bilstm_fused_forward: 262 lines, two
     directions, H=200; grid_rnn_seq1_pair: the canvas [1, 263, 263, 32],
-    H=100; lstm_core_bwd: [260, 524, 192], H=200). Writes the times to
+    H=100; grid_fold_train_pair and its backward: [263, 524, 32], H=100;
+    lstm_core_bwd: [260, 524, 192], H=200). Writes the times to
     ``out_path``."""
     import ctypes
 
-    from fdbm_tpu_torch.ops import _build, attention as attn_ops, gridrnn, lstm as lstm_ops
+    from fdbm_tpu_torch.ops import _build, attention as attn_ops, gridrnn, gridrnn_train
+    from fdbm_tpu_torch.ops import lstm as lstm_ops
 
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -1473,6 +1555,44 @@ def probe_kernels(out_path: str) -> None:
                 row[name] = timed_ms(call, 20)
             readings[kernel] = row
             emit({"phase": "probe_kernels", "kernel": kernel, **row})
+        elif kernel in ("grid_fold_train_pair", "grid_fold_train_pair_bwd"):
+            # One intra path of a 5l32c100 training step: [263, 524, 32], H = 100.
+            s_len, lines, c, hidden = 263, 524, 32, 100
+            x = rand(s_len, lines, c, s=0.5)
+            w = (rand(2, 128, 400, s=0.1), rand(2, 100, 400, s=0.1), rand(2, 400, s=0.1),
+                 rand(200, 128, s=0.1))
+            outf, outb, stash = gridrnn_train.grid_fold_train_pair_fwd(x, *w)
+            if kernel == "grid_fold_train_pair":
+                plan = gridrnn_train.train_fwd_plan(lines, c, hidden)
+                args = lambda: (*(t.data_ptr() for t in (x, *w, *stash, outf, outb)), s_len,
+                                lines, c, hidden, plan.cs, plan.lines, stream)
+                entry, sigs, iters = "grid_fold_train_fwd", gridrnn_train._FWD_SIGNATURES, 10
+            else:
+                plan = gridrnn_train.train_sweep_plan(lines, c, hidden)
+                cot = (rand(s_len, lines, c), rand(s_len, lines, c))
+                lib6 = _build.load("gridrnn_train", gridrnn_train._SIGNATURES,
+                                   gridrnn_train._RESTYPES)
+                dgates = torch.empty(2, lines, s_len - 3, 4 * hidden, device=dev)
+                work6 = torch.empty(lib6.grid_fold_train_bwd_workspace(s_len, lines, c, hidden),
+                                    device=dev)
+                grads = (torch.empty_like(x), torch.empty_like(w[0]), torch.empty_like(w[1]),
+                         torch.empty_like(w[2]), torch.empty_like(w[3]))
+                args = lambda: (x.data_ptr(), cot[0].data_ptr(), cot[1].data_ptr(),
+                                *(t.data_ptr() for t in stash), w[0].data_ptr(), w[1].data_ptr(),
+                                w[3].data_ptr(), dgates.data_ptr(), work6.data_ptr(),
+                                *(g.data_ptr() for g in grads), s_len, lines, c, hidden, plan.cs,
+                                plan.lines, stream)
+                entry, sigs, iters = "grid_fold_train_bwd", gridrnn_train._SIGNATURES, 5
+            row = {"plan": plan._asdict()}
+            for name, lib in libs.items():
+                fn = getattr(lib, entry)
+                fn.argtypes, fn.restype = sigs[entry], ctypes.c_int
+                call = lambda: fn(*args())
+                if call():
+                    fail(f"probe variant {kernel}/{name} does not launch")
+                row[name] = timed_ms(call, iters)
+            readings[kernel] = row
+            emit({"phase": "probe_kernels", "kernel": kernel, **row})
         else:
             # One lstm_core backward of a 6l48c200 step: [260, 524, 192], H = 200.
             s_len, lines, d, hidden = 260, 524, 192, 200
@@ -1482,7 +1602,7 @@ def probe_kernels(out_path: str) -> None:
             cot = rand(s_len, lines, hidden)
             dgates = torch.empty_like(gates)
             lib9 = _build.load("lstm", lstm_ops._SIGNATURES, lstm_ops._RESTYPES)
-            work = torch.empty(lib9.lstm_train_bwd_workspace(s_len, lines, d, hidden), device=dev)
+            work9 = torch.empty(lib9.lstm_train_bwd_workspace(s_len, lines, d, hidden), device=dev)
             dx, dwg = torch.empty_like(x), torch.empty(d + hidden + 1, 800, device=dev)
             plan = lstm_ops.sweep_plan(lines, hidden)
             row = {"plan": plan._asdict()}
@@ -1491,7 +1611,7 @@ def probe_kernels(out_path: str) -> None:
                 fn.argtypes, fn.restype = lstm_ops._SIGNATURES["lstm_train_bwd"], ctypes.c_int
                 call = lambda: fn(x.data_ptr(), h.data_ptr(), c.data_ptr(), gates.data_ptr(),
                                   cot.data_ptr(), w[0].data_ptr(), w[1].data_ptr(),
-                                  dgates.data_ptr(), work.data_ptr(), dx.data_ptr(),
+                                  dgates.data_ptr(), work9.data_ptr(), dx.data_ptr(),
                                   dwg.data_ptr(), s_len, lines, d, hidden, 0, plan.cs,
                                   plan.lines, stream)
                 if call():

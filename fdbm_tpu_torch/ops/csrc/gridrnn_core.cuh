@@ -1,7 +1,7 @@
-// The three stages of the TF-GridNet RNN path on the H100, run in turn by
-// the training kernels (gridrnn_train.cu); the serving kernel (gridrnn.cu)
-// fuses the first two into one cluster recurrence and takes only the fold
-// from here.
+// The three stages of the TF-GridNet RNN path on the H100. Kernel 4
+// (gridrnn_train.cu: grid_bilstm_fold) runs all three in turn; kernels 1
+// and 5 (gridrnn.cu) fuse the first two into one cluster recurrence and
+// take only the fold from here.
 //
 // Layout: a canvas x [B, S, P, C] with the sequence on axis 1; each (b, p)
 // is one line of S rows, L = S - 3 unfold windows per line. A
@@ -10,25 +10,25 @@
 //
 //   1. window_proj_kernel: out_d[m] = win_d[m] @ B_d (+ bias_d) for every
 //      window m = (line, l) of both directions, the k=4 windows read
-//      straight from the canvas (the unfold never exists in memory). The
-//      input projection of the LSTM (B = w_ih) and, in the backward, the
-//      deconv's transpose on the windows of the output cotangent
-//      (B = wd^T) are this product.
+//      straight from the canvas (the unfold never exists in memory): the
+//      input projection of the LSTM (B = w_ih).
 //   2. gridrnn_rec_kernel: the recurrence, one block per direction and
 //      group of REC_G = 4 lines, one thread per gate column. The first
 //      REC_KR rows of the thread's w_hh column live in its registers and
 //      the rest in shared memory, so w_hh is read from neither device
 //      memory nor L2 inside the loop; the four lines' hidden states are one
-//      broadcast float4 read per row. With STASH it also writes what the
-//      backward needs: the activated gates, in place over the
-//      pre-activations, and the cell states.
+//      broadcast float4 read per row.
 //   3. fold_kernel: z = A @ B_d over the FOLD_BM positions a block of output
 //      rows needs, then the 4-tap overlap-add from shared memory, writing
 //      each output row once in canvas layout, per direction or summed over
-//      both. The deconv (A = h, B = wd) and, in the backward, the unfold's
-//      transpose (A = dgates, B = w_ih^T) are this fold.
-// B operands are read through strides, B_d[k][n] = Bw[d*b_dir + k*b_k + n*b_n],
-// so one kernel serves a weight and its transpose.
+//      both: the deconv (A = h, B = wd).
+// B operands are read through strides, B_d[k][n] = Bw[d*b_dir + k*b_k + n*b_n].
+// The recurrence's STASH path and the k-fastest staging of B (B_K_FAST; a
+// weight's transpose) served the three-stage backward of kernels 5 and 6
+// until those moved to gridrnn.cu and gridrnn_train.cu's cluster kernels;
+// no kernel launches them now. They stay because taking them out (with the
+// strides) changed the code nvcc makes of the stages kernels 1 and 4 run:
+// kernel 4 took 10 % longer on the H100 (PERF.md, PR 10).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -31,7 +31,7 @@ KS = 4  # unfold width (emb_ks)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"gridrnn_seq1_pair": [_P] * 8 + [_I] * 7 + [_P],
-               "gridrnn_fused_max_clusters": [_I] * 4,
+               "gridrnn_fused_max_clusters": [_I] * 5,
                "gridrnn_fused_smem": [_I] * 4}
 _RESTYPES = {"gridrnn_fused_smem": ctypes.c_longlong}
 _FOLD_SIGNATURES = {"grid_bilstm_fold": [_P] * 8 + [_I] * 4 + [_P]}
@@ -41,9 +41,9 @@ _FOLD_SIGNATURES = {"grid_bilstm_fold": [_P] * 8 + [_I] * 4 + [_P]}
 # block's shared memory on the H100, over the card's 132 SMs.
 CLUSTERS = (1, 2, 4, 8)
 SMEM_LIMIT, SMS = 232448, 132
-# Kernel 1's fused recurrence (csrc/gridrnn.cu: fused_plan): tiles of 8 or 16
-# lines, eight lanes per pair of units and at most 256 threads a block, a
-# ring of 8 canvas rows.
+# Kernel 1's fused recurrence (csrc/gridrnn.cu: fused_plan): tiles of 8 lines
+# (eight lanes per pair of units) or 16 (four lanes per unit), at most 256
+# threads a block, a ring of 8 canvas rows.
 FUSED_LINES = (8, 16)
 FUSED_RING = 8
 
@@ -114,31 +114,36 @@ def fused_layout(c: int, hidden: int, cs: int, lines: int) -> Optional[Tuple[int
     uc = _cdiv(hidden, cs)
     wst = 4 * uc + (8 - 4 * uc % 32) % 32
     lbp = lines if (lines // 4) % 2 else lines + 4
-    # eight lanes per pair of units, and at least a quarter of a staged row's floats
-    threads = _cdiv(max(8 * _cdiv(uc, 2), _cdiv(lines * c, 4)), 32) * 32
+    # the lanes of every group of units, and at least a quarter of a staged row's floats
+    lanes = 8 * _cdiv(uc, 2) if lines == 8 else 4 * uc
+    threads = _cdiv(max(lanes, _cdiv(lines * c, 4)), 32) * 32
     nbytes = 4 * ((KS * c + hidden) * wst + 2 * hidden * lbp + FUSED_RING * c * lbp)
     return (threads, nbytes) if threads <= 256 and nbytes <= SMEM_LIMIT else None
 
 
-def plan_fused(lines: int, c: int, hidden: int,
-               max_clusters: Callable[[int, int], int]) -> ClusterPlan:
+def plan_fused(lines: int, c: int, hidden: int, max_clusters: Callable[[int, int], int],
+               what: str = "grid_rnn_seq1_pair") -> ClusterPlan:
     """Kernel 1's plan for ``lines`` lines in each direction (see
     :func:`plan_clusters`): a lane sums an eighth of the 4C + H stacked rows
-    for 2 units x 4 gates x tile lines."""
+    for 2 units x 4 gates x tile lines. ``what`` names the caller in the
+    error raised when nothing runs (kernel 5 shares the recurrence)."""
     return plan_clusters(lines, 2, FUSED_LINES, lambda cs, tile: fused_layout(c, hidden, cs, tile),
                          max_clusters, lambda cs, tile: _cdiv(KS * c + hidden, 8) * 8 * tile,
-                         f"grid_rnn_seq1_pair: no plan for C={c}, H={hidden}")
+                         f"{what}: no plan for C={c}, H={hidden}")
 
 
 @functools.lru_cache(maxsize=1024)
-def _card_max_clusters(device_index: int, c: int, hidden: int, cs: int, tile: int) -> int:
-    """The card's ``cudaOccupancyMaxActiveClusters`` for one plan."""
+def _card_max_clusters(device_index: int, c: int, hidden: int, cs: int, tile: int,
+                       stash: bool = False) -> int:
+    """The card's ``cudaOccupancyMaxActiveClusters`` for one plan of the
+    fused recurrence, serving (kernel 1) or with its stash (kernel 5)."""
     with torch.cuda.device(device_index):
         lib = _build.load("gridrnn", _SIGNATURES, _RESTYPES)
-        n = lib.gridrnn_fused_max_clusters(c, hidden, cs, tile)
+        n = lib.gridrnn_fused_max_clusters(c, hidden, cs, tile, int(stash))
     if n < 0:
-        raise RuntimeError(f"grid_rnn_seq1_pair: cudaOccupancyMaxActiveClusters failed (CUDA "
-                           f"error {-n}) for cs={cs}, lines={tile}, C={c}, H={hidden}")
+        raise RuntimeError(f"fused recurrence: cudaOccupancyMaxActiveClusters failed (CUDA "
+                           f"error {-n}) for cs={cs}, lines={tile}, C={c}, H={hidden}, "
+                           f"stash={stash}")
     return n
 
 

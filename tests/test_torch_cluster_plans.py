@@ -1,11 +1,14 @@
-"""The plans of kernel 1's fused recurrence and kernel 9's reverse sweep,
-held on the CPU (no card, no JAX).
+"""The plans of the cluster kernels, held on the CPU (no card, no JAX):
+kernel 1's fused recurrence, kernel 9's reverse sweep, and the training
+pair's forward (kernel 5) and reverse sweep (kernel 6).
 
 ``ops.gridrnn.plan_fused`` cuts a ``grid_rnn_seq1_pair`` call into clusters
-of blocks, ``ops.lstm.plan_sweep`` the reverse sweep of ``lstm_core_bwd``.
-Both take the card's count of clusters that run at once as a function; here
-it is given, including the H100's own counts at the main-path shapes, read
-with ``cudaOccupancyMaxActiveClusters`` on an NVIDIA H100 80GB HBM3. On the
+of blocks, ``ops.lstm.plan_sweep`` the reverse sweep of ``lstm_core_bwd``,
+``ops.gridrnn_train.plan_train_fwd`` and ``plan_train_sweep`` the two
+recurrences of ``grid_fold_train_pair``. Each takes the card's count of
+clusters that run at once as a function; here it is given, including the
+H100's own counts at the main-path shapes, read with
+``cudaOccupancyMaxActiveClusters`` on an NVIDIA H100 80GB HBM3. On the
 card, ``tests/test_torch_cuda.py`` holds the layouts mirrored here to the
 kernels' own counts.
 """
@@ -15,6 +18,7 @@ import math
 import pytest
 
 from fdbm_tpu_torch.ops import gridrnn
+from fdbm_tpu_torch.ops import gridrnn_train
 from fdbm_tpu_torch.ops import lstm as lstm_ops
 
 SMEM = 232448  # a block's shared memory on the H100
@@ -144,3 +148,84 @@ def test_sweep_layout_holds_w_hh_on_chip():
 def test_sweep_plan_raises_when_nothing_runs():
     with pytest.raises(ValueError, match="reverse sweep.*H=200"):
         lstm_ops.plan_sweep(524, 200, lambda cs, lines: 0)
+
+
+# -- kernels 5 and 6: the training pair's forward and reverse sweep --
+
+# At C = 32, H = 100, clusters at once by (blocks per cluster, lines): kernel
+# 5 (kernel 1's recurrence with its stash) and kernel 6's sweep (chip_smoke.py's
+# rows 5 and 6 print them as max_clusters_by_plan).
+H100_TRAIN_FWD = {(2, 8): 66, (2, 16): 66, (4, 8): 30, (4, 16): 30, (8, 8): 30, (8, 16): 30}
+H100_TRAIN_SWEEP = {(2, 8): 66, (2, 16): 66, (4, 8): 30, (4, 16): 30, (8, 8): 15, (8, 16): 15}
+GATE_C = (8, 16, 24, 32, 40, 48, 56, 64)
+GATE_H = (1, 24, 80, 100, 128)
+
+
+@pytest.mark.parametrize("lines", [524, 526])
+def test_train_plans_are_one_wave_at_the_main_path_shape(lines):
+    """A 5l32c100 training step (B = 2, 256 frames): the intra path's 524
+    lines and the inter path's 526 a direction, on the H100's counts: 66
+    clusters of 2 blocks of 16 lines, one block on each of the 132 SMs."""
+    fwd = gridrnn_train.plan_train_fwd(lines, 32, 100, lambda cs, t: H100_TRAIN_FWD.get((cs, t), 0))
+    bwd = gridrnn_train.plan_train_sweep(lines, 32, 100,
+                                         lambda cs, t: H100_TRAIN_SWEEP.get((cs, t), 0))
+    for plan in (fwd, bwd):
+        assert plan.clusters <= plan.max_clusters
+        assert (plan.cs, plan.lines, plan.clusters) == (2, 16, 66)
+        assert plan.clusters * plan.cs == gridrnn.SMS
+    assert bwd.threads == 224 and bwd.smem_bytes <= SMEM
+
+
+@pytest.mark.parametrize("c", GATE_C)
+def test_every_width_inside_the_gate_has_train_plans(c):
+    """C % 8 == 0, C <= 64, H <= 128: both recurrences have a plan that
+    fits a block's 232,448 bytes, and the sweep's blocks cover every unit,
+    channel and line."""
+    for hidden in GATE_H:
+        for lines in (13, 524):
+            fwd = gridrnn_train.plan_train_fwd(lines, c, hidden, _any_card)
+            bwd = gridrnn_train.plan_train_sweep(lines, c, hidden, _any_card)
+            for plan in (fwd, bwd):
+                assert plan.smem_bytes <= SMEM and plan.threads <= 256, (c, hidden)
+                assert plan.clusters == 2 * math.ceil(lines / plan.lines)
+            assert c % bwd.cs == 0
+            assert gridrnn_train.train_sweep_layout(c, hidden, bwd.cs, bwd.lines) == (
+                bwd.threads, bwd.smem_bytes)
+            # four lanes' groups of four units a warp, at most five cells a thread
+            units = math.ceil(hidden / bwd.cs)
+            assert bwd.threads >= 8 * math.ceil(hidden / 4)
+            assert bwd.threads * gridrnn_train.SWEEP_MAX_CELLS >= bwd.lines * units
+
+
+def test_train_sweep_layout_holds_the_weights_on_chip():
+    """At C = 32, H = 100 and clusters of 2: the units' gate columns of
+    w_hh (90 KB with the row padding), their channels' rows of wd^T, the tile's dgates, two
+    receive tiles, the ring of cotangent rows and the cells' stashes of a
+    step; the gate's corner needs clusters of 4."""
+    threads, nbytes = gridrnn_train.train_sweep_layout(32, 100, 2, 16)
+    assert threads == 224
+    assert nbytes == 4 * (200 * 112 + 64 * 112 + 200 * 20 + 2 * 2 * 16 * 50 + 8 * 16 * 20
+                          + 5 * 16 * 50)
+    assert gridrnn_train.train_sweep_layout(32, 100, 1, 16) is None   # 276 KB
+    assert gridrnn_train.train_sweep_layout(64, 128, 2, 16) is None   # 262 KB
+    assert gridrnn_train.train_sweep_layout(64, 128, 4, 16) is not None
+
+
+def test_train_sweep_layout_refuses_what_the_kernel_refuses():
+    assert gridrnn_train.train_sweep_layout(32, 100, 3, 16) is None   # clusters of 1, 2, 4 or 8
+    assert gridrnn_train.train_sweep_layout(32, 100, 2, 4) is None    # 8 or 16 lines
+    assert gridrnn_train.train_sweep_layout(32, 100, 2, 12) is None
+    assert gridrnn_train.train_sweep_layout(8, 24, 16, 8) is None
+    assert gridrnn_train.train_sweep_layout(24, 24, 16, 8) is None    # C / cs channels a rank
+    assert gridrnn_train.train_sweep_layout(16, 100, 1, 16) is None   # 8 cells a thread
+    assert gridrnn_train.train_sweep_layout(32, 100, 2, 8) is not None
+
+
+def test_train_plans_skip_plans_the_card_cannot_run():
+    only_fours = lambda cs, lines: 30 if cs == 4 else 0
+    assert gridrnn_train.plan_train_fwd(524, 32, 100, only_fours).cs == 4
+    assert gridrnn_train.plan_train_sweep(524, 32, 100, only_fours).cs == 4
+    with pytest.raises(ValueError, match="grid_fold_train_pair: .*C=32, H=100"):
+        gridrnn_train.plan_train_fwd(524, 32, 100, lambda cs, lines: 0)
+    with pytest.raises(ValueError, match="reverse sweep.*C=32, H=100"):
+        gridrnn_train.plan_train_sweep(524, 32, 100, lambda cs, lines: 0)

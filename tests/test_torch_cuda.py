@@ -707,3 +707,162 @@ def test_sweep_plans_the_card_cannot_launch_are_refused(dev):
                                   dwg.data_ptr(), 5, 10, 16, 200, 0, cs, tile, stream)
         assert code != 0, (cs, tile)
     torch.cuda.synchronize()
+
+
+# -- kernels 5 and 6 on their cluster plans (the training pair) --
+
+def _train_pair_check(args, cot, stash_plan=None, sweep_plan=None):
+    """Kernel 5's outputs and stash, then kernel 6's five gradients, against
+    the plain versions; with a plan (cs, lines) given, through the C entries
+    at that plan instead of the card's choice."""
+    from fdbm_tpu_torch.ops import _build
+
+    x = args[0]
+    s, lines, c = x.shape
+    hidden = args[2].shape[1]
+    length = s - 3
+    want = gridrnn_train.grid_fold_train_pair_plain(*args)
+    if stash_plan is None:
+        outf, outb, stash = gridrnn_train.grid_fold_train_pair_fwd(*args)
+    else:
+        lib = _build.load("gridrnn", gridrnn_train._FWD_SIGNATURES)
+        stash = (torch.empty(2, lines, length, hidden, 4, device=x.device),
+                 torch.empty(2, lines, length, hidden, device=x.device),
+                 torch.empty(2, lines, length, hidden, device=x.device))
+        outf, outb = torch.empty_like(x), torch.empty_like(x)
+        code = lib.grid_fold_train_fwd(*(t.data_ptr() for t in args),
+                                       *(t.data_ptr() for t in stash), outf.data_ptr(),
+                                       outb.data_ptr(), s, lines, c, hidden, *stash_plan,
+                                       torch.cuda.current_stream(x.device).cuda_stream)
+        assert code == 0, stash_plan
+    for g, w in zip((outf, outb), want):
+        assert torch.isfinite(g).all()
+        assert _rel(g, w) < 1e-4
+    # The stash: the activated gates, h and c of the plain recurrence.
+    _, hs, cst = stash
+    assert torch.isfinite(hs).all() and torch.isfinite(cst).all()
+    if sweep_plan is None:
+        got = gridrnn_train.grid_fold_train_pair_bwd(*args, *cot, stash=stash)
+    else:
+        lib = _build.load("gridrnn_train", gridrnn_train._SIGNATURES, gridrnn_train._RESTYPES)
+        dgates = torch.empty(2, lines, length, 4 * hidden, device=x.device)
+        work = torch.empty(lib.grid_fold_train_bwd_workspace(s, lines, c, hidden),
+                           device=x.device)
+        got = (torch.empty_like(x), torch.empty(2, 4 * c, 4 * hidden, device=x.device),
+               torch.empty(2, hidden, 4 * hidden, device=x.device),
+               torch.empty(2, 4 * hidden, device=x.device),
+               torch.empty(2 * hidden, 4 * c, device=x.device))
+        w_ih, w_hh, wd = args[1], args[2], args[4]
+        code = lib.grid_fold_train_bwd(
+            x.data_ptr(), cot[0].data_ptr(), cot[1].data_ptr(),
+            *(t.data_ptr() for t in stash), w_ih.data_ptr(), w_hh.data_ptr(), wd.data_ptr(),
+            dgates.data_ptr(), work.data_ptr(), *(g.data_ptr() for g in got), s, lines, c,
+            hidden, *sweep_plan, torch.cuda.current_stream(x.device).cuda_stream)
+        assert code == 0, sweep_plan
+    torch.cuda.synchronize()
+    want = gridrnn_train.grid_fold_train_pair_bwd_plain(*args, *cot)
+    for name, g, w in zip(("dx", "dw_ih", "dw_hh", "dbias", "dwd"), got, want):
+        assert g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        if float(w.norm()) == 0:  # dW_hh at L = 1: no step consumes a state
+            assert float(g.abs().max()) == 0, name
+        else:
+            assert _rel(g, w) < 1e-3, name
+
+
+@pytest.mark.parametrize("s,lines,c,hidden", [
+    (23, 13, 32, 100),    # lines not a multiple of the tile
+    (23, 70, 32, 100),
+    (12, 13, 64, 128),    # the gate's corner: clusters of 4 or 8
+    (23, 13, 16, 24),     # H not a multiple of 8
+    (17, 21, 8, 1),
+    (4, 13, 32, 100),     # S = 4: one window
+    (5, 70, 32, 100),     # S = 5: two windows
+    (5, 13, 64, 128),
+])
+def test_train_pair_kernels_match_plain_at_the_plans_edges(dev, s, lines, c, hidden):
+    """Kernels 5 and 6 at the card's plans, every row and gradient against
+    the plain pipeline under a random cotangent on every row."""
+    rng = np.random.default_rng(40)
+    args = _rnn_args(rng, s, lines, c, hidden, dev)
+    cot = (_rand(rng, (s, lines, c), 1.0, dev), _rand(rng, (s, lines, c), 1.0, dev))
+    _train_pair_check(args, cot)
+
+
+@pytest.mark.parametrize("c,hidden", [(32, 100), (16, 24), (64, 128)])
+def test_train_pair_kernels_match_plain_on_every_plan(dev, c, hidden):
+    """Every plan (blocks per cluster, lines per tile) that fits a block, on
+    21 lines (a partial tile), H spread unevenly over the ranks where it
+    does not divide (H = 100 on 8 ranks, H = 24 on 8)."""
+    rng = np.random.default_rng(41)
+    args = _rnn_args(rng, 9, 21, c, hidden, dev)
+    cot = (_rand(rng, (9, 21, c), 1.0, dev), _rand(rng, (9, 21, c), 1.0, dev))
+    fwd = [(cs, t) for cs in gridrnn.CLUSTERS for t in gridrnn.FUSED_LINES
+           if gridrnn.fused_layout(c, hidden, cs, t)]
+    bwd = [(cs, t) for cs in gridrnn.CLUSTERS for t in gridrnn_train.SWEEP_LINES
+           if gridrnn_train.train_sweep_layout(c, hidden, cs, t)]
+    assert fwd and bwd
+    for i, plan in enumerate(bwd):
+        _train_pair_check(args, cot, fwd[i % len(fwd)], plan)
+
+
+def test_train_backward_is_deterministic_at_the_main_path_width(dev):
+    """Kernel 6 on its main-path plan (524 lines, C = 32, H = 100): two calls
+    give the same bits."""
+    rng = np.random.default_rng(42)
+    args = _rnn_args(rng, 12, 524, 32, 100, dev)
+    _, _, stash = gridrnn_train.grid_fold_train_pair_fwd(*args)
+    cot = (_rand(rng, (12, 524, 32), 1.0, dev), _rand(rng, (12, 524, 32), 1.0, dev))
+    first = gridrnn_train.grid_fold_train_pair_bwd(*args, *cot, stash=stash)
+    again = gridrnn_train.grid_fold_train_pair_bwd(*args, *cot, stash=stash)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_train_sweep_layouts_match_the_kernel(dev):
+    for c in (8, 24, 32, 64):
+        for hidden in (1, 24, 80, 100, 128):
+            for cs in gridrnn.CLUSTERS + (3,):
+                for tile in gridrnn_train.SWEEP_LINES + (4, 12):
+                    lay = gridrnn_train.train_sweep_layout(c, hidden, cs, tile)
+                    assert gridrnn_train.train_sweep_smem(c, hidden, cs, tile) == (
+                        lay[1] if lay else -1)
+
+
+def test_train_plans_are_one_wave_on_the_card(dev):
+    """A 5l32c100 training step's two RNN paths: 524 (intra) and 526
+    (inter) lines a direction at C = 32, H = 100."""
+    for lines in (524, 526):
+        for plan in (gridrnn_train.train_fwd_plan(lines, 32, 100, dev),
+                     gridrnn_train.train_sweep_plan(lines, 32, 100, dev)):
+            assert plan.clusters <= plan.max_clusters, plan
+
+
+def test_train_plans_the_card_cannot_launch_are_refused(dev):
+    from fdbm_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(43)
+    args = _rnn_args(rng, 9, 10, 64, 128, dev)
+    x = args[0]
+    stash = (torch.empty(2, 10, 6, 128, 4, device=dev), torch.empty(2, 10, 6, 128, device=dev),
+             torch.empty(2, 10, 6, 128, device=dev))
+    out = torch.empty_like(x)
+    fwd = _build.load("gridrnn", gridrnn_train._FWD_SIGNATURES)
+    bwd = _build.load("gridrnn_train", gridrnn_train._SIGNATURES, gridrnn_train._RESTYPES)
+    dgates = torch.empty(2, 10, 6, 512, device=dev)
+    work = torch.empty(bwd.grid_fold_train_bwd_workspace(9, 10, 64, 128), device=dev)
+    grads = [torch.empty(n, device=dev) for n in (2 * 256 * 512, 2 * 128 * 512, 2 * 512,
+                                                  256 * 256)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for cs, tile in ((1, 8), (2, 16), (16, 8), (4, 4), (4, 12)):  # too large; not plans
+        code = fwd.grid_fold_train_fwd(*(t.data_ptr() for t in args),
+                                       *(t.data_ptr() for t in stash), out.data_ptr(),
+                                       out.data_ptr(), 9, 10, 64, 128, cs, tile, stream)
+        assert code != 0, (cs, tile)
+        code = bwd.grid_fold_train_bwd(
+            x.data_ptr(), x.data_ptr(), x.data_ptr(), *(t.data_ptr() for t in stash),
+            args[1].data_ptr(), args[2].data_ptr(), args[4].data_ptr(), dgates.data_ptr(),
+            work.data_ptr(), out.data_ptr(), *(g.data_ptr() for g in grads), 9, 10, 64, 128,
+            cs, tile, stream)
+        assert code != 0, (cs, tile)
+    torch.cuda.synchronize()
