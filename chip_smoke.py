@@ -60,6 +60,15 @@ only times the six cluster kernels (frame_attention, the LSTM recurrence,
 kernel 1's fused recurrence, kernel 5's (the same with its stash), kernel
 6's reverse sweep, kernel 9's reverse sweep) with one part of their work
 switched off at a time.
+
+    python3 chip_smoke.py --kernels-only
+
+builds, checks and times the kernel rows only (no path is driven and no
+ok line is printed). A copy of this script run from a parent commit's
+checkout reads that commit's kernels: rows 2, 4, 5 and 6 name the kernels
+of both designs (one norm launch a map before, one for the three maps of
+an attention call now; the three-stage RNN path before the cluster
+recurrences), so a before/after comes from one card.
 """
 
 from __future__ import annotations
@@ -89,7 +98,7 @@ REPLACES = {
     "grid_rnn_seq1_pair": ("fdbm_tpu_torch/ops/csrc/gridrnn.cu", "fdbm_tpu/ops/gridrnn.py:434"),
     "flat_group_norm": ("fdbm_tpu_torch/ops/csrc/attention.cu", "fdbm_tpu/ops/attention.py:180"),
     "frame_attention": ("fdbm_tpu_torch/ops/csrc/attention.cu", "fdbm_tpu/ops/attention.py:324"),
-    "grid_bilstm_fold": (_TRAIN_CU, "fdbm_tpu/ops/gridrnn.py:217"),
+    "grid_bilstm_fold": ("fdbm_tpu_torch/ops/csrc/gridrnn.cu", "fdbm_tpu/ops/gridrnn.py:217"),
     "grid_fold_train_pair": ("fdbm_tpu_torch/ops/csrc/gridrnn.cu",
                              "fdbm_tpu/ops/gridrnn_train.py:217"),
     "grid_fold_train_pair_bwd": (_TRAIN_CU, "fdbm_tpu/ops/gridrnn_train.py:508"),
@@ -103,7 +112,8 @@ TRAIN_KERNELS = ("grid_bilstm_fold", "grid_fold_train_pair", "grid_fold_train_pa
 # The training operating point of configs/config.yaml: batch 2, 256 frames.
 TRAIN_BATCH, TRAIN_FRAMES = 2, 256
 TRAIN_STEPS, RESUME_STEPS = 8, 2
-RNN_PATHS = 10  # 5 blocks x (intra, inter)
+RNN_BLOCKS = 5
+RNN_PATHS = 2 * RNN_BLOCKS  # intra, inter
 # TFGridNet() at its class defaults, the JAX package's and the reference's.
 WIDE = "6l48c200"
 WIDE_C, WIDE_H, WIDE_PATHS = 48, 200, 12  # 6 blocks x (intra, inter)
@@ -209,11 +219,11 @@ def rnn_flops(lines: int, length: int, c: int, hidden: int) -> dict:
     return {"forward": fwd, "backward": 2 * fwd}
 
 
-# The stages of kernels 5 and 6 by the names of their kernels: those of the
-# cluster design and those of the three-stage design it replaced (PRs 6-9),
-# so that this script also reads the parent commit's kernels (run from its
-# checkout) for a before/after on one card; a stage that launched nothing
-# is left out of a row.
+# The stages of kernels 4, 5 and 6 by the names of their kernels: those of
+# the cluster design and those of the three-stage design it replaced (PRs
+# 6-10), so that this script also reads the parent commit's kernels (run
+# from its checkout) for a before/after on one card; a stage that launched
+# nothing is left out of a row.
 TRAIN_FWD_STAGES = {"projection": "window_proj_kernel",
                     "recurrence": ("gridrnn_rec_kernel", "gridrnn_fused_kernel"),
                     "fold": "fold_kernel"}
@@ -228,7 +238,9 @@ def train_kernel_phase(rand, dev, summary) -> None:
     """Kernels 4-6 at the shapes of one training step: the intra path's
     [S=263, 524 lines] and the inter path's [S=262, 526 lines], C=32,
     H=100. Each is held against its plain version: forward values on the
-    crop [3, L-1], gradients under a cotangent supported on the crop."""
+    crop [3, L-1], gradients under a cotangent supported on the crop. Rows
+    4-6 print their plans and stages, row 4 also the memory one call
+    allocates."""
     from fdbm_tpu_torch.ops import gridrnn, gridrnn_train
 
     c, hidden = 32, 100
@@ -252,10 +264,20 @@ def train_kernel_phase(rand, dev, summary) -> None:
 
         with torch.no_grad():
             want_f, want_b = gridrnn_train.grid_fold_train_pair_plain(x, *w)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             got = gridrnn.grid_bilstm_fold(x, *w)
+            torch.cuda.synchronize()
+            call_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
             err, abs_err = agreement([(got[crop], (want_f + want_b)[crop])])
+            stages = kernel_times(lambda: gridrnn.grid_bilstm_fold(x, *w), TRAIN_FWD_STAGES)
             rows["grid_bilstm_fold"].append(dict(
                 path=path, shape=[s_len, lines, c], rel_err=err, max_abs_err=abs_err,
+                **(train_plans(gridrnn_train, "fold", lines, c, hidden)
+                   if "projection" not in stages else {}),
+                stages_ms=stages, recurrence_us_per_step=stages["recurrence"] / length * 1e3,
+                allocated_mb_per_call=call_mb,
                 ms=timed_ms(lambda: gridrnn.grid_bilstm_fold(x, *w)),
                 plain_ms=timed_ms(lambda: gridrnn_train.grid_fold_train_pair_plain(x, *w), 3),
                 bound=bound(flops["forward"], io + 4 * x.numel())))
@@ -314,22 +336,29 @@ def train_kernel_phase(rand, dev, summary) -> None:
 
 
 def train_plans(module, which: str, lines: int, c: int, hidden: int) -> dict:
-    """The cluster plan of kernel 5 (``which`` "fwd") or 6 ("bwd") at this
-    shape, with the waves its grid takes, and the card's count of clusters
-    at once of every plan that fits a block (blocks x lines: count; the H100
-    counts of tests/test_torch_cluster_plans.py)."""
+    """The cluster plan of kernel 5 (``which`` "fwd"), 6 ("bwd") or 4
+    ("fold": kernel 1's plan, no stash) at this shape, with the waves its
+    grid takes, and the card's count of clusters at once of every plan that
+    fits a block (blocks x lines: count; the H100 counts of
+    tests/test_torch_cluster_plans.py)."""
     from fdbm_tpu_torch.ops import gridrnn
 
     if not hasattr(module, "train_sweep_plan"):  # the three-stage design plans nothing
         return {}
-    plan = (module.train_fwd_plan if which == "fwd" else module.train_sweep_plan)(lines, c, hidden)
-    if which == "fwd":
-        tiles, layout = gridrnn.FUSED_LINES, lambda cs, t: gridrnn.fused_layout(c, hidden, cs, t)
+    dev = torch.cuda.current_device()
+    if which == "fold":
+        plan = gridrnn.fused_plan(lines, c, hidden)
+        count = lambda cs, t: gridrnn._card_max_clusters(dev, c, hidden, cs, t)
     else:
+        plan = (module.train_fwd_plan if which == "fwd" else module.train_sweep_plan)(lines, c,
+                                                                                      hidden)
+        count = lambda cs, t: module._card_max_clusters(dev, which, c, hidden, cs, t)
+    if which == "bwd":
         tiles, layout = module.SWEEP_LINES, lambda cs, t: module.train_sweep_layout(c, hidden,
                                                                                     cs, t)
-    counts = {f"{cs}x{t}": module._card_max_clusters(torch.cuda.current_device(), which, c,
-                                                     hidden, cs, t)
+    else:
+        tiles, layout = gridrnn.FUSED_LINES, lambda cs, t: gridrnn.fused_layout(c, hidden, cs, t)
+    counts = {f"{cs}x{t}": count(cs, t)
               for cs in gridrnn.CLUSTERS for t in tiles if layout(cs, t)}
     return {"plan": {**plan._asdict(), "waves": -(-plan.clusters // plan.max_clusters)},
             "max_clusters_by_plan": counts}
@@ -976,7 +1005,8 @@ def train_cli_phase(tmp: str, smi: str) -> dict:
     served, _ = read_wav(out_file)
     serve_counts = ops.launch_counts()
     ok = ok and served.shape == (1, n) and bool(np.isfinite(served).all()) and \
-        min(serve_counts[k] for k in SERVE_KERNELS) > 0
+        min(serve_counts[k] for k in SERVE_KERNELS) > 0 and \
+        serve_counts["flat_group_norm"] == serve_counts["frame_attention"]
     emit({"phase": "train", "steps": steps, "resumed_at": TRAIN_STEPS, "batch": TRAIN_BATCH,
           "frames": TRAIN_FRAMES, "train_files": 6, "valid_files": 3,
           "train_loss": train_loss, "valid_loss": valid,
@@ -1046,7 +1076,8 @@ def train_rate_phase(rng, dev, smi: str, backbone, phase: str = "train_rate"):
     return fdbm, state, batch, counts
 
 
-def main() -> None:
+def main(kernels_only: bool = False) -> None:
+    """The smoke run; ``kernels_only`` stops after the kernel rows."""
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
     from fdbm_tpu_torch import ops
@@ -1116,19 +1147,31 @@ def main() -> None:
     v = rand(1, n_frames, q_bins, c)
     norms = tuple((rand(n_head, 1, s=0.3), rand(n_head, wd), rand(n_head, wd))
                   for wd in (e_dim, e_dim, d_dim))
-    flat = lambda t: t.reshape(1, n_frames, -1)
-    maps = ((flat(q), norms[0], e_dim), (flat(k), norms[1], e_dim), (flat(v), norms[2], d_dim))
-    run_norms = lambda fn: [fn(m, *p, width=wd) for m, p, wd in maps]
-    err, abs_err = agreement(list(zip(run_norms(attn_ops.flat_group_norm),
-                                      run_norms(attn_ops.flat_group_norm_plain))))
-    elems = sum(m.numel() for m, _, _ in maps)
+    maps = [(a, *p, wd) for a, p, wd in zip((q, k, v), norms, (e_dim, e_dim, d_dim))]
+    per_map = lambda ms: [attn_ops.flat_group_norm(*m[:4], width=m[4]) for m in ms]
+    plain = lambda ms: [attn_ops.flat_group_norm_plain(*m[:4], width=m[4]) for m in ms]
+    # One launch for the three maps of an attention call; a parent checkout
+    # (one launch a map) runs the per-map wrapper three times.
+    norms3 = getattr(attn_ops, "flat_group_norms", per_map)
+    want = plain(maps)
+    err, abs_err = agreement(list(zip(norms3(maps), want)) + list(zip(per_map(maps), want)))
+    elems = sum(m[0].numel() for m in maps)
+    ops.reset_launch_counts()
+    norms3(maps)
+    launches = ops.launch_counts()["flat_group_norm"]
+    norm_kernels = {"norm": ("group_norm_kernel", "norm_segments_kernel")}
     summary["flat_group_norm"] = dict(
-        rel_err=err, tol=1e-5, max_abs_err=abs_err,
-        shape=[list(m.shape) for m, _, _ in maps],
-        ms=timed_ms(lambda: run_norms(attn_ops.flat_group_norm)) / 3,
-        plain_ms=timed_ms(lambda: run_norms(attn_ops.flat_group_norm_plain)) / 3,
-        bound=bound(10 * elems / 3, 2 * 4 * elems / 3), library_ms=None,
-        calls="per call, mean of the q, k and v maps of one block")
+        rel_err=err, tol=1e-5, max_abs_err=abs_err, shape=[list(m[0].shape) for m in maps],
+        launches_per_attention_call=launches,
+        ms=timed_ms(lambda: norms3(maps)),
+        device_ms=kernel_times(lambda: norms3(maps), norm_kernels)["norm"],
+        ms_per_map=timed_ms(lambda: per_map(maps)) / 3,
+        device_ms_by_map={name: kernel_times(lambda m=m: per_map([m]), norm_kernels)["norm"]
+                          for name, m in zip("qkv", maps)},
+        plain_ms=timed_ms(lambda: plain(maps)),
+        bound=bound(10 * elems, 2 * 4 * elems), library_ms=None,
+        calls="per call: the q, k and v maps of one attention call (one block); ms by events "
+              "around the wrapper, device_ms from the profiler")
 
     got = attn_ops.frame_attention(q, k, v, n_head, e_dim)
     want = attn_ops.frame_attention_plain(q, k, v, n_head, e_dim)
@@ -1197,6 +1240,11 @@ def main() -> None:
 
     # -- the LSTM kernels at the shapes of 6l48c200 ----------------------------------
     lstm_kernel_phase(rand, dev, summary, n_frames)
+    if kernels_only:
+        emit({"phase": "done", "kernels_only": True,
+              "wall_seconds": time.perf_counter() - t_start})
+        print(smi, flush=True)
+        return
 
     # -- backbone: full width, kernels against the all-plain route ----------------
     torch.manual_seed(SEED)
@@ -1217,8 +1265,11 @@ def main() -> None:
     emit({"phase": "backbone", "shape": list(shape), "rel_err": err, "tol": 1e-4,
           "finite": bool(torch.isfinite(torch.view_as_real(out)).all()),
           "launches_per_forward": per_forward, "forward_ms": fwd_ms})
-    if not err < 1e-4 or min(per_forward[k] for k in SERVE_KERNELS) == 0:
-        fail(f"backbone: rel {err}, launches {per_forward}")
+    # Per block one launch of each RNN path's kernel, of the norms and of the attention.
+    expected = {"grid_rnn_seq1_pair": 2 * RNN_BLOCKS, "flat_group_norm": RNN_BLOCKS,
+                "frame_attention": RNN_BLOCKS}
+    if not err < 1e-4 or any(per_forward[k] != n for k, n in expected.items()):
+        fail(f"backbone: rel {err}, launches {per_forward}, expected {expected}")
     del net, ref
 
     # -- serve: the main path, through the single-file CLI ---------------------
@@ -1267,7 +1318,8 @@ def main() -> None:
             enhanced, sr = read_wav(out_file)
             ok = (enhanced.shape == (1, n) and sr == cfg.sr
                   and bool(np.isfinite(enhanced).all())
-                  and min(counts[k] for k in SERVE_KERNELS) > 0)
+                  and min(counts[k] for k in SERVE_KERNELS) > 0
+                  and counts["flat_group_norm"] == counts["frame_attention"])
             emit({"phase": "serve", "request": i, "sampler": sampler, "N": n_steps,
                   "audio_seconds": seconds, "samples": int(enhanced.shape[-1]),
                   "wall_seconds": wall, "audio_seconds_per_second": seconds / wall,
@@ -1634,8 +1686,14 @@ if __name__ == "__main__":
     parser.add_argument("--probe-kernels", metavar="OUT",
                         help="only time the redesigned kernels with parts of their work "
                              "switched off (see probe_kernels), written to OUT (JSON)")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="only build and check and time the kernel rows, with no paths "
+                             "run and no ok line (for a before/after on one card, also "
+                             "from a parent commit's checkout)")
     cli = parser.parse_args()
-    if cli.probe_kernels:
+    if cli.kernels_only:
+        main(kernels_only=True)
+    elif cli.probe_kernels:
         probe_kernels(cli.probe_kernels)
     elif cli.probe_seeds:
         if not cli.probe_out:

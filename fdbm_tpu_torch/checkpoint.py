@@ -9,9 +9,10 @@
   and update counts), beside a ``meta.json`` with the best metrics and the
   config.
 * :func:`load_checkpoint` rebuilds a model for serving from either: a
-  model file, a slot file, or a run or checkpoints directory (slot
-  ``last`` by default). From a slot it serves the EMA weights, as the JAX
-  package's ``infer_single.py`` does.
+  model file, a slot file, a slot's path without its extension, or a run
+  or checkpoints directory (slot ``last`` by default, and ``last`` where
+  the slot asked for was never written). From a slot it serves the EMA
+  weights, as the JAX package's ``infer_single.py`` does.
 
 Files are read back with ``weights_only=True``. The JAX package's orbax
 checkpoints need JAX to read and do not load here.
@@ -23,6 +24,7 @@ import dataclasses
 import json
 import math
 import os
+import sys
 from typing import Any, Dict, Optional
 
 import torch
@@ -97,16 +99,26 @@ class CheckpointManager:
 def _resolve_checkpoint(path: str, slot: str = "last") -> str:
     """The file :func:`load_checkpoint` reads for ``path``: the file itself,
     or ``<slot>.pt`` of a checkpoints directory or of a run directory's
-    ``checkpoints/``."""
+    ``checkpoints/``. As the JAX package's ``infer_single.py`` does, a slot
+    may be named by its path without the extension
+    (``<run>/checkpoints/last``, whose basename is then the slot), and a
+    slot that was never written falls back to ``last`` (the port's trainer
+    writes no ``best_pesq``), with one line on stderr."""
     if os.path.isfile(path):
         return path
     ckpt_dir = os.path.join(path, "checkpoints")
     if not os.path.isdir(ckpt_dir):
         ckpt_dir = path
+    if not os.path.isdir(ckpt_dir) and os.path.isdir(os.path.dirname(os.path.abspath(path))):
+        ckpt_dir, slot = os.path.split(os.path.abspath(path))
     found = os.path.join(ckpt_dir, f"{slot}.pt")
-    if not os.path.isfile(found):
-        raise FileNotFoundError(f"no checkpoint slot {slot!r} in {path}")
-    return found
+    if os.path.isfile(found):
+        return found
+    last = os.path.join(ckpt_dir, "last.pt")
+    if not os.path.isfile(last):
+        raise FileNotFoundError(f"no checkpoint slot {slot!r} (nor 'last') in {path}")
+    print(f"no checkpoint slot {slot!r} in {ckpt_dir}: serving 'last'", file=sys.stderr)
+    return last
 
 
 def load_checkpoint(path: str, device="cuda", overrides: Optional[Dict[str, Any]] = None,

@@ -5,9 +5,10 @@
 
 Same keys as the JAX package's ``infer_single.py``; ``ckpt`` names a
 model file written by ``fdbm_tpu_torch.checkpoint.save_checkpoint``, or a
-training run (its directory, its ``checkpoints/`` or one slot file), of
-which it serves the EMA weights of slot ``--slot`` (``last``). Runs on the
-GPU unless ``--device cpu`` is given.
+training run (its directory, its ``checkpoints/``, one slot file or a
+slot's path without ``.pt``), of which it serves the EMA weights of slot
+``--slot`` (``last``; ``last`` too where that slot was never written).
+Runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ compressed-RI MSE - SI-SNR), each with the optional 0/1 ``weights`` mask
 that keeps wrap-padded validation items out of the batch mean.
 ``data_prediction_mel``, ``data_prediction_melphase`` and ``pesq_weight >
 0`` raise ``NotImplementedError``: their mel, phase and PESQ criteria are
-not ported yet (ROADMAP queue 1, item 8).
+not ported yet (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def compute_loss(cfg: LossConfig, x_hat: torch.Tensor, x: torch.Tensor,
     if cfg.pesq_weight > 0.0:
         raise NotImplementedError(
             "pesq_weight > 0: the PESQ loss is not ported to fdbm_tpu_torch yet "
-            "(ROADMAP queue 1, item 8)")
+            "(ROADMAP queue 1, item 7)")
     b, c, f, t = x.shape
     if cfg.loss_type == "data_prediction":
         losses_tf = (x_hat - x).abs() ** 2 / (f * t)
@@ -98,5 +98,5 @@ def compute_loss(cfg: LossConfig, x_hat: torch.Tensor, x: torch.Tensor,
     if cfg.loss_type in ("data_prediction_mel", "data_prediction_melphase"):
         raise NotImplementedError(
             f"loss_type={cfg.loss_type!r}: the mel and phase criteria are not ported to "
-            "fdbm_tpu_torch yet (ROADMAP queue 1, item 8)")
+            "fdbm_tpu_torch yet (ROADMAP queue 1, item 7)")
     raise ValueError(f"Invalid loss type: {cfg.loss_type}")

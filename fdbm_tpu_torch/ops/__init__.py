@@ -2,7 +2,8 @@
 
 Each wrapper counts its kernel launches in a ``launches`` attribute, so a
 run can show that it went through the kernels: ``grid_rnn_seq1_pair``,
-``flat_group_norm`` and ``frame_attention`` (serving), ``grid_bilstm_fold``
+``flat_group_norm`` (also the launches of ``flat_group_norms``, one an
+attention call) and ``frame_attention`` (serving), ``grid_bilstm_fold``
 (the training route without a gradient), and ``grid_fold_train_pair`` and
 ``grid_fold_train_pair_bwd`` (the training route's forward and backward);
 outside the fused grid kernels' gate, ``bilstm_fused_forward`` (serving),

@@ -25,7 +25,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_bound: Set[Tuple[str, str]] = set()  # (library, function) whose argtypes are set
 
 
 def _sources() -> Dict[str, Path]:
@@ -103,8 +104,10 @@ def load(name: str, signatures: Dict[str, Sequence[object]],
          restypes: Optional[Dict[str, object]] = None) -> ctypes.CDLL:
     """The ctypes handle of ``csrc/<name>.cu``, built if needed, with the
     ``argtypes`` of the functions in ``signatures`` set, and their
-    ``restype`` c_int unless ``restypes`` names another. Several modules
-    may bind functions of one library, each naming its own."""
+    ``restype`` c_int unless ``restypes`` names another (set at the first
+    call that names the function, so a wrapper's later calls skip it).
+    Several modules may bind functions of one library, each naming its
+    own."""
     with _lock:
         lib = _libs.get(name)
     if lib is None:
@@ -114,8 +117,10 @@ def load(name: str, signatures: Dict[str, Sequence[object]],
         with _lock:
             lib = _libs.setdefault(name, ctypes.CDLL(str(path)))
     for fn, argtypes in signatures.items():
-        getattr(lib, fn).argtypes = list(argtypes)
-        getattr(lib, fn).restype = (restypes or {}).get(fn, ctypes.c_int)
+        if (name, fn) not in _bound:
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = (restypes or {}).get(fn, ctypes.c_int)
+            _bound.add((name, fn))
     return lib
 
 

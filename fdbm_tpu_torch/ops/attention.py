@@ -5,7 +5,8 @@ Port of ``fdbm_tpu/ops/attention.py:flat_group_norm`` and
 hand-written kernels from ``csrc/attention.cu``; on a CPU tensor it runs
 its plain PyTorch version (``*_plain`` below). The source note of
 ``csrc/attention.cu`` says what bounds them on the H100 and how they are
-laid out. The attention is one launch per call; its plan (query rows per
+laid out. The norms of one attention call's q, k and v are one launch
+(:func:`flat_group_norms`), the attention one more; its plan (query rows per
 block, blocks per cluster) comes from :func:`attention_plan`, which also
 sets its limit on the number of frames T: an 8-row score tile of T floats
 per row must fit in a block's shared memory (about 5180 frames at Q=257;
@@ -17,7 +18,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,7 +26,7 @@ from fdbm_tpu_torch.ops import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "flat_group_norm": [_P] * 5 + [ctypes.c_longlong, _I, _I, _P],
+    "flat_group_norm_segments": [_P, _I, _I, _P],
     "frame_attention": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
     "frame_attention_smem": [_I] * 6,
     "frame_attention_max_clusters": [_I] * 6,
@@ -34,6 +35,10 @@ _RESTYPES = {"frame_attention_smem": ctypes.c_longlong}
 _EPS = 1e-5
 
 NormParams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# One map of flat_group_norms: (x, alpha, gamma, beta, width).
+NormMap = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]
+_WIDTHS = (1, 2, 4, 8, 16, 32, 64)
+_MAX_MAPS = 3  # csrc/attention.cu: GN_MAX_SEGS
 
 
 # The attention kernel's layout constants (csrc/attention.cu: AT_*) and the
@@ -213,6 +218,16 @@ def _check(fn: str, name: str, t: torch.Tensor, device, shape=None) -> None:
         raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def _check_norm_map(fn: str, x, alpha, gamma, beta, width: int, n_head: int, dev) -> None:
+    if width not in _WIDTHS or x.shape[-1] % (n_head * width):
+        raise ValueError(f"{fn}: width {width} must be a power of two <= 64 and divide "
+                         f"the lanes {x.shape[-1]} in groups of {n_head} heads")
+    _check(fn, "x", x, dev)
+    _check(fn, "alpha", alpha, dev, (n_head, 1))
+    _check(fn, "gamma", gamma, dev, (n_head, width))
+    _check(fn, "beta", beta, dev, (n_head, width))
+
+
 def flat_group_norm(x: torch.Tensor, alpha: torch.Tensor, gamma: torch.Tensor,
                     beta: torch.Tensor, width: int) -> torch.Tensor:
     """PReLU + per-group affine norm on a flat ``[B, T, L]`` feature map.
@@ -222,46 +237,72 @@ def flat_group_norm(x: torch.Tensor, alpha: torch.Tensor, gamma: torch.Tensor,
     biased two-pass variance, eps 1e-5 inside the root; ``alpha`` ``[H, 1]``
     is the per-head PReLU slope and ``gamma``/``beta`` ``[H, width]`` the
     affine parameters, as ``_AllHeadPReLULayerNorm`` holds them. ``width``
-    must be a power of two up to 64. The kernel has no backward: on a CUDA
-    tensor this raises if an input requires grad.
+    must be a power of two up to 64. :func:`flat_group_norms` with one map:
+    on a CUDA tensor one launch, which has no backward (this raises if an
+    input requires grad).
     """
-    if x.device.type == "cpu":
-        return flat_group_norm_plain(x, alpha, gamma, beta, width)
-    if x.device.type != "cuda":
-        raise ValueError(f"flat_group_norm: unsupported device {x.device}")
-    n_head = gamma.shape[0]
-    if width not in (1, 2, 4, 8, 16, 32, 64) or x.shape[-1] % (n_head * width):
-        raise ValueError(f"flat_group_norm: width {width} must be a power of two "
-                         f"<= 64 and divide the lanes {x.shape[-1]} in groups of "
-                         f"{n_head} heads")
-    dev = x.device
-    _build.refuse_grad("flat_group_norm", x, alpha, gamma, beta)
-    _check("flat_group_norm", "x", x, dev)
-    _check("flat_group_norm", "alpha", alpha, dev, (n_head, 1))
-    _check("flat_group_norm", "gamma", gamma, dev, (n_head, width))
-    _check("flat_group_norm", "beta", beta, dev, (n_head, width))
-    with torch.cuda.device(dev):
-        out = torch.empty_like(x)
-        lib = _build.load("attention", _SIGNATURES, _RESTYPES)
-        code = lib.flat_group_norm(
-            x.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            x.numel(), n_head, width, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "flat_group_norm")
-    flat_group_norm.launches += 1
-    return out
+    return flat_group_norms([(x, alpha, gamma, beta, width)])[0]
 
 
 flat_group_norm.launches = 0
 
 
+def flat_group_norms_plain(maps: Sequence[NormMap]) -> List[torch.Tensor]:
+    """Plain PyTorch version of :func:`flat_group_norms`: one
+    :func:`flat_group_norm_plain` a map."""
+    return [flat_group_norm_plain(x, alpha, gamma, beta, width)
+            for x, alpha, gamma, beta, width in maps]
+
+
+def flat_group_norms(maps: Sequence[NormMap]) -> List[torch.Tensor]:
+    """:func:`flat_group_norm` of up to three maps in one launch: the q, k
+    and v of one attention call, each ``(x, alpha, gamma, beta, width)``
+    with the same number of heads H and its own width; ``x`` may keep its
+    own shape (``[B, T, Q, H*width]``), as only its last axis, a multiple
+    of H*width, and its layout matter. The launch counts once on
+    ``flat_group_norm.launches``. On CPU tensors the plain version, one map
+    at a time.
+
+    This wrapper runs before every attention call of the serving path, and
+    its host work costs more than the kernel (about 6 us on the H100 for
+    the main path's three maps), so the checks are one pass over the
+    twelve tensors; only a failing call pays for naming the culprit."""
+    x0 = maps[0][0]
+    if x0.device.type == "cpu":
+        return flat_group_norms_plain(maps)
+    if x0.device.type != "cuda":
+        raise ValueError(f"flat_group_norms: unsupported device {x0.device}")
+    dev = x0.device
+    if not 1 <= len(maps) <= _MAX_MAPS:
+        raise ValueError(f"flat_group_norms: 1 to {_MAX_MAPS} maps, got {len(maps)}")
+    n_head = maps[0][2].shape[0]
+    tensors = [t for m in maps for t in m[:4]]
+    _build.refuse_grad("flat_group_norms", *tensors)
+    if any(w not in _WIDTHS or x.shape[-1] % (n_head * w) or a.shape != (n_head, 1)
+           or g.shape != (n_head, w) or b.shape != (n_head, w) for x, a, g, b, w in maps) or \
+            any(t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.data_ptr() % 16 for t in tensors):
+        for m in maps:
+            _check_norm_map("flat_group_norms", *m, n_head, dev)
+    with torch.cuda.device(dev):
+        outs = [torch.empty_like(m[0]) for m in maps]
+        desc = []
+        for (x, alpha, gamma, beta, width), out in zip(maps, outs):
+            desc += (x.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                     out.data_ptr(), x.numel(), width)
+        lib = _build.load("attention", _SIGNATURES, _RESTYPES)
+        code = lib.flat_group_norm_segments((ctypes.c_longlong * len(desc))(*desc), len(maps),
+                                            n_head, torch._C._cuda_getCurrentRawStream(dev.index))
+    _build.check(code, "flat_group_norms")
+    flat_group_norm.launches += 1
+    return outs
+
+
 def _normed(q, k, v, n_head, e_dim, norms, norm_fn):
-    b, t_len, q_bins, _ = q.shape
-    d_dim = v.shape[-1] // n_head
-    flat = lambda a: a.reshape(b, t_len, -1)
-    qn = norm_fn(flat(q), *norms[0], width=e_dim).reshape(q.shape)
-    kn = norm_fn(flat(k), *norms[1], width=e_dim).reshape(k.shape)
-    vn = norm_fn(flat(v), *norms[2], width=d_dim).reshape(v.shape)
-    return qn, kn, vn
+    """q, k, v through ``norm_fn`` (:func:`flat_group_norms` or its plain
+    version) in their own shapes."""
+    widths = (e_dim, e_dim, v.shape[-1] // n_head)
+    return tuple(norm_fn([(a, *p, w) for a, p, w in zip((q, k, v), norms, widths)]))
 
 
 def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -269,7 +310,7 @@ def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           norms: Optional[Sequence[NormParams]] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`frame_attention`."""
     if norms is not None:
-        q, k, v = _normed(q, k, v, n_head, e_dim, norms, flat_group_norm_plain)
+        q, k, v = _normed(q, k, v, n_head, e_dim, norms, flat_group_norms_plain)
     b, t_len, q_bins, _ = q.shape
     d_dim = v.shape[-1] // n_head
     q5 = q.reshape(b, t_len, q_bins, n_head, e_dim)
@@ -291,13 +332,14 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       n_head: H; e_dim: E. Scale 1/sqrt(E*Q).
       norms: optional ``((alpha, gamma, beta),) * 3`` for q, k, v. When
         given, q, k, v are the raw projector outputs and
-        :func:`flat_group_norm` applies PReLU + per-head norm to each first.
+        :func:`flat_group_norms` applies PReLU + per-head norm to the three
+        first, in one launch.
 
     Returns:
       ``[B, T, Q, H*D]``: per head softmax(Q K^T * scale) V, channels
-      merged h-slow, d-fast. One kernel launch; no ``[B, H, T, T]`` scores
-      exist in device memory. The kernel has no backward: on a CUDA tensor
-      this raises if an input requires grad.
+      merged h-slow, d-fast. One kernel launch (and one for the norms);
+      no ``[B, H, T, T]`` scores exist in device memory. The kernel has no
+      backward: on a CUDA tensor this raises if an input requires grad.
     """
     if q.device.type == "cpu":
         return frame_attention_plain(q, k, v, n_head, e_dim, norms)
@@ -305,7 +347,7 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"frame_attention: unsupported device {q.device}")
     _build.refuse_grad("frame_attention", q, k, v, *(t for p in norms or () for t in p))
     if norms is not None:
-        q, k, v = _normed(q, k, v, n_head, e_dim, norms, flat_group_norm)
+        q, k, v = _normed(q, k, v, n_head, e_dim, norms, flat_group_norms)
     b, t_len, q_bins, he = q.shape
     hd = v.shape[-1]
     if he != n_head * e_dim or hd % n_head:

@@ -7,10 +7,18 @@
 //   per-group affine norm over aligned runs of W lanes of x [rows, L]
 //   (groups cycle over the H heads), fp32 two-pass biased variance, eps
 //   1e-5 inside the root. Bound by bytes: each element is read once and
-//   written once. Design: one thread per group keeps the group's W values
-//   in registers (vector loads for W >= 2), so the kernel is a single
-//   coalesced streaming pass; the TPU's lane-roll butterfly has no
-//   counterpart because a thread owns its whole group.
+//   written once (at the main path's shape the q, k and v maps of one
+//   attention call are 25.4 MB, 7.6 us at 3.35 TB/s), and at that size by
+//   the launch as much: one map alone is a few microseconds of traffic.
+//   Design: one launch normalizes all the maps of one attention call
+//   (norm_segments_kernel; up to three segments, the blocks that fill the
+//   card split over them in proportion to their sizes). Every thread moves
+//   16 bytes at a time: at W = 1 or 2 a float4 holds 4 / W groups; at W >= 4
+//   a group is W / 4 neighbouring lanes, their sums joined by xor shuffles
+//   (the TPU's lane-roll butterfly, within a warp). A grid stride that is a
+//   multiple of the H * W lanes of a period keeps each thread on the same
+//   lanes of the period, so its PReLU slope, gamma and beta sit in
+//   registers for the whole pass.
 //
 // frame_attention (_attn_kernel): per batch and head h,
 //   S[t, u] = scale * sum_{q, e} Q[t, q, h, e] K[u, q, h, e],
@@ -50,64 +58,174 @@
 
 #include <algorithm>
 #include <cmath>
+#include <cstdint>
+#include <numeric>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 // ---- flat_group_norm ------------------------------------------------------------
+constexpr int GN_THREADS = 256;
+constexpr int GN_MAX_SEGS = 3;
+constexpr int GN_DESC = 7;  // x, alpha, gamma, beta, out, elements, width
+constexpr float GN_EPS = 1e-5f;
+
+// One map of a launch: x and out [rows, L] (L a multiple of n_head * width),
+// alpha [H], gamma and beta [H][width]; blocks [block0, block0 + blocks).
+struct NormSeg {
+  const float* x;
+  const float* alpha;
+  const float* gamma;
+  const float* beta;
+  float* out;
+  long long n;  // elements, a multiple of width
+  int width;
+  int block0, blocks;
+};
+
+struct NormSegs {
+  NormSeg seg[GN_MAX_SEGS];
+  int count, n_head;
+};
+
+__device__ __forceinline__ float prelu(float v, float a) { return v >= 0.f ? v : a * v; }
+
+// W >= 4: a group is W / 4 neighbouring lanes of one warp, a float4 each,
+// its sums joined by xor shuffles. The thread's offset within the H * W
+// lanes of a period is the same at every stride (the wrapper makes 4 x the
+// stride a multiple of H * W), so its slope, gamma and beta are loaded once.
+// The loop runs while the warp's first float4 is in the map, so every lane
+// of a warp takes part in every shuffle.
 template <int W>
-__global__ void group_norm_kernel(const float* __restrict__ x, const float* __restrict__ alpha,
-                                  const float* __restrict__ gamma, const float* __restrict__ beta,
-                                  float* __restrict__ out, long long n_groups, int n_head,
-                                  float eps) {
-  const long long gi = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gi >= n_groups) return;
-  const int head = (int)(gi % n_head);
-  const float* src = x + gi * W;
-  float v[W];
-  if constexpr (W % 4 == 0) {
+__device__ __forceinline__ void norm_lanes(const NormSeg& g, int H, long long t,
+                                           long long stride) {
+  constexpr int G = W / 4;
+  const long long n4 = g.n / 4;
+  const int off = static_cast<int>((4 * t) % (H * W));  // head * W + 4 * (lane of the group)
+  const float a = g.alpha[off / W];
+  const float4 gm = *reinterpret_cast<const float4*>(g.gamma + off);
+  const float4 bt = *reinterpret_cast<const float4*>(g.beta + off);
+  const float4* x4 = reinterpret_cast<const float4*>(g.x);
+  float4* o4 = reinterpret_cast<float4*>(g.out);
+  for (long long i = t; i - (threadIdx.x & 31) < n4; i += stride) {
+    const bool ok = i < n4;
+    float4 v = ok ? x4[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+    v = make_float4(prelu(v.x, a), prelu(v.y, a), prelu(v.z, a), prelu(v.w, a));
+    float s = (v.x + v.y) + (v.z + v.w);
 #pragma unroll
-    for (int e = 0; e < W; e += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(src + e);
-      v[e] = t.x; v[e + 1] = t.y; v[e + 2] = t.z; v[e + 3] = t.w;
-    }
-  } else if constexpr (W == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(src);
-    v[0] = t.x; v[1] = t.y;
-  } else {
-    v[0] = src[0];
+    for (int m = 1; m < G; m <<= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+    const float mu = s * (1.f / W);
+    v = make_float4(v.x - mu, v.y - mu, v.z - mu, v.w - mu);
+    float q = v.x * v.x;
+    q = fmaf(v.y, v.y, q);
+    q = fmaf(v.z, v.z, q);
+    q = fmaf(v.w, v.w, q);
+#pragma unroll
+    for (int m = 1; m < G; m <<= 1) q += __shfl_xor_sync(0xffffffffu, q, m);
+    const float inv = 1.f / sqrtf(q * (1.f / W) + GN_EPS);
+    if (ok)
+      o4[i] = make_float4(v.x * inv * gm.x + bt.x, v.y * inv * gm.y + bt.y,
+                          v.z * inv * gm.z + bt.z, v.w * inv * gm.w + bt.w);
   }
-  const float a = alpha[head];
-  float mu = 0.f;
-#pragma unroll
-  for (int e = 0; e < W; ++e) {
-    v[e] = v[e] >= 0.f ? v[e] : a * v[e];
-    mu += v[e];
-  }
-  mu *= 1.f / W;
-  float var = 0.f;
-#pragma unroll
-  for (int e = 0; e < W; ++e) {
-    v[e] -= mu;
-    var = fmaf(v[e], v[e], var);
-  }
-  const float inv = 1.f / sqrtf(var * (1.f / W) + eps);
-  float* dst = out + gi * W;
-#pragma unroll
-  for (int e = 0; e < W; ++e) dst[e] = v[e] * inv * gamma[head * W + e] + beta[head * W + e];
 }
 
+// W = 1 or 2: a float4 holds 4 / W whole groups, whose heads are the same
+// at every stride (as above). A map whose size is no multiple of 4 ends in
+// a partial float4, read and written element by element.
 template <int W>
-cudaError_t launch_group_norm(const float* x, const float* alpha, const float* gamma,
-                              const float* beta, float* out, long long n_elems, int n_head,
-                              cudaStream_t stream) {
-  const long long n_groups = n_elems / W;
-  const int threads = 256;
-  const long long blocks = (n_groups + threads - 1) / threads;
-  group_norm_kernel<W><<<(unsigned)blocks, threads, 0, stream>>>(x, alpha, gamma, beta, out,
-                                                                 n_groups, n_head, 1e-5f);
-  return cudaGetLastError();
+__device__ __forceinline__ void norm_groups(const NormSeg& g, int H, long long t,
+                                            long long stride) {
+  constexpr int NG = 4 / W;
+  float a[NG], gm[4], bt[4];
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    const int head = static_cast<int>((4 * t / W + j) % H);
+    a[j] = g.alpha[head];
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      gm[j * W + e] = g.gamma[head * W + e];
+      bt[j * W + e] = g.beta[head * W + e];
+    }
+  }
+  for (long long i = t; 4 * i < g.n; i += stride) {
+    const long long e0 = 4 * i;
+    const bool whole = e0 + 4 <= g.n;
+    float v[4];
+    if (whole) {
+      const float4 u = reinterpret_cast<const float4*>(g.x)[i];
+      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = e0 + k < g.n ? g.x[e0 + k] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      float mu = 0.f;
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        v[j * W + e] = prelu(v[j * W + e], a[j]);
+        mu += v[j * W + e];
+      }
+      mu *= 1.f / W;
+      float q = 0.f;
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        v[j * W + e] -= mu;
+        q = fmaf(v[j * W + e], v[j * W + e], q);
+      }
+      const float inv = 1.f / sqrtf(q * (1.f / W) + GN_EPS);
+#pragma unroll
+      for (int e = 0; e < W; ++e) v[j * W + e] = v[j * W + e] * inv * gm[j * W + e] + bt[j * W + e];
+    }
+    if (whole) {
+      reinterpret_cast<float4*>(g.out)[i] = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (e0 + k < g.n) g.out[e0 + k] = v[k];
+    }
+  }
+}
+
+// Every map of one launch: a block belongs to one segment, and its threads
+// walk that map by float4s at a stride of the segment's threads. The
+// segments stay in the kernel's parameter space (__grid_constant__), read
+// in place.
+__global__ void __launch_bounds__(GN_THREADS)
+norm_segments_kernel(const __grid_constant__ NormSegs segs) {
+  int s = 0;
+  while (s + 1 < segs.count && static_cast<int>(blockIdx.x) >= segs.seg[s + 1].block0) ++s;
+  const NormSeg& g = segs.seg[s];
+  const long long t = static_cast<long long>(blockIdx.x - g.block0) * GN_THREADS + threadIdx.x;
+  const long long stride = static_cast<long long>(g.blocks) * GN_THREADS;
+  const int H = segs.n_head;
+  switch (g.width) {
+    case 1: norm_groups<1>(g, H, t, stride); break;
+    case 2: norm_groups<2>(g, H, t, stride); break;
+    case 4: norm_lanes<4>(g, H, t, stride); break;
+    case 8: norm_lanes<8>(g, H, t, stride); break;
+    case 16: norm_lanes<16>(g, H, t, stride); break;
+    case 32: norm_lanes<32>(g, H, t, stride); break;
+    case 64: norm_lanes<64>(g, H, t, stride); break;
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The card's blocks of norm_segments_kernel at once (SMs x blocks an SM).
+int norm_resident_blocks() {
+  static int cached[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && cached[dev]) return cached[dev];
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, norm_segments_kernel, GN_THREADS,
+                                                    0) != cudaSuccess)
+    return 0;
+  if (dev < 64) cached[dev] = sms * per_sm;
+  return sms * per_sm;
 }
 
 // ---- frame_attention ----------------------------------------------------------------
@@ -494,21 +612,54 @@ cudaError_t attn_launch_config(AttnLaunch& L, const AttnPlan& p, int D, dim3 gri
 
 extern "C" {
 
-// x, out [rows, L] with L a multiple of width * n_head; alpha [H],
-// gamma/beta [H, width]; width a power of two up to 64.
-int flat_group_norm(const float* x, const float* alpha, const float* gamma, const float* beta,
-                    float* out, long long n_elems, int n_head, int width, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  switch (width) {
-    case 1: return launch_group_norm<1>(x, alpha, gamma, beta, out, n_elems, n_head, stream);
-    case 2: return launch_group_norm<2>(x, alpha, gamma, beta, out, n_elems, n_head, stream);
-    case 4: return launch_group_norm<4>(x, alpha, gamma, beta, out, n_elems, n_head, stream);
-    case 8: return launch_group_norm<8>(x, alpha, gamma, beta, out, n_elems, n_head, stream);
-    case 16: return launch_group_norm<16>(x, alpha, gamma, beta, out, n_elems, n_head, stream);
-    case 32: return launch_group_norm<32>(x, alpha, gamma, beta, out, n_elems, n_head, stream);
-    case 64: return launch_group_norm<64>(x, alpha, gamma, beta, out, n_elems, n_head, stream);
-    default: return cudaErrorInvalidValue;
+// n_seg maps in one launch, desc [n_seg][7]: x, alpha, gamma, beta and out
+// (device addresses), elements, width. Each map's x and out are [rows, L]
+// with L a multiple of width * n_head, alpha [H], gamma and beta [H, width];
+// width a power of two up to 64; x, out, gamma and beta on 16-byte
+// boundaries. The blocks that fill the card once are split over the maps in
+// proportion to their sizes, each map's count rounded up so that 4 x its
+// threads are a multiple of n_head * width (and no more than one float4 a
+// thread needs).
+int flat_group_norm_segments(const long long* desc, int n_seg, int n_head, void* stream_ptr) {
+  if (n_seg < 1 || n_seg > GN_MAX_SEGS || n_head < 1) return cudaErrorInvalidValue;
+  NormSegs segs = {};
+  segs.count = n_seg;
+  segs.n_head = n_head;
+  long long total = 0;
+  for (int s = 0; s < n_seg; ++s) {
+    const long long* d = desc + GN_DESC * s;
+    NormSeg& g = segs.seg[s];
+    g.x = reinterpret_cast<const float*>(d[0]);
+    g.alpha = reinterpret_cast<const float*>(d[1]);
+    g.gamma = reinterpret_cast<const float*>(d[2]);
+    g.beta = reinterpret_cast<const float*>(d[3]);
+    g.out = reinterpret_cast<float*>(d[4]);
+    g.n = d[5];
+    g.width = static_cast<int>(d[6]);
+    const int w = g.width;
+    if (w < 1 || w > 64 || (w & (w - 1)) || g.n < 1 || g.n % w || !aligned16(g.x) ||
+        !aligned16(g.out) || !aligned16(g.gamma) || !aligned16(g.beta))
+      return cudaErrorInvalidValue;
+    total += g.n;
   }
+  const int resident = norm_resident_blocks();
+  if (resident < 1) return cudaErrorInvalidValue;
+  int blocks = 0;
+  for (int s = 0; s < n_seg; ++s) {
+    NormSeg& g = segs.seg[s];
+    const long long period = (long long)n_head * g.width;
+    const long long unit = period / std::gcd(period, 4LL * GN_THREADS);
+    const long long need = ((g.n + 3) / 4 + GN_THREADS - 1) / GN_THREADS;
+    const long long share = (resident * g.n + total - 1) / total;
+    long long b = need < share ? need : share;
+    b = (b + unit - 1) / unit * unit;
+    if (blocks + b > 0x7fffffffLL) return cudaErrorInvalidValue;
+    g.block0 = blocks;
+    g.blocks = static_cast<int>(b);
+    blocks += g.blocks;
+  }
+  norm_segments_kernel<<<blocks, GN_THREADS, 0, static_cast<cudaStream_t>(stream_ptr)>>>(segs);
+  return cudaGetLastError();
 }
 
 // Dynamic shared memory of the attention plan (tr, ns), or -1 if it does not fit.

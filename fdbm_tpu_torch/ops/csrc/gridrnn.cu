@@ -1,14 +1,17 @@
 // TF-GridNet RNN path on the canvas: unfold(k=4) -> BiLSTM -> deconv(k=4)
 // -> overlap-add, for both directions, as two kernels; for serving (kernel
-// 1) and, with the stashes of its backward, for training (kernel 5).
+// 1), for the summed fold without a gradient (kernel 4) and, with the
+// stashes of its backward, for training (kernel 5).
 //
 // Replaces fdbm_tpu/ops/gridrnn.py:grid_rnn_seq1_pair (the Pallas
 // _canvas_kernel and its _advance_and_fold core), which does the whole path
 // per grid cell in VMEM, each step one product of [window | h] against the
-// stacked [W_ih; W_hh], and the forward of fdbm_tpu/ops/gridrnn_train.py:
-// grid_fold_train_pair (_fwd_call :217, _fwd_kernel), the same path on
-// sequence-major lines [S, lines, C] (the canvas with B = 1, P = lines)
-// with the per-direction folds and stashes. Shapes: x [B, S, P, C] with the
+// stacked [W_ih; W_hh]; fdbm_tpu/ops/gridrnn.py:grid_bilstm_fold (:217,
+// _grid_kernel), the same path on sequence-major lines [S, lines, C] (the
+// canvas with B = 1, P = lines) with both directions summed; and the
+// forward of fdbm_tpu/ops/gridrnn_train.py:grid_fold_train_pair (_fwd_call
+// :217, _fwd_kernel), the same lines with the per-direction folds and
+// stashes. Shapes: x [B, S, P, C] with the
 // sequence on axis 1 and P batch-like, so each (b, p) is one independent
 // line of S rows;
 // L = S - 3 unfold windows per line; w_ih [2, 4C, 4H] tap-major rows,
@@ -55,7 +58,9 @@
 //      from shared memory, writing each output row once, in canvas layout.
 // The hidden states cross device memory once (2 x lines x L x H floats).
 // The training shapes (524 or 526 lines a direction) run one wave of 66
-// clusters of 2 blocks of 16 lines (ops/gridrnn_train.py: train_fwd_plan).
+// clusters of 2 blocks of 16 lines, kernel 5 (ops/gridrnn_train.py:
+// train_fwd_plan) and kernel 4 (ops/gridrnn.py: fused_plan) alike; kernel 4
+// is kernel 1's kernel on those lines, the fold summing both directions.
 #include <cooperative_groups.h>
 
 #include "async_copy.cuh"
@@ -438,6 +443,29 @@ int gridrnn_seq1_pair(const float* x, const float* w_ih, const float* w_hh, cons
   if (err != cudaSuccess) return err;
   return launch_fold<false, false>(hs, H, wd, (long long)H * KS * C, KS * C, 1, outf, outb, B, S,
                                    P, C, stream);
+}
+
+// Kernel 4, the summed fold on sequence-major lines x [S, lines, C] (the
+// canvas with B = 1, P = lines), forward only: out [S, lines, C] = outf +
+// outb, no deconv bias. The serving recurrence (no stash, the fast cell),
+// then the fold with both directions summed. Scratch: hs [2, lines, L, H].
+// (cs, lines) is the recurrence's plan.
+int grid_bilstm_fold(const float* x, const float* w_ih, const float* w_hh, const float* bias,
+                     const float* wd, float* hs, float* out, int S, int n_lines, int C, int H,
+                     int cs, int lines, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (!shape_ok(S, C, H)) return cudaErrorInvalidValue;
+  FusedLaunch F;
+  cudaError_t err = fused_launch_config(F, C, H, cs, lines, false, (n_lines + lines - 1) / lines,
+                                        stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&F.cfg, F.fn, x, w_ih, w_hh, bias, hs, nullptr, nullptr, S, n_lines, C,
+                           H, n_lines, F.plan.uc, F.plan.wst, F.plan.lbp);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_fold<false, true>(hs, H, wd, (long long)H * KS * C, KS * C, 1, out, nullptr, 1, S,
+                                  n_lines, C, stream);
 }
 
 // Kernel 5, the training forward on sequence-major lines x [S, lines, C]

@@ -1,15 +1,13 @@
 // TF-GridNet RNN path on sequence-major lines, for training: the backward of
-// the fused unfold -> BiLSTM -> deconv -> fold (kernel 6), and the forward
-// alone with both directions summed (kernel 4). The training forward with
-// the stashes this backward reads (kernel 5) is kernel 1's fused cluster
-// recurrence with STASH set (gridrnn.cu: grid_fold_train_fwd).
+// the fused unfold -> BiLSTM -> deconv -> fold (kernel 6). The training
+// forward with the stashes this backward reads (kernel 5) is kernel 1's
+// fused cluster recurrence with STASH set (gridrnn.cu: grid_fold_train_fwd),
+// and the forward alone with both directions summed (kernel 4) is kernel 1's
+// (gridrnn.cu: grid_bilstm_fold).
 //
-// Replaces two Pallas kernels of the JAX package:
-//   grid_bilstm_fold (fdbm_tpu/ops/gridrnn.py:217, _grid_kernel): the
-//     summed fold, no stashes (the valid loss, under no gradient);
-//   grid_fold_train_pair's backward (gridrnn_train.py:508 _bwd_call,
-//     _bwd_kernel, _bwd_dir_sweep): dx and the gradients of w_ih, w_hh,
-//     bias and wd.
+// Replaces the Pallas kernel of grid_fold_train_pair's backward
+// (fdbm_tpu/ops/gridrnn_train.py:508 _bwd_call, _bwd_kernel,
+// _bwd_dir_sweep): dx and the gradients of w_ih, w_hh, bias and wd.
 // Shapes: x [S, lines, C] (the canvas of gridrnn_core.cuh with B = 1,
 // P = lines), L = S - 3, w_ih [2, 4C, 4H], w_hh [2, H, 4H], bias [2, 4H],
 // wd [2H, 4C]; per-position tensors [2][lines][L][width]. Every row of the
@@ -751,24 +749,6 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }  // namespace
 
 extern "C" {
-
-// grid_bilstm_fold: out [S, lines, C] = outf + outb, no deconv bias.
-// Scratch: xp [2, lines, L, 4H], hs [2, lines, L, H].
-int grid_bilstm_fold(const float* x, const float* w_ih, const float* w_hh, const float* bias,
-                     const float* wd, float* xp, float* hs, float* out, int S, int n_lines, int C,
-                     int H, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (!shape_ok(S, C, H)) return cudaErrorInvalidValue;
-  const int L = S - (KS - 1);
-  const int N = 4 * H;
-  cudaError_t err = launch_window_proj<false>(x, x, w_ih, (long long)KS * C * N, N, 1, bias, xp,
-                                              1, S, n_lines, C, N, stream);
-  if (err != cudaSuccess) return err;
-  err = launch_rec<false>(xp, w_hh, hs, nullptr, n_lines, L, H, stream);
-  if (err != cudaSuccess) return err;
-  return launch_fold<false, true>(hs, H, wd, (long long)H * KS * C, KS * C, 1, out, nullptr, 1, S,
-                                  n_lines, C, stream);
-}
 
 // Floats of the backward's workspace: the partial sums of both products.
 long long grid_fold_train_bwd_workspace(int S, int n_lines, int C, int H) {

@@ -3,13 +3,13 @@
 Port of ``fdbm_tpu/ops/gridrnn.py``: :func:`grid_rnn_seq1_pair` on the
 canvas (serving) and :func:`grid_bilstm_fold` on sequence-major lines (the
 training route's forward when no gradient is needed). On a CUDA tensor each
-launches hand-written kernels: ``csrc/gridrnn.cu`` (a cluster recurrence
-with the input projection fused in, then deconv + overlap-add; its clusters
-sized by :func:`fused_plan`) and ``csrc/gridrnn_train.cu`` (input
-projection, recurrence, deconv + overlap-add); on a CPU tensor it runs its
-``*_plain`` version, the same function in plain PyTorch. The source notes of
-the ``.cu`` files say what bounds the kernels on the H100 and how they are
-laid out. The differentiable twin is ``ops/gridrnn_train.py``.
+launches the hand-written kernels of ``csrc/gridrnn.cu``: a cluster
+recurrence with the input projection fused in, its clusters sized by
+:func:`fused_plan`, then deconv + overlap-add (per direction, or both
+directions summed for :func:`grid_bilstm_fold`); on a CPU tensor it runs
+its ``*_plain`` version, the same function in plain PyTorch. The source
+note of ``csrc/gridrnn.cu`` says what bounds the kernels on the H100 and
+how they are laid out. The differentiable twin is ``ops/gridrnn_train.py``.
 
 The plain LSTM recurrences, :func:`lstm_plain` (one direction) and
 :func:`bilstm_plain`, live here because the plain version needs them;
@@ -34,7 +34,8 @@ _SIGNATURES = {"gridrnn_seq1_pair": [_P] * 8 + [_I] * 7 + [_P],
                "gridrnn_fused_max_clusters": [_I] * 5,
                "gridrnn_fused_smem": [_I] * 4}
 _RESTYPES = {"gridrnn_fused_smem": ctypes.c_longlong}
-_FOLD_SIGNATURES = {"grid_bilstm_fold": [_P] * 8 + [_I] * 4 + [_P]}
+# Kernel 4 lives beside kernel 1, whose fused recurrence it runs.
+_FOLD_SIGNATURES = {"grid_bilstm_fold": [_P] * 7 + [_I] * 6 + [_P]}
 
 
 # The cluster kernels' plans: clusters of 1, 2, 4 or 8 blocks, within a
@@ -156,7 +157,8 @@ def _card_plan(device_index: int, lines: int, c: int, hidden: int) -> ClusterPla
 def fused_plan(lines: int, c: int, hidden: int,
                device: Optional[torch.device] = None) -> ClusterPlan:
     """:func:`plan_fused` with the card's counts, each queried once: the plan
-    :func:`grid_rnn_seq1_pair` launches for this shape."""
+    :func:`grid_rnn_seq1_pair` (``lines`` = B * P) and :func:`grid_bilstm_fold`
+    launch for this shape."""
     dev = torch.device(device if device is not None else "cuda")
     return _card_plan(dev.index if dev.index is not None else torch.cuda.current_device(),
                       lines, c, hidden)
@@ -327,8 +329,11 @@ def grid_bilstm_fold(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
 
     Returns:
       ``[S, lines, C]`` without the deconv bias, exact on every row (the
-      JAX kernel on rows [3, L-1]). Forward only: on a CUDA tensor this
-      raises if an input requires grad; the differentiable twin is
+      JAX kernel on rows [3, L-1]). On a CUDA tensor it runs kernel 1's
+      fused recurrence on the lines as a canvas with B = 1, P = lines, at
+      :func:`fused_plan`'s plan, and one fold summing both directions.
+      Forward only: on a CUDA tensor this raises if an input requires
+      grad; the differentiable twin is
       ``ops.gridrnn_train.grid_fold_train_pair``.
     """
     if x.device.type == "cpu":
@@ -340,16 +345,16 @@ def grid_bilstm_fold(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     s, lines, _ = x.shape
     length = s - (KS - 1)
     dev = x.device
+    cs, tile = fused_plan(lines, c, hidden, dev)[:2]
     with torch.cuda.device(dev):
-        xp = torch.empty((2, lines, length, 4 * hidden), device=dev, dtype=torch.float32)
         hs = torch.empty((2, lines, length, hidden), device=dev, dtype=torch.float32)
         out = torch.empty_like(x)
-        lib = _build.load("gridrnn_train", _FOLD_SIGNATURES)
+        lib = _build.load("gridrnn", _FOLD_SIGNATURES)
         code = lib.grid_bilstm_fold(
             x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), wd.data_ptr(),
-            xp.data_ptr(), hs.data_ptr(), out.data_ptr(), s, lines, c, hidden,
+            hs.data_ptr(), out.data_ptr(), s, lines, c, hidden, cs, tile,
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, "grid_bilstm_fold")
+    _build.check(code, f"grid_bilstm_fold (plan cs={cs}, lines={tile})")
     grid_bilstm_fold.launches += 1
     return out
 

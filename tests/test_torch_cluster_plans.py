@@ -1,6 +1,6 @@
 """The plans of the cluster kernels, held on the CPU (no card, no JAX):
-kernel 1's fused recurrence, kernel 9's reverse sweep, and the training
-pair's forward (kernel 5) and reverse sweep (kernel 6).
+kernel 1's fused recurrence (also kernel 4's), kernel 9's reverse sweep,
+and the training pair's forward (kernel 5) and reverse sweep (kernel 6).
 
 ``ops.gridrnn.plan_fused`` cuts a ``grid_rnn_seq1_pair`` call into clusters
 of blocks, ``ops.lstm.plan_sweep`` the reverse sweep of ``lstm_core_bwd``,
@@ -229,3 +229,34 @@ def test_train_plans_skip_plans_the_card_cannot_run():
         gridrnn_train.plan_train_fwd(524, 32, 100, lambda cs, lines: 0)
     with pytest.raises(ValueError, match="reverse sweep.*C=32, H=100"):
         gridrnn_train.plan_train_sweep(524, 32, 100, lambda cs, lines: 0)
+
+
+# -- kernel 4: the summed fold, kernel 1's recurrence on a training step's lines --
+
+@pytest.mark.parametrize("lines", [524, 526])
+def test_bilstm_fold_plan_is_one_wave_at_the_training_shapes(lines):
+    """The valid loss of a 5l32c100 step (B = 2, 256 frames) runs
+    grid_bilstm_fold on the intra path's 524 lines and the inter path's 526
+    a direction, at kernel 1's plan (no stash): on the H100's counts one
+    wave of 66 clusters of 2 blocks of 16 lines, one block on each SM."""
+    plan = gridrnn.plan_fused(lines, 32, 100, _fused_h100, "grid_bilstm_fold")
+    assert plan.clusters <= plan.max_clusters
+    assert (plan.cs, plan.lines, plan.clusters) == (2, 16, 66)
+    assert plan.clusters * plan.cs == gridrnn.SMS
+    # 8-line tiles would take two waves of the 66 clusters that run at once
+    assert 2 * math.ceil(lines / 8) > H100_FUSED[(2, 8)]
+
+
+@pytest.mark.parametrize("c", GATE_C)
+def test_every_width_inside_the_gate_has_a_bilstm_fold_plan(c):
+    """Every width of the gate has a plan of kernel 4 that fits a block, at
+    a partial tile (13 lines) and at both training shapes, whose tiles cover
+    every line of both directions."""
+    for hidden in GATE_H:
+        for lines in (13, 524, 526):
+            plan = gridrnn.plan_fused(lines, c, hidden, _any_card, "grid_bilstm_fold")
+            assert plan.smem_bytes <= SMEM and plan.threads <= 256, (c, hidden, lines)
+            assert plan.clusters == 2 * math.ceil(lines / plan.lines)
+            assert gridrnn.fused_layout(c, hidden, plan.cs, plan.lines) == (
+                plan.threads, plan.smem_bytes)
+

@@ -72,7 +72,9 @@ def test_grid_rnn_matches_plain(dev, b, s, p, c, hidden):
 
 
 @pytest.mark.parametrize("rows,q_bins,n_head,width", [
-    (3, 5, 4, 2), (2, 257, 4, 8), (7, 3, 2, 1), (1, 9, 4, 32)])
+    (3, 5, 4, 2), (2, 257, 4, 8), (7, 3, 2, 1), (1, 9, 4, 32),
+    (3, 5, 1, 1),     # 30 elements: the map ends in a partial float4
+    (5, 7, 3, 64)])
 def test_flat_group_norm_matches_plain(dev, rows, q_bins, n_head, width):
     rng = np.random.default_rng(1)
     x = _rand(rng, (2, rows, q_bins * n_head * width), 1.0, dev)
@@ -98,6 +100,51 @@ def test_frame_attention_matches_plain(dev, b, t, q_bins, n_head, e, c):
         got = attn_ops.frame_attention(q, k, v, n_head, e, norms=nm)
         want = attn_ops.frame_attention_plain(q, k, v, n_head, e, norms=nm)
         assert _rel(got, want) < 1e-4
+
+
+NORM_WIDTHS = (1, 2, 4, 8, 16, 32, 64)
+
+
+@pytest.mark.parametrize("n_head", [3, 4])
+@pytest.mark.parametrize("width", NORM_WIDTHS)
+def test_flat_group_norms_match_plain(dev, width, n_head):
+    """Three maps in one launch: unequal sizes that are no multiple of a
+    block's 256 float4s (the last one the main path's v at this width), a
+    second width in the middle map, three heads (a period of 3 x width
+    lanes) and four; each map against the plain version."""
+    rng = np.random.default_rng(7)
+    other = NORM_WIDTHS[(NORM_WIDTHS.index(width) + 3) % len(NORM_WIDTHS)]
+    maps = []
+    for (b, t, q_bins), w in (((1, 5, 3), width), ((2, 37, 11), other), ((1, 257, 257), width)):
+        maps.append((_rand(rng, (b, t, q_bins * n_head * w), 1.0, dev),
+                     _rand(rng, (n_head, 1), 0.3, dev), _rand(rng, (n_head, w), 1.0, dev),
+                     _rand(rng, (n_head, w), 1.0, dev), w))
+    n0 = attn_ops.flat_group_norm.launches
+    got = attn_ops.flat_group_norms(maps)
+    torch.cuda.synchronize()
+    assert attn_ops.flat_group_norm.launches == n0 + 1
+    for g, m in zip(got, maps):
+        assert g.shape == m[0].shape and g.data_ptr() % 16 == 0
+        assert _rel(g, attn_ops.flat_group_norm_plain(*m[:4], width=m[4])) < 1e-5
+    # one map, and two, through the same entry
+    for some in (maps[1:2], maps[:2]):
+        for g, m in zip(attn_ops.flat_group_norms(some), some):
+            assert _rel(g, attn_ops.flat_group_norm_plain(*m[:4], width=m[4])) < 1e-5
+
+
+def test_flat_group_norms_refuse_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(1, 3, 5 * 4 * 2, device=dev)
+    norm = (torch.zeros(4, 1, device=dev), torch.ones(4, 2, device=dev),
+            torch.zeros(4, 2, device=dev), 2)
+    with pytest.raises(ValueError, match="1 to 3 maps"):
+        attn_ops.flat_group_norms([(x, *norm)] * 4)
+    with pytest.raises(ValueError, match="power of two"):
+        attn_ops.flat_group_norms([(x, *norm), (x, *norm[:3], 12)])
+    shifted = torch.zeros(124, device=dev)[2:122].view(1, 3, 40)  # 8 bytes off
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        attn_ops.flat_group_norms([(x, *norm), (shifted, *norm)])
+    with pytest.raises(ValueError, match="shape"):
+        attn_ops.flat_group_norms([(x, norm[0], norm[1][:2], norm[2], 2)])
 
 
 def test_frame_attention_matches_plain_at_head_width_12(dev):
@@ -153,7 +200,8 @@ def test_small_backbone_kernels_match_plain_route(dev):
     with torch.no_grad():
         got = net(x, y, t)
         want = ref(x, y, t)
-    assert ops.launch_counts() == {"grid_rnn_seq1_pair": 4, "flat_group_norm": 6,
+    # per block: two RNN paths, one launch of the norms of q, k and v, one attention
+    assert ops.launch_counts() == {"grid_rnn_seq1_pair": 4, "flat_group_norm": 2,
                                    "frame_attention": 2, "grid_bilstm_fold": 0,
                                    "grid_fold_train_pair": 0, "grid_fold_train_pair_bwd": 0,
                                    "bilstm_fused_forward": 0, "lstm_core": 0,
@@ -247,6 +295,8 @@ def test_serving_wrappers_refuse_grad(dev):
             torch.ones(4, 2, device=dev), torch.zeros(4, 2, device=dev))
     with pytest.raises(RuntimeError, match="no backward"):
         attn_ops.flat_group_norm(q.detach().reshape(1, 4, 24), *norm, width=2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attn_ops.flat_group_norms([(q.detach().reshape(1, 4, 24), *norm, 2)])
     with torch.no_grad():  # the serving path runs under no_grad
         gridrnn.grid_rnn_seq1_pair(x, *w)
         attn_ops.frame_attention(q, q, v, 4, 2)
@@ -866,3 +916,67 @@ def test_train_plans_the_card_cannot_launch_are_refused(dev):
             cs, tile, stream)
         assert code != 0, (cs, tile)
     torch.cuda.synchronize()
+
+
+# -- kernel 4: the summed fold on kernel 1's fused recurrence --
+
+@pytest.mark.parametrize("s,lines,c,hidden", [
+    (23, 13, 32, 100),    # lines not a multiple of the tile
+    (23, 70, 32, 100),
+    (12, 13, 64, 128),    # the gate's corner: clusters of 4 or 8
+    (12, 70, 64, 128),
+    (17, 21, 8, 1),       # H = 1
+    (4, 13, 32, 100),     # S = 4: one window
+    (5, 70, 32, 100),     # S = 5: two windows
+    (5, 13, 64, 128),
+])
+def test_bilstm_fold_matches_plain_at_the_plans_edges(dev, s, lines, c, hidden):
+    """Kernel 4 at the card's plan (kernel 1's), every row against the
+    plain pipeline; one launch, and no buffer beside hs and the output (no
+    pre-activations in device memory)."""
+    rng = np.random.default_rng(44)
+    args = _rnn_args(rng, s, lines, c, hidden, dev)
+    with torch.no_grad():
+        gridrnn.grid_bilstm_fold(*args)  # builds, plans
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        n0 = gridrnn.grid_bilstm_fold.launches
+        got = gridrnn.grid_bilstm_fold(*args)
+        torch.cuda.synchronize()
+        used = torch.cuda.max_memory_allocated(dev) - base
+        assert gridrnn.grid_bilstm_fold.launches == n0 + 1
+        hs = 2 * lines * (s - 3) * hidden * 4
+        assert used <= args[0].numel() * 4 + hs + (2 << 20)
+        want = gridrnn.grid_bilstm_fold_plain(*args)
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("c,hidden", [(32, 100), (16, 24), (64, 128), (8, 1)])
+def test_bilstm_fold_matches_plain_on_every_plan(dev, c, hidden):
+    """Every plan (blocks per cluster, lines per tile) that fits a block,
+    forced through the entry on 21 lines (a partial tile); a plan that is
+    none is refused."""
+    from fdbm_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(45)
+    args = _rnn_args(rng, 9, 21, c, hidden, dev)
+    want = gridrnn.grid_bilstm_fold_plain(*args)
+    lib = _build.load("gridrnn", gridrnn._FOLD_SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plans = [(cs, t) for cs in gridrnn.CLUSTERS for t in gridrnn.FUSED_LINES
+             if gridrnn.fused_layout(c, hidden, cs, t)]
+    assert plans
+    for cs, tile in plans + [(3, 8), (2, 12)]:
+        hs = torch.empty(2, 21, 6, hidden, device=dev)
+        out = torch.full_like(args[0], float("nan"))
+        code = lib.grid_bilstm_fold(*(t.data_ptr() for t in args), hs.data_ptr(),
+                                    out.data_ptr(), 9, 21, c, hidden, cs, tile, stream)
+        if (cs, tile) not in plans:
+            assert code != 0, (cs, tile)
+            continue
+        assert code == 0, (cs, tile)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all(), (cs, tile)
+        assert _rel(out, want) < 1e-4, (cs, tile)

@@ -101,6 +101,24 @@ def test_flat_group_norm_plain_matches_jax_kernel(n_head, width, q_bins):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n_head,e,d", [(4, 2, 8), (2, 4, 16), (4, 1, 2)])
+def test_flat_group_norms_plain_match_jax_kernel(n_head, e, d):
+    """The three-map wrapper (the q, k and v of one attention call, one
+    launch on the card) on CPU tensors against three calls of the JAX
+    kernel; no launch is counted."""
+    rng = np.random.default_rng(7)
+    maps = [(_rand(rng, (2, 6, 5 * n_head * w)), _rand(rng, (n_head, 1), 0.3),
+             _rand(rng, (n_head, w)), _rand(rng, (n_head, w)), w) for w in (e, e, d)]
+    want = [jattn.flat_group_norm(jnp.asarray(x), alpha, gamma, beta, width=w)
+            for x, alpha, gamma, beta, w in maps]
+    n0 = pattn.flat_group_norm.launches
+    got = pattn.flat_group_norms([(*map(torch.as_tensor, m[:4]), m[4]) for m in maps])
+    assert pattn.flat_group_norm.launches == n0
+    for g, w, m in zip(got, want, maps):
+        assert g.shape == m[0].shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("fused_norms", [False, True])
 @pytest.mark.parametrize("b,t,q_bins,n_head,e,c", [(1, 6, 5, 4, 2, 32), (2, 9, 3, 2, 4, 16)])
 def test_frame_attention_plain_matches_jax_kernel(b, t, q_bins, n_head, e, c, fused_norms):

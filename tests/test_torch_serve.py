@@ -24,9 +24,9 @@ from fdbm_tpu import sampling as jsampling
 from fdbm_tpu.models import tfgridnet as jtfg
 from fdbm_tpu_torch import infer_single, ops
 from fdbm_tpu_torch import sampling as psampling
-from fdbm_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+from fdbm_tpu_torch.checkpoint import CheckpointManager, load_checkpoint, save_checkpoint
 from fdbm_tpu_torch.infer import bucket_length, pad_to
-from fdbm_tpu_torch.model import FDBM, FDBMConfig
+from fdbm_tpu_torch.model import FDBM, FDBMConfig, TrainState
 from fdbm_tpu_torch.models.tfgridnet import TFGridNet
 from fdbm_tpu_torch.utils.audio import read_wav, write_wav
 from fdbm_tpu_torch.utils.weights import tfgridnet_from_flax
@@ -202,6 +202,57 @@ def test_infer_single_cli_on_cpu(tmp_path):
         f"ckpt={ckpt}", f"noisy_file={noisy}", f"output_file={out}",
         f"N={N_STEPS}", "sampler_type=sde_ei"])
     np.testing.assert_array_equal(again, x_hat)
+
+
+@pytest.fixture(scope="module")
+def last_only_run(tmp_path_factory):
+    """A training run whose only slot is ``last`` (the port's trainer writes
+    no ``best_pesq``), its EMA weights apart from its parameters, a noisy
+    wav, and the wav served from it with ``--slot last``."""
+    tmp = tmp_path_factory.mktemp("last_only")
+    torch.manual_seed(0)
+    fdbm = FDBM(FDBMConfig(backbone="tfgridnet_4l32c80", n_fft=N_FFT, hop_length=HOP),
+                device="cpu")
+    state = TrainState(fdbm.dnn)
+    for v in state.ema.values():
+        v.add_(0.01)
+    CheckpointManager(str(tmp / "run" / "checkpoints")).save(fdbm, state)
+    assert sorted(os.listdir(tmp / "run" / "checkpoints")) == ["last.pt", "meta.json"]
+    noisy = str(tmp / "noisy.wav")
+    write_wav(noisy, (0.3 * np.random.default_rng(5).standard_normal(900)).astype(np.float32),
+              16000)
+    return tmp, noisy, _serve_slot(tmp, noisy, "run", ["--slot", "last"], "want.wav")
+
+
+def _serve_slot(tmp, noisy, ckpt, slot_args, name):
+    out = str(tmp / name)
+    infer_single.main(["-C", str(REPO / "configs" / "config_infer_single.yaml"), "--device",
+                       "cpu", *slot_args, f"ckpt={tmp / ckpt}", f"noisy_file={noisy}",
+                       f"output_file={out}", "N=2", "sampler_type=sde_ei"])
+    return read_wav(out)[0]
+
+
+@pytest.mark.parametrize("ckpt,slot_args", [
+    ("run", ["--slot", "best_pesq"]),               # configs/config_infer_single.yaml's slot
+    ("run/checkpoints", ["--slot", "best_si_sdr"]),
+    ("run/checkpoints/last", []),                   # a slot's path: its basename is the slot
+    ("run/checkpoints/best_pesq", ["--slot", "last"]),
+])
+def test_missing_slot_and_slot_path_serve_last(last_only_run, capsys, ckpt, slot_args):
+    """A slot that was never written serves ``last``, and a slot may be named
+    by its path without ``.pt``, as the JAX CLI does (infer_single.py:33-49):
+    the same wav as ``--slot last``."""
+    tmp, noisy, want = last_only_run
+    got = _serve_slot(tmp, noisy, ckpt, slot_args, "got.wav")
+    np.testing.assert_array_equal(got, want)
+    assert ("serving 'last'" in capsys.readouterr().err) == ("last" not in ckpt)
+
+
+def test_checkpoint_dir_without_slots_raises(tmp_path):
+    (tmp_path / "run" / "checkpoints").mkdir(parents=True)
+    for path in ("run", "run/checkpoints", "run/checkpoints/last", "run/checkpoints/best_pesq"):
+        with pytest.raises(FileNotFoundError, match="no checkpoint slot"):
+            load_checkpoint(str(tmp_path / path), device="cpu", slot="best_pesq")
 
 
 _FORBIDDEN = ("jax", "flax", "optax", "orbax", "fdbm_tpu")
