@@ -9,9 +9,20 @@ and drives the port's paths at the full width of two TF-GridNets:
 * ``tfgridnet_5l32c100`` (5 blocks, C=32, H=100), inside the fused RNN
   kernels' gate. Serving: each serving kernel against its plain PyTorch
   version at the shapes of the path (the RNN path with its plan and its two
-  stages), the backbone against its all-plain
-  route, three files through ``fdbm_tpu_torch.infer_single``, one profiled
-  request. Training: each training kernel (the summed fold, the stashing
+  stages), and again at the folder's batch shape (``kernel_b16``: 16 rows
+  of one 4.096 s chunk, kernel 1's plan of many waves), the backbone
+  against its all-plain route, a 2-step serve against the plain route at
+  B=1 and at B=16 (``serve_batch_check``, with one row of the batch against
+  the same row served alone), three files through
+  ``fdbm_tpu_torch.infer_single``, one profiled request; the folder CLI
+  ``fdbm_tpu_torch.infer_folder`` at --batch_size 16 on 40 files of 1-12 s
+  and one of 35 s (``serve_folder``: pooled 4.096 s chunks, 30-step
+  sde_ei, with one profiled batch) and on eight of them whole
+  (``serve_folder_whole``, --chunk_seconds 0); the ``pc`` and ``ode_int``
+  samplers against the plain route (``samplers``). Predictive mode:
+  ``fdbm_tpu_torch.train`` on ``configs/config_predictive.yaml`` for a few
+  steps, its last slot served through the folder CLI (``predictive``).
+  Training: each training kernel (the summed fold, the stashing
   forward and its backward; the last two with their plans and stages, the
   backward checked for equal bits in two calls) against its plain version
   at the shapes of a step (B=2, 256 frames), one training step's loss and
@@ -40,7 +51,10 @@ fp32 throughout with TF32 off. Tolerances (relative L2): 1e-4 for the RNN
 paths, the LSTMs and the attention (long fp32 accumulation chains, summed
 in another order than the plain version), 1e-5 for the norm (a few terms
 per group), 1e-4 for the backbones and the 2-step serves against the plain
-route; 1e-3 norm-relative for each gradient of the training kernels and for
+route (at B=16 also one row against the same row alone), 1e-4 for the pc
+sampler's first 2 steps and 1e-3 for ode_int's first 3 (adaptive steps
+decided on each route's own error norm; both samplers are chaotic on
+random weights after a few steps, ``samplers_phase``); 1e-3 norm-relative for each gradient of the training kernels and for
 every parameter's gradient of 5l32c100's training step (the JAX package's
 model-level gate, tests/test_gridrnn_train.py), 1e-5 for the step's loss.
 6l48c200's step is held to the same loss gate; its gradients (where fp32
@@ -1076,6 +1090,387 @@ def train_rate_phase(rng, dev, smi: str, backbone, phase: str = "train_rate"):
     return fdbm, state, batch, counts
 
 
+# -- the folder's batch shape and the serving surface of folders ---------------------
+
+# The folder CLI's batch: 16 rows of one pooled 4.096 s chunk (257 frames).
+FOLDER_BATCH = 16
+CHUNK_SAMPLES = 65536
+FOLDER_FILES, FOLDER_LONG_SECONDS = 40, 35.0
+FOLDER_N = 30
+# ode_int's attempted steps held against the plain route (samplers_phase).
+ODE_INT_STEPS = 3
+
+
+def kernel_b16_phase(rand, dev, w, c: int, hidden: int, n_head: int, e_dim: int) -> dict:
+    """Rows 1-3 at the folder's batch shape: kernel 1 on the canvas
+    [16, 263, 263, 32] (16 x 263 lines a direction, a plan of many waves),
+    the norms and the attention on [16, 257, 257, 8] (v [..., 32]), each
+    against its plain version at its row's tolerance. Returns the rows by
+    name for the summary's B=16 columns."""
+    from fdbm_tpu_torch.dsp import num_frames_for_length
+    from fdbm_tpu_torch.ops import attention as attn_ops, gridrnn
+
+    b = FOLDER_BATCH
+    frames = num_frames_for_length(CHUNK_SAMPLES, 512, 256)
+    q_bins = 257
+    s_len, p_len = q_bins + 6, frames + 6
+    length = s_len - 3
+    rows = {}
+    x = rand(b, s_len, p_len, c, s=0.5)
+    got = gridrnn.grid_rnn_seq1_pair(x, *w)
+    want = gridrnn.grid_rnn_seq1_pair_plain(x, *w)
+    err, abs_err = agreement([(g[:, 3:length], r[:, 3:length]) for g, r in zip(got, want)])
+    del got, want
+    lines = b * p_len
+    plan = gridrnn.fused_plan(lines, c, hidden)
+    flops = 2 * lines * length * 2 * (4 * c * 4 * hidden + hidden * 4 * hidden + hidden * 4 * c)
+    nbytes = 4 * (3 * x.numel() + sum(t.numel() for t in w))
+    rows["grid_rnn_seq1_pair"] = dict(
+        rel_err=err, tol=1e-4, max_abs_err=abs_err, shape=list(x.shape), plan=plan._asdict(),
+        waves=math.ceil(plan.clusters / plan.max_clusters),
+        stages_ms=kernel_times(lambda: gridrnn.grid_rnn_seq1_pair(x, *w),
+                               {"recurrence": "gridrnn_fused_kernel", "fold": "fold_kernel"}),
+        ms=timed_ms(lambda: gridrnn.grid_rnn_seq1_pair(x, *w), 5),
+        plain_ms=timed_ms(lambda: gridrnn.grid_rnn_seq1_pair_plain(x, *w), 1),
+        bound=bound(flops, nbytes), library_ms=None)
+    del x
+
+    d_dim = c // n_head
+    q = rand(b, frames, q_bins, n_head * e_dim)
+    k = rand(b, frames, q_bins, n_head * e_dim)
+    v = rand(b, frames, q_bins, c)
+    norms = tuple((rand(n_head, 1, s=0.3), rand(n_head, wd), rand(n_head, wd))
+                  for wd in (e_dim, e_dim, d_dim))
+    maps = [(a, *p, wd) for a, p, wd in zip((q, k, v), norms, (e_dim, e_dim, d_dim))]
+    plain = lambda: [attn_ops.flat_group_norm_plain(*m[:4], width=m[4]) for m in maps]
+    err, abs_err = agreement(list(zip(attn_ops.flat_group_norms(maps), plain())))
+    elems = sum(m[0].numel() for m in maps)
+    rows["flat_group_norm"] = dict(
+        rel_err=err, tol=1e-5, max_abs_err=abs_err, shape=[list(m[0].shape) for m in maps],
+        ms=timed_ms(lambda: attn_ops.flat_group_norms(maps)),
+        device_ms=kernel_times(lambda: attn_ops.flat_group_norms(maps),
+                               {"norm": "norm_segments_kernel"})["norm"],
+        plain_ms=timed_ms(plain, 3), bound=bound(10 * elems, 2 * 4 * elems), library_ms=None)
+
+    got = attn_ops.frame_attention(q, k, v, n_head, e_dim)
+    want = attn_ops.frame_attention_plain(q, k, v, n_head, e_dim)
+    err, abs_err = agreement([(got, want)])
+    scale = 1.0 / math.sqrt(e_dim * q_bins)
+    to_heads = lambda t, w_: t.reshape(b, frames, q_bins, n_head, w_).permute(
+        0, 3, 1, 2, 4).reshape(b, n_head, frames, q_bins * w_)
+    qh, kh, vh = to_heads(q, e_dim), to_heads(k, e_dim), to_heads(v, d_dim)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+    t2 = b * n_head * frames * frames
+    aplan = attn_ops.card_attention_plan(b, frames, q_bins, n_head, e_dim, d_dim)
+    rows["frame_attention"] = dict(
+        rel_err=err, tol=1e-4, max_abs_err=abs_err, shape=[list(q.shape), list(v.shape)],
+        plan=aplan._asdict(),
+        waves=math.ceil(aplan.blocks / (aplan.slices * aplan.max_clusters)),
+        ms=timed_ms(lambda: attn_ops.frame_attention(q, k, v, n_head, e_dim)),
+        plain_ms=timed_ms(lambda: attn_ops.frame_attention_plain(q, k, v, n_head, e_dim), 3),
+        bound=bound(2 * t2 * q_bins * (e_dim + d_dim) + 5 * t2,
+                    4 * (q.numel() + k.numel() + 2 * v.numel())),
+        library_ms=timed_ms(sdpa))
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+        emit({"phase": "kernel_b16", "name": name, "batch": b, **r})
+        if not r["rel_err"] < r["tol"]:
+            fail(f"{name} at B={b} disagrees with its plain version: rel {r['rel_err']}")
+    return rows
+
+
+def serve_batch_check(fdbm, plain, dev) -> None:
+    """A 2-step sde_ei at the folder's batch shape (16 rows of 4.096 s) with
+    injected noise: the kernel route against the plain route, and one row of
+    the batch against the same row served alone at B=1 on the same noise
+    (a plan that mixed or dropped lines of the batch would show here)."""
+    from fdbm_tpu_torch import ops
+
+    rng = np.random.default_rng(SEED + 16)
+    audio = torch.as_tensor((0.3 * rng.standard_normal((FOLDER_BATCH, CHUNK_SAMPLES))).astype(
+        np.float32), device=dev)
+    y = fdbm.audio_to_spec(audio)
+    shape = (3, *y.shape)
+    noise = torch.complex(torch.as_tensor(rng.standard_normal(shape).astype(np.float32)),
+                          torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+                          ).to(dev) / math.sqrt(2.0)
+    run = lambda model, yy, nn: model.enhance_spec(yy, sampler_type="sde_ei", N=2, noise=nn)
+    ops.reset_launch_counts()
+    got = run(fdbm, y, noise)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    err = rel_err(got, run(plain, y, noise))
+    row = 9
+    row_err = rel_err(got[row:row + 1], run(fdbm, y[row:row + 1], noise[:, row:row + 1]))
+    emit({"phase": "serve_batch_check", "sampler": "sde_ei", "N": 2, "batch": FOLDER_BATCH,
+          "frames": y.shape[-1], "rel_err": err, "row": row, "row_rel_err": row_err,
+          "tol": 1e-4, "launches": counts})
+    expected = {"grid_rnn_seq1_pair": 2 * 2 * RNN_BLOCKS, "flat_group_norm": 2 * RNN_BLOCKS,
+                "frame_attention": 2 * RNN_BLOCKS}
+    if not (err < 1e-4 and row_err < 1e-4) or any(counts[k] != n for k, n in expected.items()):
+        fail(f"serve at B={FOLDER_BATCH}: rel {err}, row {row} alone rel {row_err}, "
+             f"launches {counts} (expected {expected})")
+
+
+@contextlib.contextmanager
+def counting_batches():
+    """Counts the batches ``FDBM.enhance_batch`` enhances while it is open."""
+    from fdbm_tpu_torch.model import FDBM
+
+    calls = []
+    enhance = FDBM.enhance_batch
+
+    def counted(self, y_audio, *args, **kwargs):
+        calls.append(tuple(y_audio.shape))
+        return enhance(self, y_audio, *args, **kwargs)
+
+    FDBM.enhance_batch = counted
+    try:
+        yield calls
+    finally:
+        FDBM.enhance_batch = enhance
+
+
+def write_folder(root: str, seconds) -> dict:
+    """Noisy wavs of the given lengths under ``root`` (every fifth in a
+    subfolder); returns their samples by path relative to ``root``."""
+    from fdbm_tpu_torch.utils.audio import write_wav
+
+    rng = np.random.default_rng(SEED + 40)
+    lengths = {}
+    for i, s in enumerate(seconds):
+        rel = os.path.join("sub" if i % 5 == 4 else "", f"utt_{i:03d}.wav")
+        n = int(s * 16000)
+        wav = 0.1 * rng.standard_normal(n) + 0.3 * np.sin(np.arange(n) * rng.uniform(0.01, 0.1))
+        os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+        write_wav(os.path.join(root, rel), wav.astype(np.float32), 16000)
+        lengths[rel] = n
+    return lengths
+
+
+def profile_batch(fdbm) -> dict:
+    """Device busy time and idle share of one folder batch (16 rows of one
+    4.096 s chunk, sde_ei N=30) under torch.profiler, and its top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 17)
+    batch = torch.as_tensor((0.3 * rng.standard_normal((FOLDER_BATCH, CHUNK_SAMPLES))).astype(
+        np.float32), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    run = lambda: fdbm.enhance_batch(batch, gen, sampler_type="sde_ei", N=FOLDER_N)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms:
+        fail("profile_batch: the profiler recorded no device time")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    audio = FOLDER_BATCH * CHUNK_SAMPLES / 16000
+    return {"batch": FOLDER_BATCH, "samples": CHUNK_SAMPLES, "N": FOLDER_N, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
+            "audio_seconds_per_second": audio / (wall_ms / 1e3),
+            "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                             "ms": e.self_device_time_total / 1e3,
+                             "share_of_busy": e.self_device_time_total / 1e3 / busy_ms}
+                            for e in top]}
+
+
+def serve_folder(tmp: str, ckpt: str, name: str, seconds, chunk_seconds: str, smi: str,
+                 profile_fdbm=None) -> dict:
+    """The folder CLI (``fdbm_tpu_torch.infer_folder.main``) on a folder of
+    the given lengths, 30-step sde_ei at --batch_size 16: every file written
+    at its input length and finite, no failures, and per enhanced batch one
+    backbone call a step (10 RNN paths, 5 norms, 5 attentions each).
+    Returns the launches."""
+    from fdbm_tpu_torch import infer_folder, ops
+    from fdbm_tpu_torch.utils.audio import read_wav
+
+    src, dst = os.path.join(tmp, name), os.path.join(tmp, name + "_enhanced")
+    lengths = write_folder(src, seconds)
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                          "config_infer_folder.yaml")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with counting_batches() as batches, contextlib.redirect_stdout(io.StringIO()) as out:
+        stats = infer_folder.main(["-C", config, f"ckpt={ckpt}", f"test_dir={src}",
+                                   f"enhanced_dir={dst}", f"N={FOLDER_N}", "sampler_type=sde_ei",
+                                   "--batch_size", str(FOLDER_BATCH),
+                                   "--chunk_seconds", chunk_seconds])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    calls = FOLDER_N * len(batches)
+    expected = {"grid_rnn_seq1_pair": 2 * RNN_BLOCKS * calls, "flat_group_norm": RNN_BLOCKS * calls,
+                "frame_attention": RNN_BLOCKS * calls}
+    bad = []
+    for rel, n in lengths.items():
+        path = os.path.join(dst, rel)
+        if not os.path.exists(path):
+            bad.append((rel, "missing"))
+            continue
+        x, sr = read_wav(path)
+        if x.shape != (1, n) or sr != 16000 or not np.isfinite(x).all():
+            bad.append((rel, x.shape))
+    record = {"phase": name, "chunk_seconds": float(chunk_seconds), "batch_size": FOLDER_BATCH,
+              "sampler": "sde_ei", "N": FOLDER_N, "files": stats.files,
+              "failures": stats.failures, "audio_seconds": stats.audio_seconds,
+              "wall_seconds": stats.wall_seconds, "prewarm_seconds": stats.prewarm_seconds,
+              "read_seconds": stats.read_seconds, "enhance_seconds": stats.enhance_seconds,
+              "write_drain_seconds": stats.write_drain_seconds,
+              "audio_sec_per_sec": stats.throughput,
+              "steady_audio_sec_per_sec": stats.steady_throughput,
+              "batches": len(batches), "batch_shapes": sorted(set(batches)),
+              "launches": counts, "expected_launches": expected,
+              "cli": out.getvalue().strip().splitlines()[-1:], "nvidia_smi": smi}
+    if profile_fdbm is not None:
+        record["profiled_batch"] = profile_batch(profile_fdbm)
+    emit(record)
+    if bad or stats.failures or stats.files != len(lengths) or \
+            any(counts[k] != v for k, v in expected.items()):
+        fail(f"{name}: files {stats.files}/{len(lengths)}, failures {stats.failures}, "
+             f"bad outputs {bad[:5]}, launches {counts} (expected {expected})")
+    return counts
+
+
+def samplers_phase(fdbm, plain, dev) -> dict:
+    """``pc`` and ``ode_int`` on one 2 s file, kernel route against plain
+    route on the same draws. On random weights both samplers are chaotic
+    after a few steps (the plain route against itself with y moved by 1e-7
+    of its mean magnitude: pc at N=5 with euler_maruyama + ald 7e-2 on the
+    CPU, at N=2 4e-6), so each is held to the plain route over its first
+    steps, where that control is small: pc at N=2 within rel 1e-4, and
+    ode_int's first ODE_INT_STEPS attempted steps at rtol = atol = 1e-2
+    within rel 1e-3. pc at N=5 (euler_maruyama + ald) and
+    ode_int's full solve (its model calls printed) run on the kernel route,
+    pc also on the plain route, with pc's agreement printed beside the
+    control; both must be finite. Every run on the kernel route must run
+    kernels 1-3. Returns the kernel route's launches."""
+    from fdbm_tpu_torch import ops
+    from fdbm_tpu_torch.infer import bucket_length, pad_to
+
+    rng = np.random.default_rng(SEED + 20)
+    n = 2 * 16000
+    audio = 0.1 * rng.standard_normal(n) + 0.3 * np.sin(np.arange(n) * 0.05)
+    audio = pad_to((audio / np.abs(audio).max()).astype(np.float32), bucket_length(n, 256))
+    y = fdbm.audio_to_spec(torch.as_tensor(audio[None], device=dev))
+    cn = lambda *shape: torch.complex(
+        torch.as_tensor(rng.standard_normal(shape).astype(np.float32)),
+        torch.as_tensor(rng.standard_normal(shape).astype(np.float32))).to(dev) / math.sqrt(2.0)
+    y_moved = y + cn(*y.shape) * 1e-7 * y.abs().mean()
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    runs = {}
+    finite = lambda t: bool(torch.isfinite(torch.view_as_real(t)).all())
+
+    def run(name, model, spec=y, **kw):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = model.enhance_spec(spec, **kw)
+        torch.cuda.synchronize()
+        runs[name] = {"seconds": time.perf_counter() - t0, "launches": ops.launch_counts()}
+        if model is fdbm:
+            for k, v in runs[name]["launches"].items():
+                totals[k] += v
+        return out
+
+    pc = lambda steps: dict(sampler_type="pc", N=steps, predictor_name="euler_maruyama",
+                            corrector_name="ald", corrector_steps=1,
+                            noise=cn(1 + steps * 2, *y.shape))
+    first = pc(2)
+    pc_first_err = rel_err(run("pc_N2", fdbm, **first), run("pc_N2_plain", plain, **first))
+    full = pc(5)
+    pc_out = run("pc_N5", fdbm, **full)
+    pc_plain = run("pc_N5_plain", plain, **full)
+    pc_err = rel_err(pc_out, pc_plain)
+    pc_control = rel_err(run("pc_N5_plain_moved", plain, spec=y_moved, **full), pc_plain)
+    z = cn(*y.shape)
+    ode = dict(sampler_type="ode_int", rtol=1e-2, atol=1e-2, z=z)
+    ode_out = run("ode_int", fdbm, **ode)
+    ode_err = rel_err(run("ode_int_steps", fdbm, max_steps=ODE_INT_STEPS, **ode),
+                      run("ode_int_steps_plain", plain, max_steps=ODE_INT_STEPS, **ode))
+    nfev = runs["ode_int"]["launches"]["frame_attention"] // RNN_BLOCKS
+    emit({"phase": "samplers", "frames": y.shape[-1],
+          "pc": {"predictor": "euler_maruyama", "corrector": "ald", "corrector_steps": 1,
+                 "N2_rel_err": pc_first_err, "N2_tol": 1e-4, "N5_rel_err": pc_err,
+                 "N5_control_rel_err": pc_control, "N5_finite": finite(pc_out)},
+          "ode_int": {"rtol": 1e-2, "atol": 1e-2, "model_calls": nfev, "finite": finite(ode_out),
+                      "first_steps": ODE_INT_STEPS, "rel_err_first_steps": ode_err,
+                      "tol": 1e-3},
+          "runs": runs})
+    kernel_runs = [r["launches"] for name, r in runs.items() if "plain" not in name]
+    if not (pc_first_err < 1e-4 and ode_err < 1e-3 and finite(pc_out) and finite(ode_out)) or \
+            any(min(c[k] for k in SERVE_KERNELS) == 0 for c in kernel_runs):
+        fail(f"samplers: pc N=2 rel {pc_first_err}, ode_int first steps rel {ode_err}, "
+             f"runs {runs}")
+    return totals
+
+
+def predictive_phase(tmp: str, smi: str) -> dict:
+    """``python -m fdbm_tpu_torch.train -C configs/config_predictive.yaml``
+    (tfgridnet_5l32c100_predictive, batch 2 of 256 frames, num_eval_files=0)
+    for a few steps on the train phase's synthetic dataset, then its last
+    slot served through the folder CLI: training through kernels 5 and 6
+    (and 4 for the valid loss), serving through kernels 1-3, one backbone
+    call a batch. Returns the launches of both."""
+    from fdbm_tpu_torch import infer_folder, ops, train
+    from fdbm_tpu_torch.utils.audio import read_wav
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(tmp, "data")
+    steps = 4
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run = train.main(["-C", os.path.join(root, "configs", "config_predictive.yaml"),
+                          f"base_dir={base}", f"log_dir={os.path.join(tmp, 'pred_logs')}",
+                          "num_eval_files=0", f"batch_size={TRAIN_BATCH}",
+                          f"num_frames={TRAIN_FRAMES}", "num_workers=2",
+                          "--max_steps", str(steps)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    records = [json.loads(ln) for ln in open(os.path.join(run, "metrics.jsonl"))]
+    valid = [r["valid_loss"] for r in records if "valid_loss" in r]
+    expected = {"grid_fold_train_pair": RNN_PATHS * steps,
+                "grid_fold_train_pair_bwd": RNN_PATHS * steps,
+                "grid_bilstm_fold": RNN_PATHS * 2 * len(valid)}  # 3 valid files at batch 2
+
+    src = os.path.join(base, "valid", "noisy")
+    dst = os.path.join(tmp, "pred_enhanced")
+    ops.reset_launch_counts()
+    with counting_batches() as batches, contextlib.redirect_stdout(io.StringIO()):
+        stats = infer_folder.main(["-C", os.path.join(root, "configs", "config_infer_folder.yaml"),
+                                   f"ckpt={run}", f"test_dir={src}", f"enhanced_dir={dst}",
+                                   "--batch_size", str(FOLDER_BATCH)])
+    torch.cuda.synchronize()
+    serve = ops.launch_counts()
+    serve_expected = {"grid_rnn_seq1_pair": RNN_PATHS * len(batches),
+                      "flat_group_norm": RNN_BLOCKS * len(batches),
+                      "frame_attention": RNN_BLOCKS * len(batches)}
+    outputs = [read_wav(os.path.join(dst, f))[0] for f in sorted(os.listdir(src))]
+    ok = (valid and all(np.isfinite(valid)) and all(counts[k] == v for k, v in expected.items())
+          and all(counts[k] == 0 for k in SERVE_KERNELS)
+          and stats.files == len(outputs) == 3 and stats.failures == 0
+          and all(o.shape == (1, 5 * 16000) and np.isfinite(o).all() for o in outputs)
+          and all(serve[k] == v for k, v in serve_expected.items()))
+    emit({"phase": "predictive", "backbone": "tfgridnet_5l32c100_predictive", "steps": steps,
+          "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES, "valid_loss": valid,
+          "train_wall_seconds": wall, "launches": counts, "expected_launches": expected,
+          "served_files": stats.files, "failures": stats.failures, "batches": len(batches),
+          "serve_launches": serve, "expected_serve_launches": serve_expected,
+          "nvidia_smi": smi})
+    if not ok:
+        fail(f"predictive: valid {valid}, launches {counts} (expected {expected}), served "
+             f"{stats.files} files with {stats.failures} failures, launches {serve} "
+             f"(expected {serve_expected})")
+    return {k: counts[k] + serve[k] for k in counts}
+
+
 def main(kernels_only: bool = False) -> None:
     """The smoke run; ``kernels_only`` stops after the kernel rows."""
     if not torch.cuda.is_available():
@@ -1235,6 +1630,9 @@ def main(kernels_only: bool = False) -> None:
         fail(f"frame_attention at D=12 disagrees with its plain version: rel {err}")
     del vw, vwh, want
 
+    # -- rows 1-3 at the folder's batch shape ------------------------------------------
+    kernel_b16_phase(rand, dev, w, c, hidden, n_head, e_dim)
+
     # -- the training kernels at the shapes of one step -----------------------------
     train_kernel_phase(rand, dev, summary)
 
@@ -1293,7 +1691,7 @@ def main(kernels_only: bool = False) -> None:
               "rel_err": err, "tol": 1e-4})
         if not err < 1e-4:
             fail(f"serve with kernels disagrees with the plain route: rel {err}")
-        del fdbm, plain
+        serve_batch_check(fdbm, plain, dev)
 
         config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                               "config_infer_single.yaml")
@@ -1336,10 +1734,25 @@ def main(kernels_only: bool = False) -> None:
               "wall_seconds": rate_wall, "audio_seconds_per_second": rate_audio / rate_wall})
         emit(profile_request(load_checkpoint(ckpt, device="cuda"), noisy))
 
+        # -- folders: the folder CLI at B=16, pooled and whole; the pc and ode_int samplers
+        folder_rng = np.random.default_rng(SEED + 41)
+        seconds = list(folder_rng.uniform(1.0, 12.0, FOLDER_FILES)) + [FOLDER_LONG_SECONDS]
+        for name, secs, chunk in (("serve_folder", seconds, "4.096"),
+                                  ("serve_folder_whole", seconds[:7] + seconds[-1:], "0")):
+            counts = serve_folder(tmp, ckpt, name, secs, chunk, smi,
+                                  profile_fdbm=fdbm if chunk != "0" else None)
+            for k, v in counts.items():
+                totals[k] += v
+        for k, v in samplers_phase(fdbm, plain, dev).items():
+            totals[k] += v
+        del fdbm, plain
+
         # -- training: one step against the plain route, the CLI, the rate ---------
         train_grad_phase(rng, dev, tfgridnet_5l32c100,
                          {"grid_fold_train_pair": RNN_PATHS, "grid_fold_train_pair_bwd": RNN_PATHS})
         totals.update(train_cli_phase(tmp, smi))
+        for k, v in predictive_phase(tmp, smi).items():
+            totals[k] += v
         train_rate_phase(rng, dev, smi, tfgridnet_5l32c100)
 
         # -- 6l48c200: the generic RNN path through the LSTM kernels -------------

@@ -1,7 +1,8 @@
 """fdbm_tpu_torch: the PyTorch + CUDA port of fdbm_tpu for one NVIDIA H100.
 
-It serves (``infer_single``) and trains (``train``) the generative
-TF-GridNet. It mirrors the JAX package's module names (``dsp``, ``paths``,
+It serves single files (``infer_single``) and folders in batches
+(``infer_folder``) and trains (``train``) the generative and predictive
+TF-GridNets. It mirrors the JAX package's module names (``dsp``, ``paths``,
 ``sampling``, ``model``, ``models.tfgridnet``, ``ops.gridrnn``, ...) and
 imports nothing of it. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; on CPU tensors every kernel wrapper runs its plain

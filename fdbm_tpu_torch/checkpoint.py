@@ -12,10 +12,13 @@
   model file, a slot file, a slot's path without its extension, or a run
   or checkpoints directory (slot ``last`` by default, and ``last`` where
   the slot asked for was never written). From a slot it serves the EMA
-  weights, as the JAX package's ``infer_single.py`` does.
+  weights, as the JAX package's ``infer_single.py`` does. A reference
+  PyTorch-Lightning ``.ckpt`` file is imported through
+  ``utils/torch_port.py`` (its EMA shadow weights when present).
 
-Files are read back with ``weights_only=True``. The JAX package's orbax
-checkpoints need JAX to read and do not load here.
+The port's own files are read back with ``weights_only=True``. The JAX
+package's orbax checkpoints need JAX to read and do not load here;
+``tools/export_torch_ckpt.py`` writes them out as reference ``.ckpt`` files.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from fdbm_tpu_torch.model import FDBM, FDBMConfig, TrainState
+from fdbm_tpu_torch.utils.torch_port import load_reference_checkpoint
 
 
 def _cpu(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -124,14 +128,22 @@ def _resolve_checkpoint(path: str, slot: str = "last") -> str:
 def load_checkpoint(path: str, device="cuda", overrides: Optional[Dict[str, Any]] = None,
                     slot: str = "last") -> FDBM:
     """Rebuild the model from a checkpoint on ``device`` for serving: a
-    model file's weights, or a training slot's EMA weights. Non-None
+    model file's weights, a training slot's EMA weights, or a reference
+    ``.ckpt`` file's (EMA) weights and hyperparameters. Non-None
     ``overrides`` (e.g. an inference config's N or sampler_type) replace
     the stored config fields of the same name; other keys are ignored."""
-    blob = torch.load(_resolve_checkpoint(path, slot), map_location="cpu", weights_only=True)
-    cfg = dict(blob["config"])
+    if os.path.isfile(path) and path.endswith(".ckpt"):
+        cfg, state_dict = load_reference_checkpoint(path)
+        print(f"imported reference checkpoint {path} (backbone={cfg.get('backbone')})",
+              file=sys.stderr)
+    else:
+        blob = torch.load(_resolve_checkpoint(path, slot), map_location="cpu",
+                          weights_only=True)
+        cfg = dict(blob["config"])
+        train_state = blob.get("train_state")
+        state_dict = train_state["ema"] if train_state else blob["state_dict"]
     if overrides:
         cfg.update({k: v for k, v in overrides.items() if v is not None})
     fdbm = FDBM(FDBMConfig.from_dict(cfg), device=device)
-    train_state = blob.get("train_state")
-    fdbm.dnn.load_state_dict(train_state["ema"] if train_state else blob["state_dict"])
+    fdbm.dnn.load_state_dict(state_dict)
     return fdbm

@@ -4,10 +4,11 @@
         ckpt=<file.pt> noisy_file=... output_file=... N=30 sampler_type=sde_ei
 
 Same keys as the JAX package's ``infer_single.py``; ``ckpt`` names a
-model file written by ``fdbm_tpu_torch.checkpoint.save_checkpoint``, or a
+model file written by ``fdbm_tpu_torch.checkpoint.save_checkpoint``, a
 training run (its directory, its ``checkpoints/``, one slot file or a
 slot's path without ``.pt``), of which it serves the EMA weights of slot
-``--slot`` (``last``; ``last`` too where that slot was never written).
+``--slot`` (``last``; ``last`` too where that slot was never written), or a
+reference PyTorch-Lightning ``.ckpt`` file (its EMA weights when present).
 Runs on the GPU unless ``--device cpu`` is given.
 """
 

@@ -8,8 +8,11 @@ mode the serving route (``models/tfgridnet.py``). Randomness comes from an
 explicit ``torch.Generator``. The optimiser is the JAX package's
 ``clip_by_global_norm(3.0)`` + Adam at the scheduled learning rate (with
 ``optax.MultiSteps`` gradient accumulation), and the EMA uses torch_ema's
-num_updates correction, each matched to optax step by step. The
-predictive and finetuning objectives and NCSN++ are not ported yet.
+num_updates correction, each matched to optax step by step. Predictive
+mode (a ``*_predictive`` backbone that maps y to the clean spec in one
+call: trained on that call's loss, served without a sampler) follows
+``fdbm_tpu/model.py``; the finetuning objective and NCSN++ are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ def make_lr_schedule(scheduler_config: Optional[Dict[str, Any]],
 class FDBMConfig:
     """Serving fields of the config; key names match the repo's YAML."""
 
-    mode: str = "generative"  # generative | finetuning (both serve through the sampler)
+    mode: str = "generative"  # generative | predictive | finetuning
     backbone: str = "tfgridnet_5l32c100"
     bridge: str = "sb"
     noise_schedule: str = "bb"
@@ -125,11 +128,15 @@ def _resolve_device(device) -> torch.device:
 
 
 class FDBM:
-    """A generative bridge model ready to serve on one device."""
+    """A bridge model (or a predictive backbone) on one device."""
 
     def __init__(self, cfg: FDBMConfig, device="cuda"):
-        if cfg.mode not in ("generative", "finetuning"):
-            raise NotImplementedError(f"mode={cfg.mode!r} is not ported to fdbm_tpu_torch yet")
+        if cfg.mode not in ("generative", "predictive", "finetuning"):
+            raise ValueError(f"Unknown mode {cfg.mode}")
+        if cfg.mode == "predictive" and not cfg.backbone.endswith("_predictive"):
+            raise ValueError(
+                f"mode='predictive' requires a *_predictive backbone (got {cfg.backbone!r}), "
+                f"matching the reference config pairing (config_predictive.yaml).")
         for name in ("param_dtype", "compute_dtype", "inference_dtype"):
             if getattr(cfg, name) not in ("", "float32"):
                 raise NotImplementedError(
@@ -175,8 +182,11 @@ class FDBM:
                          length=length)
 
     def model_fn(self):
-        """(x_t, y, t) -> estimate of the clean spec, on the serving route."""
+        """(x_t, y, t) -> estimate of the clean spec, on the serving route
+        (a predictive backbone reads only y)."""
         self.dnn.eval()
+        if self.cfg.mode == "predictive":
+            return lambda x_t, y, t: self.dnn(None, y)
         return lambda x_t, y, t: self.dnn(x_t, y, t)
 
     # -- objective ----------------------------------------------------------
@@ -203,18 +213,22 @@ class FDBM:
                 params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """The configured loss of one batch ``(x_audio, y_audio[, weights])``
         on the training route; ``params`` replaces the backbone's own (the
-        EMA weights of the valid loss), ``prior`` the ``(t, z)`` draw."""
-        if self.cfg.mode != "generative":
+        EMA weights of the valid loss), ``prior`` the ``(t, z)`` draw of the
+        generative objective; the predictive one draws nothing."""
+        if self.cfg.mode == "finetuning":
             raise NotImplementedError(
                 f"training in mode={self.cfg.mode!r} is not ported to fdbm_tpu_torch yet")
         x_audio, y_audio = batch[0], batch[1]
         weights = batch[2] if len(batch) > 2 else None
         x = self.audio_to_spec(x_audio)
         y = self.audio_to_spec(y_audio)
-        t, _, _, x_t = self._sample_prior(x, y, generator, *(prior or (None, None)))
+        if self.cfg.mode == "predictive":
+            args = (None, y)
+        else:
+            t, _, _, x_t = self._sample_prior(x, y, generator, *(prior or (None, None)))
+            args = (x_t, y, t)
         self.dnn.train()
-        x_hat = (self.dnn(x_t, y, t) if params is None
-                 else functional_call(self.dnn, params, (x_t, y, t)))
+        x_hat = self.dnn(*args) if params is None else functional_call(self.dnn, params, args)
         return losses.compute_loss(self.loss_cfg, x_hat, x, weights)
 
     # -- steps --------------------------------------------------------------
@@ -287,7 +301,10 @@ class FDBM:
     def enhance_spec(self, y_spec: torch.Tensor, generator: Optional[torch.Generator] = None,
                      sampler_type: Optional[str] = None, N: Optional[int] = None,
                      **kwargs) -> torch.Tensor:
-        """Run the sampler on a compressed spec [B, 1, F, T] -> clean spec."""
+        """Run the sampler on a compressed spec [B, 1, F, T] -> clean spec;
+        in predictive mode one backbone call on y, no sampler."""
+        if self.cfg.mode == "predictive":
+            return self.model_fn()(None, y_spec, None)
         bridge = self.bridge
         if sampler_type is not None or N is not None:
             bridge = dataclasses.replace(bridge, sampler_type=sampler_type or bridge.sampler_type,

@@ -1,7 +1,8 @@
 """Backbone registry and model families of the port.
 
 Names mirror ``fdbm_tpu.models.BackboneRegistry`` so the YAML config
-surface is the same. Only the generative TF-GridNet variants are ported.
+surface is the same. The TF-GridNet variants and their predictive twins are
+ported; NCSN++ is not.
 """
 
 from fdbm_tpu_torch.utils.registry import Registry

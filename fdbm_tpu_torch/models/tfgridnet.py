@@ -41,6 +41,8 @@ Dense layers stay ``torch.nn``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -211,39 +213,47 @@ class GridNetBlock(nn.Module):
 
 
 class TFGridNet(nn.Module):
-    """Generative TF-GridNet: ``(x_t, y, t) -> clean-spec estimate``."""
+    """TF-GridNet: ``(x_t, y, t) -> clean-spec estimate``. With
+    ``time_conditioned=False`` (the predictive twins) it has no time
+    embedding and no per-block time bias, and reads only ``y``."""
 
     def __init__(self, n_layers: int = 6, emb_dim: int = 48, hidden: int = 200,
                  n_head: int = 4, qk_output_channel: int = 2, n_srcs: int = 1,
-                 fourier_scale: float = 16.0, use_kernels: bool = True, remat: bool = False):
+                 fourier_scale: float = 16.0, time_conditioned: bool = True,
+                 use_kernels: bool = True, remat: bool = False):
         super().__init__()
         c = emb_dim
         self.n_srcs = n_srcs
+        self.time_conditioned = time_conditioned
         self.remat = remat
-        self.conv_in = nn.Conv2d(4, c, 3, padding=1)
+        self.conv_in = nn.Conv2d(4 if time_conditioned else 2, c, 3, padding=1)
         self.gn_in = nn.GroupNorm(1, c, eps=1e-5)
-        self.time_emb = GaussianFourierProjection(c, fourier_scale)
-        self.time_fc1 = nn.Linear(2 * c, 4 * c)
-        self.time_fc2 = nn.Linear(4 * c, 4 * c)
-        self.time_blocks = nn.ModuleList(nn.Linear(4 * c, c) for _ in range(n_layers))
+        if time_conditioned:
+            self.time_emb = GaussianFourierProjection(c, fourier_scale)
+            self.time_fc1 = nn.Linear(2 * c, 4 * c)
+            self.time_fc2 = nn.Linear(4 * c, 4 * c)
+            self.time_blocks = nn.ModuleList(nn.Linear(4 * c, c) for _ in range(n_layers))
         self.blocks = nn.ModuleList(
             GridNetBlock(c, hidden, n_head, qk_output_channel, use_kernels)
             for _ in range(n_layers))
         self.deconv_out = nn.ConvTranspose2d(c, 2 * n_srcs, 3, padding=1)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """x, y: complex ``[B, 1, F, T]``; t: ``[B]``. Returns complex
-        ``[B, n_srcs, F, T]``."""
-        chans = [x.real, x.imag, y.real, y.imag]
-        inp = torch.stack([ch[:, 0] for ch in chans], dim=1).transpose(2, 3)  # [B, 4, T, F]
+    def forward(self, x: Optional[torch.Tensor], y: torch.Tensor,
+                t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x, y: complex ``[B, 1, F, T]``; t: ``[B]`` (both unused by a
+        predictive twin). Returns complex ``[B, n_srcs, F, T]``."""
+        chans = [x.real, x.imag, y.real, y.imag] if self.time_conditioned else [y.real, y.imag]
+        inp = torch.stack([ch[:, 0] for ch in chans], dim=1).transpose(2, 3)  # [B, Cin, T, F]
         h = self.gn_in(self.conv_in(inp))
         h = h.permute(0, 2, 3, 1).contiguous()  # [B, T, Q, C]
 
-        temb = self.time_emb(torch.log(t))
-        temb = F.silu(self.time_fc2(F.silu(self.time_fc1(temb))))
+        if self.time_conditioned:
+            temb = self.time_emb(torch.log(t))
+            temb = F.silu(self.time_fc2(F.silu(self.time_fc1(temb))))
         remat = self.remat and self.training and torch.is_grad_enabled()
-        for time_block, block in zip(self.time_blocks, self.blocks):
-            h = h + time_block(temb)[:, None, None, :]
+        for i, block in enumerate(self.blocks):
+            if self.time_conditioned:
+                h = h + self.time_blocks[i](temb)[:, None, None, :]
             h = checkpoint(block, h, use_reentrant=False) if remat else block(h)
 
         out = self.deconv_out(h.permute(0, 3, 1, 2)).float()  # [B, 2*S, T, Q]
@@ -260,3 +270,13 @@ def tfgridnet_5l32c100(**kwargs) -> TFGridNet:
 @BackboneRegistry.register("tfgridnet_4l32c80")
 def tfgridnet_4l32c80(**kwargs) -> TFGridNet:
     return TFGridNet(n_layers=4, emb_dim=32, hidden=80, **kwargs)
+
+
+@BackboneRegistry.register("tfgridnet_5l32c100_predictive")
+def tfgridnet_5l32c100_predictive(**kwargs) -> TFGridNet:
+    return TFGridNet(n_layers=5, emb_dim=32, hidden=100, time_conditioned=False, **kwargs)
+
+
+@BackboneRegistry.register("tfgridnet_4l32c80_predictive")
+def tfgridnet_4l32c80_predictive(**kwargs) -> TFGridNet:
+    return TFGridNet(n_layers=4, emb_dim=32, hidden=80, time_conditioned=False, **kwargs)

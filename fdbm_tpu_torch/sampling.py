@@ -1,17 +1,19 @@
-"""Exponential-integrator ODE/SDE samplers of the bridge.
+"""Samplers of the bridge: exponential-integrator ODE/SDE, predictor-corrector
+and adaptive RK45.
 
-Port of ``fdbm_tpu/sampling.py:37-184``. The N steps are a Python loop (the
-JAX package's ``lax.scan``): PyTorch runs eagerly and each step is one
-backbone call. The per-step path weights are computed once, on the host,
-before the loop. The EI samplers evaluate the model at ``t_prev`` and the
-SDE sampler zeroes its noise on the final step.
+Port of ``fdbm_tpu/sampling.py``. The N steps are a Python loop (the JAX
+package's ``lax.scan``): PyTorch runs eagerly and each step is one backbone
+call. Per-step path weights depend only on the time, which is the same for
+every row of a batch, so they are computed on the host as float32 scalars.
+The EI samplers evaluate the model at ``t_prev`` and the SDE sampler zeroes
+its noise on the final step. ``ode_int`` is the JAX package's Dormand-Prince
+RK45 (``_rk45``) with one step-size sequence for the whole batch; its
+accept and step-size decision reads the error norm on the host, one device
+sync a step (the JAX package's ``lax.while_loop`` keeps it on the device).
 
 Complex noise is CN(0,1): real and imaginary parts each have variance 1/2,
 drawn from an explicit ``torch.Generator``. ``model_fn(x_t, y, t)`` takes
 complex ``[B, C, F, T]`` states and a ``[B]`` time vector.
-
-The predictor-corrector (``pc``) and adaptive RK45 (``ode_int``) samplers
-are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import dataclasses
 import math
 from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from fdbm_tpu_torch.paths import ProbabilityPath, make_path
@@ -81,18 +84,18 @@ class Bridge:
 
     def sample(self, model_fn: ModelFn, y: torch.Tensor,
                generator: Optional[torch.Generator] = None, **kwargs) -> torch.Tensor:
-        """Run the configured sampler. The EI samplers take only the noise
-        overrides ``z`` (ODE) and ``noise`` (SDE); other sampler kwargs
-        (``rtol``/``atol`` of ``ode_int``, ``snr`` of ``pc``) are dropped for
-        them, as ``fdbm_tpu/sampling.py:Bridge.sample`` does."""
+        """Run the configured sampler. As ``fdbm_tpu/sampling.py:Bridge.sample``
+        does, ``ode_int`` and ``pc`` take every sampler kwarg (an unknown one
+        raises ``TypeError``), while the EI samplers take only their noise
+        overrides ``z`` (ODE) and ``noise`` (SDE) and drop the rest."""
         if self.sampler_type == "ode_ei":
             return self.ode_sampler_ei(model_fn, y, generator, z=kwargs.get("z"))
         if self.sampler_type == "sde_ei":
             return self.sde_sampler_ei(model_fn, y, generator, noise=kwargs.get("noise"))
-        if self.sampler_type in ("ode_int", "pc"):
-            raise NotImplementedError(
-                f"sampler_type={self.sampler_type!r} is not ported to fdbm_tpu_torch "
-                "yet (a later slice of the port); use 'ode_ei' or 'sde_ei'")
+        if self.sampler_type == "ode_int":
+            return self.ode_sampler_int(model_fn, y, generator, **kwargs)
+        if self.sampler_type == "pc":
+            return self.pc_sampler(model_fn, y, generator, **kwargs)
         raise ValueError(f"Unknown sampler_type {self.sampler_type}")
 
     def _steps(self, weights) -> List[List[float]]:
@@ -124,3 +127,149 @@ class Bridge:
             z = complex_normal_like(y, generator) if noise is None else noise[i + 1]
             x = wxt * x + ws * est + wz * z
         return x
+
+    def score_fn(self, t: float, x: torch.Tensor, s: torch.Tensor,
+                 y: torch.Tensor) -> torch.Tensor:
+        """-(x - mean_t) / (sigma_t^2 + 1e-8), with ``s`` the clean estimate
+        and ``t`` one time for the whole batch."""
+        a_t, b_t, sig = self.path.path_param(_f32(t))
+        denom = float(sig * sig + 1e-8)
+        return -(x - (float(a_t) * s + float(b_t) * y)) / denom
+
+    def pc_sampler(self, model_fn: ModelFn, y: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   predictor_name: str = "reverse_diffusion", corrector_name: str = "ald",
+                   denoise: bool = True, snr: float = 0.5, corrector_steps: int = 1,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Predictor-corrector sampler over N times from start to end.
+
+        Predictors ``euler_maruyama`` and ``none`` (``reverse_diffusion``, the
+        reference's unregistered default, is a no-op alias); correctors
+        ``langevin``, ``ald`` and ``none``; any other name raises. ``noise``
+        (``[1 + N*(corrector_steps+1), *y.shape]`` complex) overrides every
+        draw in the reference's order: ``noise[0]`` the prior, then per step
+        the ``corrector_steps`` corrector noises and one predictor noise."""
+        known_predictors = ("euler_maruyama", "none", "reverse_diffusion")
+        known_correctors = ("langevin", "ald", "none")
+        if predictor_name not in known_predictors:
+            raise ValueError(
+                f"Unknown predictor {predictor_name!r}; known: {known_predictors} "
+                f"('reverse_diffusion' is a documented no-op alias)")
+        if corrector_name not in known_correctors:
+            raise ValueError(f"Unknown corrector {corrector_name!r}; known: {known_correctors}")
+        times = torch.linspace(self.start_time, self.end_time, self.N, dtype=torch.float32)
+        stepsizes = torch.cat([times[:-1] - times[1:], times[-1:]])
+        per_step = corrector_steps + 1
+        x = self.prior_sampling(y, generator, z=None if noise is None else noise[0])
+        x_mean = x
+        batch = y.shape[0]
+
+        def draw(step: int, j: int) -> torch.Tensor:
+            if noise is None:
+                return complex_normal_like(y, generator)
+            return noise[1 + step * per_step + j]
+
+        for i, (t, stepsize) in enumerate(zip(times.tolist(), stepsizes)):
+            t_vec = torch.full((batch,), t, device=y.device)
+            if corrector_name != "none":
+                for j in range(corrector_steps):
+                    grad = self.score_fn(t, x, model_fn(x, y, t_vec), y)
+                    z = draw(i, j)
+                    if corrector_name == "langevin":
+                        grad_norm = torch.linalg.vector_norm(
+                            grad.abs().reshape(batch, -1), dim=-1).mean()
+                        noise_norm = torch.linalg.vector_norm(
+                            z.abs().reshape(batch, -1), dim=-1).mean()
+                        step_size = (snr * noise_norm / (grad_norm + 1e-8)) ** 2 * 2
+                        root = torch.sqrt(step_size * 2)
+                    else:  # ald
+                        step_size = (snr * self.path.sigma_t(_f32(t))) ** 2 * 2
+                        root, step_size = float(torch.sqrt(step_size * 2)), float(step_size)
+                    x_mean = x + step_size * grad
+                    x = x_mean + z * root
+            if predictor_name == "euler_maruyama":
+                dt = -stepsize
+                z = draw(i, corrector_steps)
+                s = model_fn(x, y, t_vec)
+                w_x, w_s, w_y, diffusion = (float(w) for w in self.path.sde_weights(_f32(t)))
+                drift = w_x * x + w_s * s + w_y * y
+                x_mean = x + drift * float(dt)
+                x = x_mean + float(diffusion * torch.sqrt(-dt)) * z
+            else:
+                x_mean = x
+        return x_mean if denoise else x
+
+    def ode_sampler_int(self, model_fn: ModelFn, y: torch.Tensor,
+                        generator: Optional[torch.Generator] = None, rtol: float = 1e-5,
+                        atol: float = 1e-5, max_steps: int = 1000,
+                        z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Adaptive Dormand-Prince RK45 solve of the probability-flow ODE from
+        the prior at start_time to end_time; ``z`` overrides the prior draw."""
+        x0 = self.prior_sampling(y, generator, z=z)
+        batch = y.shape[0]
+
+        def f(t: np.float32, x: torch.Tensor) -> torch.Tensor:
+            s = model_fn(x, y, torch.full((batch,), float(t), device=y.device))
+            w_x, w_s, w_y = (float(w) for w in self.path.ode_weights(_f32(t)))
+            return w_x * x + w_s * s + w_y * y
+
+        return _rk45(f, x0, self.start_time, self.end_time, rtol, atol, max_steps)
+
+
+def _f32(t) -> torch.Tensor:
+    return torch.tensor(t, dtype=torch.float32)
+
+
+# Dormand-Prince (RK45) Butcher tableau, as float32 like the JAX package's.
+_DP_C = np.array([0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0], np.float32)
+_DP_A = [
+    [],
+    [1 / 5],
+    [3 / 40, 9 / 40],
+    [44 / 45, -56 / 15, 32 / 9],
+    [19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729],
+    [9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656],
+    [35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84],
+]
+_DP_B5 = np.array([35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0],
+                  np.float32)
+_DP_B4 = np.array([5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 2100,
+                   1 / 40], np.float32)
+
+
+def _rk45(f, x0: torch.Tensor, t0: float, t1: float, rtol: float, atol: float,
+          max_steps: int) -> torch.Tensor:
+    """Adaptive RK45 from t0 to t1 (either direction), seven calls of ``f``
+    an attempted step. Times, step sizes and the step-size
+    control are float32 on the host, as the JAX package's ``_rk45``
+    computes them; the error norm is over the whole batch, so every row
+    takes the same steps. Each attempted step reads the error norm back
+    from the device once (one sync a step)."""
+    f32 = np.float32
+    direction = 1.0 if t1 >= t0 else -1.0
+    span = abs(t1 - t0)
+    t, h, x = f32(t0), f32(direction * span / 50.0), x0
+    for _ in range(max_steps):
+        if not direction * (f32(t1) - t) > 1e-10:
+            break
+        if direction * (t + h - f32(t1)) > 0:  # do not step past t1
+            h = f32(t1) - t
+        ks: List[torch.Tensor] = []
+        for i in range(7):
+            xi = x
+            for j, a in enumerate(_DP_A[i]):
+                xi = xi + float(h * f32(a)) * ks[j]
+            ks.append(f(t + _DP_C[i] * h, xi))
+        x5, x4 = x, x
+        for i in range(7):
+            x5 = x5 + float(h * _DP_B5[i]) * ks[i]
+            x4 = x4 + float(h * _DP_B4[i]) * ks[i]
+        scale = atol + torch.maximum(x5.abs(), x.abs()) * rtol
+        err_norm = f32(torch.sqrt(torch.mean(((x5 - x4) / scale).abs() ** 2)).item())
+        if err_norm <= 1.0:
+            t, x = f32(t + h), x5
+        factor = np.clip(f32(0.9) * (err_norm + f32(1e-12)) ** f32(-0.2), f32(0.2), f32(5.0))
+        h = f32(h * factor)
+        if abs(h) < 1e-8 * span:
+            h = f32(direction * 1e-8 * span)
+    return x

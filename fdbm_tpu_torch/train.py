@@ -13,10 +13,10 @@ run directory from its ``last`` slot; ``--ckpt`` starts a new run from
 another run's ``last`` slot. Runs on the GPU unless ``--device cpu`` is
 given.
 
-Not ported yet: the per-epoch evaluation of ``num_eval_files`` files
-(folder serving and the PESQ/ESTOI metrics, ROADMAP queue 1 items 3 and
-8), so a config with ``num_eval_files > 0`` is refused; training on several
-GPUs (queue 1 item 9).
+Not ported yet: the per-epoch evaluation of ``num_eval_files`` files (it
+needs the PESQ/ESTOI metrics, ROADMAP queue 1 item 7), so a config with
+``num_eval_files > 0`` is refused; training on several GPUs (queue 1 item
+8).
 """
 
 from __future__ import annotations
@@ -62,9 +62,9 @@ class Trainer:
                  config_blob: Optional[Dict[str, Any]] = None):
         if num_eval_files > 0:
             raise NotImplementedError(
-                f"num_eval_files={num_eval_files}: the per-epoch evaluation needs folder "
-                "serving and the PESQ/ESTOI metrics, which are not ported to fdbm_tpu_torch "
-                "yet; pass num_eval_files=0")
+                f"num_eval_files={num_eval_files}: the per-epoch evaluation needs the "
+                "PESQ/ESTOI metrics, which are not ported to fdbm_tpu_torch yet; pass "
+                "num_eval_files=0")
         self.fdbm = fdbm
         self.data_cfg = data_cfg
         self.log_dir = log_dir

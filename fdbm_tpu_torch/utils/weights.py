@@ -64,22 +64,25 @@ def gridnet_block_from_flax(p: Mapping[str, Any], prefix: str = "") -> Dict[str,
 
 def tfgridnet_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The port's ``TFGridNet`` state_dict from a Flax TF-GridNet parameter
-    tree of numpy arrays (with or without the top-level ``"params"``)."""
+    tree of numpy arrays (with or without the top-level ``"params"``), of a
+    generative backbone or of a predictive twin (no time keys)."""
     p = params.get("params", params)
     sd = {
         "conv_in.weight": _t(np.asarray(p["conv_in"]["kernel"]).transpose(3, 2, 0, 1)),
         "conv_in.bias": _t(p["conv_in"]["bias"]),
         "gn_in.weight": _t(p["gn_in"]["scale"]),
         "gn_in.bias": _t(p["gn_in"]["bias"]),
-        "time_emb.W": _t(p["time_emb"]["W"]),
         "deconv_out.weight": _t(
             np.asarray(p["deconv_out"]["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1)),
         "deconv_out.bias": _t(p["deconv_out"]["bias"]),
     }
-    for name in ("time_fc1", "time_fc2"):
-        sd.update(_linear(p[name], name))
     n_layers = sum(1 for k in p if k.startswith("block_"))
+    if "time_emb" in p:  # a predictive twin has no time embedding
+        sd["time_emb.W"] = _t(p["time_emb"]["W"])
+        for name in ("time_fc1", "time_fc2"):
+            sd.update(_linear(p[name], name))
+        for i in range(n_layers):
+            sd.update(_linear(p[f"time_block_{i}"], f"time_blocks.{i}"))
     for i in range(n_layers):
-        sd.update(_linear(p[f"time_block_{i}"], f"time_blocks.{i}"))
         sd.update(gridnet_block_from_flax(p[f"block_{i}"], f"blocks.{i}."))
     return sd

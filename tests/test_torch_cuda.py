@@ -494,7 +494,11 @@ def test_small_wide_train_step_kernel_route_matches_plain(dev):
 def test_frame_attention_is_one_launch_without_scores_in_memory(dev, b, t, d):
     """At the main path's widths (Q = 257, 4 heads, E = 2, D = 8 or 12): the
     kernel against its plain version, one kernel on the card per call, and
-    no [B, H, T, T] scores: the call allocates its output and nothing else."""
+    no [B, H, T, T] scores: the call allocates its output and nothing else.
+    The profiler sometimes records no kernel at all around a call, so each
+    of four calls is profiled on its own: every call whose kernels were
+    recorded shows one kernel, at least one call's were, and the launch
+    counter rises by one a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -507,12 +511,17 @@ def test_frame_attention_is_one_launch_without_scores_in_memory(dev, b, t, d):
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     n0 = attn_ops.frame_attention.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        got = attn_ops.frame_attention(q, k, v, 4, 2)
-        torch.cuda.synchronize()
-    assert attn_ops.frame_attention.launches == n0 + 1
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
+    recorded = []
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = attn_ops.frame_attention(q, k, v, 4, 2)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        recorded.append(sum(e.count for e in kernels))
+        del got
+    assert attn_ops.frame_attention.launches == n0 + 4
+    assert max(recorded) == 1 and all(n in (0, 1) for n in recorded), recorded
+    got = attn_ops.frame_attention(q, k, v, 4, 2)
     assert torch.cuda.max_memory_allocated(dev) - base <= got.numel() * 4 + (2 << 20)
     assert _rel(got, attn_ops.frame_attention_plain(q, k, v, 4, 2)) < 1e-4
 
@@ -659,6 +668,27 @@ def test_fused_grid_rnn_matches_plain(dev, c, hidden, s):
     for g, r in zip(got, want):
         assert torch.isfinite(g).all()
         assert _rel(g, r) < 1e-4
+
+
+def test_fused_grid_rnn_matches_plain_over_many_waves(dev):
+    """Kernel 1 at the folder's batch of 16 rows: 16 x 263 lines of each
+    direction, about eight waves of clusters on this card at C = 32,
+    H = 100, on a short canvas (S = 23); every row of the batch against the
+    plain version, and one row against the same row run alone."""
+    rng = np.random.default_rng(26)
+    x = _rand(rng, (16, 23, 263, 32), 0.5, dev)
+    w = (_rand(rng, (2, 128, 400), 0.1, dev), _rand(rng, (2, 100, 400), 0.1, dev),
+         _rand(rng, (2, 400), 0.1, dev), _rand(rng, (200, 128), 0.1, dev))
+    plan = gridrnn.fused_plan(16 * 263, 32, 100, dev)
+    assert plan.clusters > 4 * plan.max_clusters, plan
+    with torch.no_grad():
+        got = gridrnn.grid_rnn_seq1_pair(x, *w)
+        want = gridrnn.grid_rnn_seq1_pair_plain(x, *w)
+        alone = gridrnn.grid_rnn_seq1_pair(x[11:12].contiguous(), *w)
+    for g, r, a in zip(got, want, alone):
+        for row in range(16):
+            assert _rel(g[row], r[row]) < 1e-4, row
+        assert _rel(g[11:12], a) < 1e-4
 
 
 def test_fused_layouts_match_the_kernel(dev):

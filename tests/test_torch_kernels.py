@@ -215,10 +215,14 @@ def test_tfgridnet_matches_flax(n_layers, emb_dim, hidden):
 def test_registered_variants_and_gate():
     from fdbm_tpu_torch.models import BackboneRegistry
 
-    assert BackboneRegistry.get_all_names() == ["tfgridnet_4l32c80", "tfgridnet_5l32c100"]
+    assert BackboneRegistry.get_all_names() == [
+        "tfgridnet_4l32c80", "tfgridnet_4l32c80_predictive", "tfgridnet_5l32c100",
+        "tfgridnet_5l32c100_predictive"]
     for name, hidden in (("tfgridnet_5l32c100", 100), ("tfgridnet_4l32c80", 80)):
-        net = BackboneRegistry.get_by_name(name)()
-        assert net.blocks[0].intra.bilstm.w_hh.shape == (2, hidden, 4 * hidden)
+        for twin in (name, f"{name}_predictive"):
+            net = BackboneRegistry.get_by_name(twin)()
+            assert net.blocks[0].intra.bilstm.w_hh.shape == (2, hidden, 4 * hidden)
+            assert net.time_conditioned == (twin == name)
         assert ptfg._kernel_fast_path_ok(32, hidden)
         assert ptfg._kernel_fast_path_ok(32, hidden) == jtfg._pallas_fast_path_ok(32, hidden)
     assert not ptfg._kernel_fast_path_ok(72, 16) and not ptfg._kernel_fast_path_ok(32, 129)
