@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``fdbm_tpu_torch/ops/csrc`` with nvcc
-and drives the port's paths at the full width of two TF-GridNets:
+and drives the port's paths at the full width of two TF-GridNets and of
+NCSN++:
 
 * ``tfgridnet_5l32c100`` (5 blocks, C=32, H=100), inside the fused RNN
   kernels' gate. Serving: each serving kernel against its plain PyTorch
@@ -41,6 +42,21 @@ and drives the port's paths at the full width of two TF-GridNets:
   training step against the all-plain route, the training rate of steady
   ``FDBM.train_step`` steps with one profiled step, and one
   ``FDBM.valid_step``.
+* NCSN++ (``ncsnpp_v2``, 65.6M parameters, seeded weights at fan-in scale),
+  which runs on cuDNN convolutions and plain PyTorch ops and launches none
+  of the ten kernels (their counts stay 0 over every NCSN++ phase): the
+  backbone at ``[1, 1, 257, 256]`` against itself in float64 (row 0 of a
+  B=16 call too), a control with one block's conv0 zeroed that must miss
+  that gate, forward times at B=1 and B=16 (NCHW, channels_last, cuDNN's
+  benchmark mode) beside the operations counted from the layer shapes; a
+  2-step reflection-padded serve against the float64 route; 4 s and 3 s
+  files through ``infer_single`` and one profiled request; the folder CLI
+  at --batch_size 16 on 16 files of 1-12 s with one profiled batch; one
+  training step's loss and gradients against float64; the training CLI
+  (train, resume, serve the ``last`` slot); the training rate (cuDNN's
+  benchmark mode on, as ``Trainer.fit`` runs); ``ncsnpp_v2_5M_predictive``
+  trained through config_predictive.yaml and served through the folder CLI.
+  ``--ncsnpp-only`` runs these phases alone (no kernel is built).
 
 Launch counts are set to 0 just before each path runs and read just after.
 Every phase prints one JSON line; any failure exits non-zero. The last
@@ -62,6 +78,9 @@ rounding alone exceeds 1e-3) are held against float64 leaf by leaf and its
 LSTM calls one by one against the plain version (``float64_gate``), and its
 2-step serve (where it alone exceeds 1e-4) against a float64 network
 (``wide_serve_check``); the fp32-vs-fp32 readings are printed beside.
+NCSN++ is held to float64 within 1e-4 (backbone, 2-step serve) and, for a
+training step, 1e-5 on the loss and 1e-3 norm-relative per leaf (floored
+at 1e-4 of the global norm).
 
     python3 chip_smoke.py --probe-seeds 4 --probe-out readings.json
 
@@ -186,9 +205,10 @@ def device_kernels(prof):
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
 
 
-def profile_request(fdbm, noisy: str, phase: str = "profile") -> dict:
+def profile_request(fdbm, noisy: str, phase: str = "profile", **enhance_kwargs) -> dict:
     """Device time by kernel for one N=30 sde_ei request (the last serve
-    file), from torch.profiler, and the device's idle share of its wall."""
+    file), from torch.profiler, and the device's idle share of its wall;
+    ``enhance_kwargs`` go to ``FDBM.enhance_batch``."""
     from torch.profiler import ProfilerActivity, profile
 
     from fdbm_tpu_torch.infer import BUCKET_FRAMES, bucket_length, pad_to
@@ -198,7 +218,7 @@ def profile_request(fdbm, noisy: str, phase: str = "profile") -> dict:
     blen = bucket_length(len(audio), fdbm.cfg.hop_length, BUCKET_FRAMES)
     batch = torch.as_tensor(pad_to(audio / np.abs(audio).max(), blen)[None], device="cuda")
     run = lambda: fdbm.enhance_batch(batch, torch.Generator(device="cuda").manual_seed(SEED),
-                                     sampler_type="sde_ei", N=30)
+                                     sampler_type="sde_ei", N=30, **enhance_kwargs)
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -213,10 +233,34 @@ def profile_request(fdbm, noisy: str, phase: str = "profile") -> dict:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]
     return {"phase": phase, "request": "4 s, sde_ei, N=30, B=1", "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
+            "busy_by_kind": busy_by_kind(kernels),
             "top_kernels": [{"name": e.key[:90], "calls": e.count,
                              "ms": e.self_device_time_total / 1e3,
                              "share_of_busy": e.self_device_time_total / 1e3 / busy_ms}
                             for e in top]}
+
+
+# Device kernels by kind, from their names: the convolutions (cuDNN's implicit
+# GEMMs, and its FFT convolutions' transforms and pointwise products), the
+# products (GEMMs), the reductions, and the elementwise glue (norm arithmetic,
+# SiLU, adds, copies and casts).
+KERNEL_KINDS = (("convolution", ("conv", "cudnn", "implicit", "winograd", "fft", "xmma",
+                                 "pointwise_mult_and_sum")),
+                ("matmul", ("gemm", "cutlass", "sm90_", "sm80_", "ampere_", "matmul")),
+                ("reduction", ("reduce",)),
+                ("elementwise", ("elementwise", "vectorized", "copy", "cat", "index", "fill")))
+
+
+def busy_by_kind(kernels) -> dict:
+    """Device ms and share of busy time by KERNEL_KINDS ("other" for the
+    rest), from the profiler's device kernels."""
+    ms = {}
+    for e in kernels:
+        name = e.key.lower()
+        kind = next((k for k, keys in KERNEL_KINDS if any(w in name for w in keys)), "other")
+        ms[kind] = ms.get(kind, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(ms.values()) or 1.0
+    return {k: {"ms": v, "share": v / busy} for k, v in sorted(ms.items(), key=lambda a: -a[1])}
 
 
 def grad_rel(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
@@ -732,6 +776,17 @@ LSTM_CALL_TOL = {"out": 1e-4, "dx": 1e-3, "dw_ih": 1e-3, "dw_hh": 1e-3, "dbias":
 
 
 @contextlib.contextmanager
+def cudnn_benchmark():
+    """cuDNN's benchmark mode on, as the trainer runs (``Trainer.fit``)."""
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
+@contextlib.contextmanager
 def tf32_on():
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
@@ -957,16 +1012,19 @@ def train_grad_phase(rng, dev, backbone, expected: dict, phase: str = "train_gra
     return record
 
 
-def train_cli_phase(tmp: str, smi: str) -> dict:
-    """fdbm_tpu_torch.train on a synthetic dataset at the config's own
-    operating point: train, resume, then serve the last slot's EMA weights.
-    Returns the training kernels' launches over train + resume."""
-    from fdbm_tpu_torch import infer_single, ops, train
-    from fdbm_tpu_torch.utils.audio import read_wav, write_wav
+DATA_SAMPLES = 5 * 16000
+
+
+def write_dataset(tmp: str) -> str:
+    """The training phases' synthetic dataset under ``tmp/data`` (written
+    once): 6 train and 3 valid pairs of 5 s. Returns its base dir."""
+    from fdbm_tpu_torch.utils.audio import write_wav
 
     base = os.path.join(tmp, "data")
+    if os.path.isdir(base):
+        return base
     rng = np.random.default_rng(SEED + 7)
-    n = 5 * 16000
+    n = DATA_SAMPLES
     for subset, count in (("train", 6), ("valid", 3)):
         for kind in ("clean", "noisy"):
             os.makedirs(os.path.join(base, subset, kind))
@@ -977,10 +1035,26 @@ def train_cli_phase(tmp: str, smi: str) -> dict:
                       16000)
             write_wav(os.path.join(base, subset, "noisy", f"{i}.wav"), noisy.astype(np.float32),
                       16000)
+    return base
+
+
+def train_cli_phase(tmp: str, smi: str, backbone: str = "") -> dict:
+    """fdbm_tpu_torch.train on a synthetic dataset at the config's own
+    operating point: train, resume, then serve the last slot's EMA weights.
+    Returns the training kernels' launches over train + resume. With
+    ``backbone`` set (NCSN++) every kernel of the port stays at 0 launches,
+    training and serving."""
+    from fdbm_tpu_torch import infer_single, ops, train
+    from fdbm_tpu_torch.utils.audio import read_wav
+
+    base = write_dataset(tmp)
+    n = DATA_SAMPLES
     root = os.path.dirname(os.path.abspath(__file__))
     args = ["-C", os.path.join(root, "configs", "config.yaml"), f"base_dir={base}",
-            f"log_dir={os.path.join(tmp, 'logs')}", "num_eval_files=0",
+            f"log_dir={os.path.join(tmp, 'logs' + (f'_{backbone}' if backbone else ''))}",
+            "num_eval_files=0",
             f"batch_size={TRAIN_BATCH}", f"num_frames={TRAIN_FRAMES}", "num_workers=2"]
+    args += [f"backbone={backbone}"] if backbone else []
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1001,6 +1075,8 @@ def train_cli_phase(tmp: str, smi: str) -> dict:
     expected = {"grid_fold_train_pair": RNN_PATHS * steps,
                 "grid_fold_train_pair_bwd": RNN_PATHS * steps,
                 "grid_bilstm_fold": RNN_PATHS * valid_batches}
+    if backbone:
+        expected = dict.fromkeys(counts, 0)
     ok = (last["train_state"]["step"] == steps and valid and train_loss
           and all(np.isfinite(valid + train_loss))
           and all(os.path.exists(os.path.join(ckpts, f)) for f in
@@ -1018,10 +1094,14 @@ def train_cli_phase(tmp: str, smi: str) -> dict:
                            "N=5", "sampler_type=sde_ei"])
     served, _ = read_wav(out_file)
     serve_counts = ops.launch_counts()
-    ok = ok and served.shape == (1, n) and bool(np.isfinite(served).all()) and \
-        min(serve_counts[k] for k in SERVE_KERNELS) > 0 and \
-        serve_counts["flat_group_norm"] == serve_counts["frame_attention"]
-    emit({"phase": "train", "steps": steps, "resumed_at": TRAIN_STEPS, "batch": TRAIN_BATCH,
+    if backbone:
+        served_ok = not any(serve_counts.values())
+    else:
+        served_ok = min(serve_counts[k] for k in SERVE_KERNELS) > 0 and \
+            serve_counts["flat_group_norm"] == serve_counts["frame_attention"]
+    ok = ok and served.shape == (1, n) and bool(np.isfinite(served).all()) and served_ok
+    emit({"phase": f"train_{backbone}" if backbone else "train", "backbone": backbone or None,
+          "steps": steps, "resumed_at": TRAIN_STEPS, "batch": TRAIN_BATCH,
           "frames": TRAIN_FRAMES, "train_files": 6, "valid_files": 3,
           "train_loss": train_loss, "valid_loss": valid,
           "last_step": last["train_state"]["step"],
@@ -1248,16 +1328,18 @@ def write_folder(root: str, seconds) -> dict:
     return lengths
 
 
-def profile_batch(fdbm) -> dict:
+def profile_batch(fdbm, n_steps: int = FOLDER_N, **enhance_kwargs) -> dict:
     """Device busy time and idle share of one folder batch (16 rows of one
-    4.096 s chunk, sde_ei N=30) under torch.profiler, and its top kernels."""
+    4.096 s chunk, sde_ei at ``n_steps``) under torch.profiler, its time by
+    kind of kernel and its top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(SEED + 17)
     batch = torch.as_tensor((0.3 * rng.standard_normal((FOLDER_BATCH, CHUNK_SAMPLES))).astype(
         np.float32), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    run = lambda: fdbm.enhance_batch(batch, gen, sampler_type="sde_ei", N=FOLDER_N)
+    run = lambda: fdbm.enhance_batch(batch, gen, sampler_type="sde_ei", N=n_steps,
+                                     **enhance_kwargs)
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1271,22 +1353,28 @@ def profile_batch(fdbm) -> dict:
         fail("profile_batch: the profiler recorded no device time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     audio = FOLDER_BATCH * CHUNK_SAMPLES / 16000
-    return {"batch": FOLDER_BATCH, "samples": CHUNK_SAMPLES, "N": FOLDER_N, "wall_ms": wall_ms,
+    return {"batch": FOLDER_BATCH, "samples": CHUNK_SAMPLES, "N": n_steps, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
             "audio_seconds_per_second": audio / (wall_ms / 1e3),
+            "busy_by_kind": busy_by_kind(kernels),
             "top_kernels": [{"name": e.key[:90], "calls": e.count,
                              "ms": e.self_device_time_total / 1e3,
                              "share_of_busy": e.self_device_time_total / 1e3 / busy_ms}
                             for e in top]}
 
 
+SERVE_CALL_LAUNCHES = {"grid_rnn_seq1_pair": 2 * RNN_BLOCKS, "flat_group_norm": RNN_BLOCKS,
+                       "frame_attention": RNN_BLOCKS}
+
+
 def serve_folder(tmp: str, ckpt: str, name: str, seconds, chunk_seconds: str, smi: str,
-                 profile_fdbm=None) -> dict:
+                 profile_fdbm=None, per_call: dict = SERVE_CALL_LAUNCHES,
+                 profile_kwargs: dict = None) -> dict:
     """The folder CLI (``fdbm_tpu_torch.infer_folder.main``) on a folder of
     the given lengths, 30-step sde_ei at --batch_size 16: every file written
     at its input length and finite, no failures, and per enhanced batch one
-    backbone call a step (10 RNN paths, 5 norms, 5 attentions each).
-    Returns the launches."""
+    backbone call a step, each launching ``per_call`` (5l32c100: 10 RNN
+    paths, 5 norms, 5 attentions). Returns the launches."""
     from fdbm_tpu_torch import infer_folder, ops
     from fdbm_tpu_torch.utils.audio import read_wav
 
@@ -1304,8 +1392,7 @@ def serve_folder(tmp: str, ckpt: str, name: str, seconds, chunk_seconds: str, sm
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     calls = FOLDER_N * len(batches)
-    expected = {"grid_rnn_seq1_pair": 2 * RNN_BLOCKS * calls, "flat_group_norm": RNN_BLOCKS * calls,
-                "frame_attention": RNN_BLOCKS * calls}
+    expected = {k: v * calls for k, v in per_call.items()}
     bad = []
     for rel, n in lengths.items():
         path = os.path.join(dst, rel)
@@ -1327,7 +1414,7 @@ def serve_folder(tmp: str, ckpt: str, name: str, seconds, chunk_seconds: str, sm
               "launches": counts, "expected_launches": expected,
               "cli": out.getvalue().strip().splitlines()[-1:], "nvidia_smi": smi}
     if profile_fdbm is not None:
-        record["profiled_batch"] = profile_batch(profile_fdbm)
+        record["profiled_batch"] = profile_batch(profile_fdbm, **(profile_kwargs or {}))
     emit(record)
     if bad or stats.failures or stats.files != len(lengths) or \
             any(counts[k] != v for k, v in expected.items()):
@@ -1409,28 +1496,30 @@ def samplers_phase(fdbm, plain, dev) -> dict:
     return totals
 
 
-def predictive_phase(tmp: str, smi: str) -> dict:
+def predictive_phase(tmp: str, smi: str, backbone: str = "", steps: int = 4) -> dict:
     """``python -m fdbm_tpu_torch.train -C configs/config_predictive.yaml``
     (tfgridnet_5l32c100_predictive, batch 2 of 256 frames, num_eval_files=0)
     for a few steps on the train phase's synthetic dataset, then its last
     slot served through the folder CLI: training through kernels 5 and 6
     (and 4 for the valid loss), serving through kernels 1-3, one backbone
-    call a batch. Returns the launches of both."""
+    call a batch. Returns the launches of both. With ``backbone`` set
+    (NCSN++'s twin) every kernel of the port stays at 0 launches."""
     from fdbm_tpu_torch import infer_folder, ops, train
     from fdbm_tpu_torch.utils.audio import read_wav
 
     root = os.path.dirname(os.path.abspath(__file__))
-    base = os.path.join(tmp, "data")
-    steps = 4
+    base = write_dataset(tmp)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         run = train.main(["-C", os.path.join(root, "configs", "config_predictive.yaml"),
-                          f"base_dir={base}", f"log_dir={os.path.join(tmp, 'pred_logs')}",
+                          f"base_dir={base}",
+                          f"log_dir={os.path.join(tmp, 'pred_logs' + backbone)}",
                           "num_eval_files=0", f"batch_size={TRAIN_BATCH}",
                           f"num_frames={TRAIN_FRAMES}", "num_workers=2",
-                          "--max_steps", str(steps)])
+                          "--max_steps", str(steps)]
+                         + ([f"backbone={backbone}"] if backbone else []))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1441,7 +1530,7 @@ def predictive_phase(tmp: str, smi: str) -> dict:
                 "grid_bilstm_fold": RNN_PATHS * 2 * len(valid)}  # 3 valid files at batch 2
 
     src = os.path.join(base, "valid", "noisy")
-    dst = os.path.join(tmp, "pred_enhanced")
+    dst = os.path.join(tmp, "pred_enhanced" + backbone)
     ops.reset_launch_counts()
     with counting_batches() as batches, contextlib.redirect_stdout(io.StringIO()):
         stats = infer_folder.main(["-C", os.path.join(root, "configs", "config_infer_folder.yaml"),
@@ -1452,13 +1541,16 @@ def predictive_phase(tmp: str, smi: str) -> dict:
     serve_expected = {"grid_rnn_seq1_pair": RNN_PATHS * len(batches),
                       "flat_group_norm": RNN_BLOCKS * len(batches),
                       "frame_attention": RNN_BLOCKS * len(batches)}
+    if backbone:
+        expected, serve_expected = dict.fromkeys(counts, 0), dict.fromkeys(serve, 0)
     outputs = [read_wav(os.path.join(dst, f))[0] for f in sorted(os.listdir(src))]
     ok = (valid and all(np.isfinite(valid)) and all(counts[k] == v for k, v in expected.items())
           and all(counts[k] == 0 for k in SERVE_KERNELS)
           and stats.files == len(outputs) == 3 and stats.failures == 0
           and all(o.shape == (1, 5 * 16000) and np.isfinite(o).all() for o in outputs)
           and all(serve[k] == v for k, v in serve_expected.items()))
-    emit({"phase": "predictive", "backbone": "tfgridnet_5l32c100_predictive", "steps": steps,
+    emit({"phase": f"predictive_{backbone}" if backbone else "predictive",
+          "backbone": backbone or "tfgridnet_5l32c100_predictive", "steps": steps,
           "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES, "valid_loss": valid,
           "train_wall_seconds": wall, "launches": counts, "expected_launches": expected,
           "served_files": stats.files, "failures": stats.failures, "batches": len(batches),
@@ -1471,8 +1563,278 @@ def predictive_phase(tmp: str, smi: str) -> dict:
     return {k: counts[k] + serve[k] for k in counts}
 
 
-def main(kernels_only: bool = False) -> None:
-    """The smoke run; ``kernels_only`` stops after the kernel rows."""
+# -- NCSN++ (ncsnpp_v2, 65.6M): cuDNN convolutions and plain ops, none of the ten kernels ----
+
+NCSNPP = "ncsnpp_v2"
+NCSNPP_SHAPE = (1, 1, 257, 256)  # 4.1 s of audio
+NCSNPP_FOLDER_FILES = 16
+# One block's conv0 zeroed: the control that must miss the float64 gate.
+NCSNPP_CONTROL_LEAF = "down_3_0.conv0.weight"
+
+
+def fan_in_weights_(net: torch.nn.Module, seed: int = SEED) -> torch.nn.Module:
+    """Seeded weights at fan-in scale for every leaf: each kernel
+    N(0, 1/fan_in), each bias 0.1 N(0, 1), each GroupNorm scale
+    1 + 0.1 N(0, 1), ``time_emb.W`` as initialised. The score-SDE init
+    leaves every conv1, attention proj and pyr_conv near 1e-10, on which a
+    1e-4 gate cannot see a dropped branch. Drawn where the weights lie,
+    from a torch generator seeded with ``seed``."""
+    with torch.no_grad():
+        params = [(n, p) for n, p in net.named_parameters() if not n.endswith("time_emb.W")]
+        gen = torch.Generator(device=params[0][1].device).manual_seed(seed)
+        for name, p in params:
+            p.normal_(generator=gen)
+            if p.ndim >= 2:
+                p.mul_(1 / math.sqrt(p[0].numel()))
+            elif name.endswith("weight"):
+                p.mul_(0.1).add_(1.0)
+            else:
+                p.mul_(0.1)
+    return net
+
+
+def to_double(a: torch.Tensor) -> torch.Tensor:
+    return a.to(torch.complex128 if a.is_complex() else torch.float64)
+
+
+def ncsnpp_backbone_phase(rng, dev) -> None:
+    """ncsnpp_v2 at [1, 1, 257, 256], fp32 with TF32 off, against the same
+    module in float64 on the card (rel-L2 < 1e-4), a control that must miss
+    the gate (one block's conv0 zeroed), the TF32-on reading, row 0 of a
+    B=16 call (where cuDNN picks other algorithms, FFT among them) against
+    the same float64 output, forward ms at B=1 and B=16 (NCHW,
+    channels_last, and with cuDNN's benchmark mode), and the operations
+    PyTorch's FlopCounterMode counts from the layer shapes beside the bound
+    at the fp32 peak."""
+    import copy
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from fdbm_tpu_torch.models.ncsnpp import ncsnpp_v2
+
+    torch.manual_seed(SEED)
+    net = fan_in_weights_(ncsnpp_v2()).to(dev).eval()
+    net64 = copy.deepcopy(net).double()
+    cn = lambda b: torch.complex(*(torch.as_tensor(
+        rng.standard_normal((b, *NCSNPP_SHAPE[1:])).astype(np.float32), device=dev)
+        for _ in range(2))) * 0.5
+    x, y, t = cn(1), cn(1), torch.tensor([0.6], device=dev)
+    with torch.no_grad():
+        out = net(x, y, t)
+        out64 = net64(to_double(x), to_double(y), to_double(t))
+        err = rel_err(out.to(torch.complex128), out64)
+        with tf32_on():
+            err_tf32 = rel_err(net(x, y, t).to(torch.complex128), out64)
+        leaf = dict(net.named_parameters())[NCSNPP_CONTROL_LEAF]
+        saved = leaf.clone()
+        leaf.zero_()
+        err_control = rel_err(net(x, y, t).to(torch.complex128), out64)
+        leaf.copy_(saved)
+        x16, y16, t16 = cn(16), cn(16), torch.full((16,), 0.6, device=dev)
+        x16[0], y16[0] = x[0], y[0]
+        err_b16 = rel_err(net(x16, y16, t16)[:1].to(torch.complex128), out64)
+        del net64, out64
+        with FlopCounterMode(display=False) as counter:
+            net(x, y, t)
+        flops = counter.get_total_flops()
+        ms = {"b1": timed_ms(lambda: net(x, y, t), 5),
+              "b16": timed_ms(lambda: net(x16, y16, t16), 3)}
+        net.to(memory_format=torch.channels_last)
+        ms["b1_channels_last"] = timed_ms(lambda: net(x, y, t), 5)
+        ms["b16_channels_last"] = timed_ms(lambda: net(x16, y16, t16), 3)
+        net.to(memory_format=torch.contiguous_format)
+        with cudnn_benchmark():
+            ms["b16_cudnn_benchmark"] = timed_ms(lambda: net(x16, y16, t16), 3)
+            err_bench = rel_err(net(x, y, t), out)
+    bound_ms = bound(flops, 4 * (3 * x.numel() * 2 + sum(p.numel() for p in net.parameters())))
+    emit({"phase": "ncsnpp_backbone", "backbone": NCSNPP, "shape": list(NCSNPP_SHAPE),
+          "parameters": sum(p.numel() for p in net.parameters()),
+          "weights": "fan-in scale, seeded", "cudnn_benchmark": torch.backends.cudnn.benchmark,
+          "float64": {"rel_err": err, "tol": 1e-4, "b16_row0_rel_err": err_b16,
+                      "tf32_rel_err": err_tf32,
+                      "control_zeroed": NCSNPP_CONTROL_LEAF, "control_rel_err": err_control},
+          "cudnn_benchmark_rel_err_vs_default": err_bench,
+          "finite": bool(torch.isfinite(torch.view_as_real(out)).all()),
+          "forward_ms": ms, "flops_b1": flops, "bound_ms_b1": bound_ms[0],
+          "bound_by": bound_ms[1], "xla_flops_b1": 530.2e9})
+    if not (err < 1e-4 and err_b16 < 1e-4) or err_control < 1e-4:
+        fail(f"{NCSNPP} backbone: float64 rel {err}, B=16 row 0 {err_b16} (tol 1e-4), "
+             f"control with {NCSNPP_CONTROL_LEAF} zeroed rel {err_control} must miss the gate")
+
+
+def ncsnpp_fdbm(dev, backbone: str = NCSNPP):
+    """An FDBM of the default config on ``backbone`` at fan-in weights."""
+    from fdbm_tpu_torch.model import FDBM, FDBMConfig
+
+    torch.manual_seed(SEED)
+    fdbm = FDBM(FDBMConfig(backbone=backbone), device=dev)
+    fan_in_weights_(fdbm.dnn)
+    return fdbm
+
+
+def float64_twin(fdbm):
+    """``fdbm`` with a float64 copy of its backbone (``Float64Backbone``)."""
+    import copy
+
+    twin = copy.copy(fdbm)
+    twin.dnn = Float64Backbone(copy.deepcopy(fdbm.dnn))
+    return twin
+
+
+def ncsnpp_serve_phase(tmp: str, rng, dev, smi: str):
+    """ncsnpp_v2 serving: a 2-step reflection-padded serve against the float64
+    route on the same noise (rel < 1e-4), then a checkpoint the script writes
+    served through the single-file CLI on a 4 s and a 3 s file (257 and 193
+    frames, reflection-padded to 320 and 256), 30-step sde_ei, and one
+    profiled 4 s request. Returns the checkpoint's path and the model."""
+    from fdbm_tpu_torch import infer_single
+    from fdbm_tpu_torch.checkpoint import save_checkpoint
+    from fdbm_tpu_torch.utils.audio import read_wav, write_wav
+
+    fdbm = ncsnpp_fdbm(dev)
+    ckpt = os.path.join(tmp, "ncsnpp_v2.pt")
+    save_checkpoint(ckpt, fdbm)
+    f64 = float64_twin(fdbm)
+    audio = torch.as_tensor(rng.standard_normal((1, 16000)).astype(np.float32) * 0.3, device=dev)
+    serve = lambda f: f.enhance_batch(audio, torch.Generator(device=dev).manual_seed(SEED),
+                                      sampler_type="sde_ei", N=2, pad_mode="reflection")
+    with torch.no_grad():
+        out, out64 = serve(fdbm), serve(f64)
+        with tf32_on():
+            out_tf32 = serve(fdbm)
+    del f64
+    err, err_tf32 = rel_err(out, out64), rel_err(out_tf32, out64)
+    emit({"phase": "ncsnpp_serve_check", "backbone": NCSNPP, "sampler": "sde_ei", "N": 2,
+          "samples": audio.shape[-1], "pad_mode": "reflection", "float64_rel_err": err,
+          "tol": 1e-4, "tf32_rel_err": err_tf32})
+    if not err < 1e-4:
+        fail(f"{NCSNPP} 2-step serve disagrees with the float64 route: rel {err}")
+
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                          "config_infer_single.yaml")
+    rate_audio = rate_wall = 0.0
+    for i, seconds in enumerate((4.0, 3.0)):
+        n = int(seconds * 16000)
+        noisy, out_file = (os.path.join(tmp, f"ncsnpp_{k}_{i}.wav") for k in ("noisy", "enh"))
+        wav = np.random.default_rng(SEED + 50 + i).standard_normal(n).astype(np.float32)
+        write_wav(noisy, 0.1 * wav + 0.3 * np.sin(np.arange(n) * 0.05), 16000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as cli_out:
+            infer_single.main(["-C", config, f"ckpt={ckpt}", f"noisy_file={noisy}",
+                               f"output_file={out_file}", "N=30", "sampler_type=sde_ei"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        enhanced, sr = read_wav(out_file)
+        emit({"phase": "ncsnpp_serve", "request": i, "sampler": "sde_ei", "N": 30,
+              "audio_seconds": seconds, "samples": int(enhanced.shape[-1]), "wall_seconds": wall,
+              "audio_seconds_per_second": seconds / wall,
+              "finite": bool(np.isfinite(enhanced).all()), "cli": cli_out.getvalue().strip(),
+              "nvidia_smi": smi})
+        if enhanced.shape != (1, n) or sr != 16000 or not np.isfinite(enhanced).all():
+            fail(f"{NCSNPP} serve request {i}: shape {enhanced.shape}, sr {sr}")
+        rate_audio += seconds
+        rate_wall += wall
+    emit({"phase": "ncsnpp_serve_rate", "N": 30, "audio_seconds": rate_audio,
+          "wall_seconds": rate_wall, "audio_seconds_per_second": rate_audio / rate_wall})
+    emit(profile_request(fdbm, os.path.join(tmp, "ncsnpp_noisy_0.wav"), "ncsnpp_profile",
+                         pad_mode="reflection"))
+    return ckpt, fdbm
+
+
+def ncsnpp_grad_phase(rng, dev) -> None:
+    """One ncsnpp_v2 training step (B=2, 256 frames, fan-in weights), with
+    cuDNN's benchmark mode on as the trainer runs, against float64: the loss
+    through the float64 network within rel 1e-5, and the parameter
+    gradients under the fp32 route's dL/dx_hat, each leaf within norm-rel
+    1e-3 of float64's with the denominator floored at 1e-4 of the global
+    norm (PARITY.md's model-level gates). NCSN++ has no kernel route: the
+    fp32 card route is the one under test."""
+    from fdbm_tpu_torch import losses
+    from fdbm_tpu_torch.model import TrainState
+
+    fdbm = ncsnpp_fdbm(dev)
+    f64 = float64_twin(fdbm)
+    net64 = f64.dnn.net
+    batch = synthetic_batch(rng, dev)
+    shape = (TRAIN_BATCH, 1, fdbm.cfg.n_fft // 2 + 1, TRAIN_FRAMES)
+    t = torch.tensor([0.3, 0.8], device=dev)
+    z = torch.complex(*(torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                                        / math.sqrt(2), device=dev) for _ in range(2)))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with cudnn_benchmark():
+        loss = fdbm.loss_fn(batch, prior=(t, z))
+        state = TrainState(fdbm.dnn)
+        grads = dict(zip(state.params,
+                         torch.autograd.grad(loss, list(state.params.values()))))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        loss64 = float(f64.loss_fn(batch, prior=(t, z)).detach())
+        x, y = (fdbm.audio_to_spec(a) for a in batch[:2])
+        _, _, _, x_t = fdbm._sample_prior(x, y, None, t, z)
+        fdbm.dnn.train()
+        x_hat = fdbm.dnn(x_t, y, t)
+        cot = torch.autograd.grad(losses.compute_loss(fdbm.loss_cfg, x_hat, x), x_hat)[0]
+        del x_hat
+        g64 = route_vjp(net64, x_t, y, t, cot, torch.complex128, torch.float64)
+        g32 = route_vjp(fdbm.dnn, x_t, y, t, cot, torch.complex64, torch.float32)
+    norm64 = math.sqrt(sum(float((g * g).sum()) for g in g64.values()))
+    rels = {n: grad_rel(g32[n], g64[n], 1e-4 * norm64) for n in g64}
+    # the training step's own gradients are the same computation as g32
+    step_rel = max(grad_rel(grads[n].double(), g32[n], 1e-4 * norm64) for n in g64)
+    worst = sorted(rels, key=rels.get)[-3:][::-1]
+    loss_rel = abs(float(loss.detach()) - loss64) / abs(loss64)
+    emit({"phase": "ncsnpp_train_grad", "backbone": NCSNPP, "cudnn_benchmark": True,
+          "batch": TRAIN_BATCH,
+          "frames": TRAIN_FRAMES, "loss": float(loss.detach()), "loss_float64": loss64,
+          "loss_rel": loss_rel, "loss_tol": 1e-5, "leaves": len(rels),
+          "worst_leaves": [(n, rels[n]) for n in worst], "grad_tol": 1e-3,
+          "grad_norm_float64": norm64, "train_step_vs_vjp_rel": step_rel,
+          "first_step_seconds": step_s, "peak_memory_gb_fp32_step": peak / 1e9})
+    if not (loss_rel < 1e-5 and rels[worst[0]] < 1e-3):
+        fail(f"{NCSNPP} training step against float64: loss rel {loss_rel}, worst gradients "
+             f"{[(n, rels[n]) for n in worst]}")
+
+
+def ncsnpp_phases(tmp: str, rng, dev, smi: str) -> None:
+    """Every NCSN++ phase, with the ten kernels' launch counts held at 0."""
+    from fdbm_tpu_torch import ops
+    from fdbm_tpu_torch.models.ncsnpp import ncsnpp_v2
+
+    t0 = time.perf_counter()
+    seconds_by_phase = {}
+
+    def timed(name, fn, *args, **kwargs):
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds_by_phase[name] = time.perf_counter() - start
+        return out
+
+    ops.reset_launch_counts()
+    timed("backbone", ncsnpp_backbone_phase, rng, dev)
+    ckpt, fdbm = timed("serve", ncsnpp_serve_phase, tmp, rng, dev, smi)
+    folder_rng = np.random.default_rng(SEED + 61)
+    seconds = list(folder_rng.uniform(1.0, 12.0, NCSNPP_FOLDER_FILES))
+    timed("serve_folder", serve_folder, tmp, ckpt, "ncsnpp_serve_folder", seconds, "4.096", smi,
+          profile_fdbm=fdbm, per_call={}, profile_kwargs={"n_steps": 5, "pad_mode": "reflection"})
+    del fdbm
+    timed("train_grad", ncsnpp_grad_phase, rng, dev)
+    timed("train_cli", train_cli_phase, tmp, smi, NCSNPP)
+    with cudnn_benchmark():  # as the trainer runs
+        timed("train_rate", train_rate_phase, rng, dev, smi, ncsnpp_v2, "ncsnpp_train_rate")
+    timed("predictive", predictive_phase, tmp, smi, "ncsnpp_v2_5M_predictive", steps=2)
+    counts = ops.launch_counts()
+    emit({"phase": "ncsnpp_launches", "launches": counts, "seconds_by_phase": seconds_by_phase,
+          "wall_seconds": time.perf_counter() - t0})
+    if any(counts.values()):
+        fail(f"the NCSN++ phases launched the port's kernels: {counts}")
+
+
+def main(kernels_only: bool = False, ncsnpp_only: bool = False) -> None:
+    """The smoke run; ``kernels_only`` stops after the kernel rows,
+    ``ncsnpp_only`` runs only the NCSN++ phases (no kernel is built)."""
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
     from fdbm_tpu_torch import ops
@@ -1494,6 +1856,12 @@ def main(kernels_only: bool = False) -> None:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                          "cudnn": torch.backends.cudnn.allow_tf32}})
+    if ncsnpp_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            ncsnpp_phases(tmp, np.random.default_rng(SEED), dev, smi)
+        emit({"phase": "done", "ncsnpp_only": True, "wall_seconds": time.perf_counter() - t_start})
+        print(smi, flush=True)
+        return
 
     # -- build ------------------------------------------------------------------
     built = _build.build_all()
@@ -1761,6 +2129,9 @@ def main(kernels_only: bool = False) -> None:
         totals["bilstm_fused_forward"] = wide_serve["bilstm_fused_forward"]
         totals["frame_attention"] += wide_serve["frame_attention"]
         totals.update(wide_train_phase(rng, dev, smi))
+
+        # -- NCSN++: ncsnpp_v2 through both CLIs, the trainer, and its 5M twin ----
+        ncsnpp_phases(tmp, rng, dev, smi)
     emit({"phase": "done", "wall_seconds": time.perf_counter() - t_start})
 
     print(smi, flush=True)
@@ -2103,9 +2474,13 @@ if __name__ == "__main__":
                         help="only build and check and time the kernel rows, with no paths "
                              "run and no ok line (for a before/after on one card, also "
                              "from a parent commit's checkout)")
+    parser.add_argument("--ncsnpp-only", action="store_true",
+                        help="only run the NCSN++ phases (no kernel is built, no ok line)")
     cli = parser.parse_args()
     if cli.kernels_only:
         main(kernels_only=True)
+    elif cli.ncsnpp_only:
+        main(ncsnpp_only=True)
     elif cli.probe_kernels:
         probe_kernels(cli.probe_kernels)
     elif cli.probe_seeds:

@@ -2,8 +2,9 @@
 
 It serves single files (``infer_single``) and folders in batches
 (``infer_folder``) and trains (``train``) the generative and predictive
-TF-GridNets. It mirrors the JAX package's module names (``dsp``, ``paths``,
-``sampling``, ``model``, ``models.tfgridnet``, ``ops.gridrnn``, ...) and
+TF-GridNets and NCSN++ U-Nets. It mirrors the JAX package's module names
+(``dsp``, ``paths``, ``sampling``, ``model``, ``models.tfgridnet``,
+``models.ncsnpp``, ``ops.gridrnn``, ...) and
 imports nothing of it. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; on CPU tensors every kernel wrapper runs its plain
 PyTorch version. The CUDA kernels are built with nvcc at first use.

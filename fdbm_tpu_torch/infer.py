@@ -224,9 +224,9 @@ class BucketedEnhancer:
 
     def prewarm(self) -> float:
         """Build the CUDA kernels (once per checkout) if the model is on a
-        card; returns the seconds it took."""
+        card and runs them (NCSN++ runs none); returns the seconds it took."""
         t0 = time.perf_counter()
-        if self.fdbm.device.type == "cuda":
+        if self.fdbm.device.type == "cuda" and not self.fdbm.cfg.backbone.startswith("ncsnpp"):
             _build.build_all()
         return time.perf_counter() - t0
 
@@ -277,8 +277,11 @@ class BucketedEnhancer:
             y = torch.from_numpy(batch)
             if dev.type == "cuda":
                 y = y.pin_memory().to(dev, non_blocking=True)
+            # NCSN++ serving pads its frames by reflection (reference
+            # infer_single.py:64-69, infer_folder.py:83-88).
+            pad_mode = "reflection" if cfg.backbone.startswith("ncsnpp") else "zero_pad"
             enhanced = self.fdbm.enhance_batch(y, generator, sampler_type=self.sampler_type,
-                                               N=self.N, **self.sampler_kwargs)
+                                               N=self.N, pad_mode=pad_mode, **self.sampler_kwargs)
             done = None
             if dev.type == "cuda":
                 host = torch.empty(enhanced.shape, dtype=enhanced.dtype, pin_memory=True)

@@ -11,8 +11,10 @@ explicit ``torch.Generator``. The optimiser is the JAX package's
 num_updates correction, each matched to optax step by step. Predictive
 mode (a ``*_predictive`` backbone that maps y to the clean spec in one
 call: trained on that call's loss, served without a sampler) follows
-``fdbm_tpu/model.py``; the finetuning objective and NCSN++ are not ported
-yet.
+``fdbm_tpu/model.py``. The backbones are TF-GridNet and NCSN++
+(``models/ncsnpp.py``, built for the config's bin count; its spectrograms
+are padded to a multiple of 64 frames before sampling, ``enhance_batch``).
+The finetuning objective is not ported yet.
 """
 
 from __future__ import annotations
@@ -149,7 +151,11 @@ class FDBM:
         # the 30-step sampler amplifies any per-call deviation.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.dnn = BackboneRegistry.get_by_name(cfg.backbone)(remat=cfg.remat)
+        backbone_kwargs = {"remat": cfg.remat}
+        if cfg.backbone.startswith("ncsnpp"):
+            # The U-Net places its attention by the (even) bin count it reads.
+            backbone_kwargs["image_size"] = (cfg.n_fft // 2 + 1) // 2 * 2
+        self.dnn = BackboneRegistry.get_by_name(cfg.backbone)(**backbone_kwargs)
         self.dnn.to(self.device).eval()
         self.bridge = Bridge.create(
             cfg.bridge, N=cfg.N, T=cfg.T, sampler_type=cfg.sampler_type,
@@ -314,10 +320,18 @@ class FDBM:
     @torch.no_grad()
     def enhance_batch(self, y_audio: torch.Tensor, generator: Optional[torch.Generator] = None,
                       sampler_type: Optional[str] = None, N: Optional[int] = None,
-                      **kwargs) -> torch.Tensor:
-        """[B, L] float32 normalised audio in, [B, L] float32 out."""
+                      pad_mode: str = "zero_pad", **kwargs) -> torch.Tensor:
+        """[B, L] float32 normalised audio in, [B, L] float32 out.
+
+        ``pad_mode``: the frame padding of an NCSN++ backbone's spec to a
+        multiple of 64 frames (``"zero_pad"`` in validation, ``"reflection"``
+        in the serving CLIs; reference infer_single.py:64-69), trimmed by
+        the iSTFT. The padding repeats whole complex frames, which is the
+        JAX package's padding of the real and imaginary parts one by one."""
         length = y_audio.shape[-1]
         y_spec = self.audio_to_spec(y_audio.to(self.device))
+        if self.cfg.backbone.startswith("ncsnpp"):
+            y_spec = dsp.pad_spec(y_spec, pad_mode)
         sample = self.enhance_spec(y_spec, generator, sampler_type, N, **kwargs)
         return self.spec_to_audio(sample[:, 0], length=length)
 

@@ -79,7 +79,20 @@ class Trainer:
 
     def fit(self, resume: bool = True, resume_from: Optional[str] = None) -> TrainState:
         """Train; ``resume_from`` starts from another run's ``last`` slot,
-        otherwise ``resume`` continues this run's own. Returns the state."""
+        otherwise ``resume`` continues this run's own. Returns the state.
+
+        Runs with cuDNN's benchmark mode on (restored after): training
+        repeats a few fixed shapes, so timing each convolution's algorithms
+        once pays, where cuDNN's heuristic picks an FFT-tiled weight
+        gradient for NCSN++ that dominates its step (PERF.md §6)."""
+        saved = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        try:
+            return self._fit(resume, resume_from)
+        finally:
+            torch.backends.cudnn.benchmark = saved
+
+    def _fit(self, resume: bool, resume_from: Optional[str]) -> TrainState:
         fdbm = self.fdbm
         state = TrainState(fdbm.dnn)
         if resume_from:

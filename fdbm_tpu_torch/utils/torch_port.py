@@ -1,11 +1,12 @@
 """Reference PyTorch-Lightning checkpoints -> the port's ``state_dict``.
 
-The port's own copy of ``fdbm_tpu/utils/torch_port.py``'s TF-GridNet import
-(``tfgridnet_from_torch`` and its helpers, ``_TFGRIDNET_PRESETS``,
-``_apply_ema_shadow``, ``_is_gfp_key``, ``load_reference_checkpoint``). A
-reference state_dict (``fdbm/backbones/tfgridnet.py`` module names) becomes a
-Flax-layout tree of numpy arrays, which ``utils/weights.tfgridnet_from_flax``
-turns into the port's ``state_dict``: one converter into the port, not two.
+The port's own copy of ``fdbm_tpu/utils/torch_port.py``'s import
+(``tfgridnet_from_torch``, ``ncsnpp_from_torch`` and their helpers,
+``_TFGRIDNET_PRESETS``, ``_NCSNPP_PRESETS``, ``_apply_ema_shadow``,
+``_is_gfp_key``, ``load_reference_checkpoint``). A reference state_dict
+(``fdbm/backbones/tfgridnet.py`` or ``ncsnpp_v2.py`` module names) becomes a
+Flax-layout tree of numpy arrays, which ``utils/weights.py`` turns into the
+port's ``state_dict``: one converter into the port, not two.
 
 Layouts handled here:
 
@@ -18,9 +19,8 @@ Layouts handled here:
   the input weights permuted from ``F.unfold``'s channel-major windows to
   the tap-major windows of the port;
 * torch ConvTranspose1d ``[I, O, k]`` -> the fold Dense ``[I, k*O]``
-  (tap-major columns) and its bias.
-
-NCSN++ is not ported (ROADMAP queue 1 item 6), so its presets raise.
+  (tap-major columns) and its bias;
+* NCSN++'s ``NIN`` layers, which store ``W`` as ``[I, O]`` already -> Dense.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from fdbm_tpu_torch.utils.weights import tfgridnet_from_flax
+from fdbm_tpu_torch.utils.weights import ncsnpp_from_flax, tfgridnet_from_flax
 
 _OLP_KS = 4  # emb_ks of both frameworks
 
@@ -41,6 +41,18 @@ _TFGRIDNET_PRESETS = {
     "tfgridnet_4l32c80": dict(n_layers=4, emb_dim=32),
     "tfgridnet_5l32c100_predictive": dict(n_layers=5, emb_dim=32, time_conditioned=False),
     "tfgridnet_4l32c80_predictive": dict(n_layers=4, emb_dim=32, time_conditioned=False),
+}
+# (ncsnpp_v2.py:404-453)
+_NCSNPP_7 = dict(ch_mult=(1, 1, 2, 2, 2, 2, 2), num_res_blocks=2)
+_NCSNPP_4 = dict(nf=96, ch_mult=(1, 1, 1, 1), num_res_blocks=1, attn_resolutions=(0,))
+_NCSNPP_PRESETS = {
+    "ncsnpp_v2": dict(nf=128, attn_resolutions=(16,), **_NCSNPP_7),
+    "ncsnpp_v2_5M": _NCSNPP_4,
+    "ncsnpp_v2_16M": dict(nf=64, attn_resolutions=(0,), **_NCSNPP_7),
+    "ncsnpp_v2_37M": dict(nf=96, attn_resolutions=(16,), **_NCSNPP_7),
+    "ncsnpp_v2_predictive": dict(nf=128, attn_resolutions=(16,), time_conditioned=False,
+                                 **_NCSNPP_7),
+    "ncsnpp_v2_5M_predictive": dict(time_conditioned=False, **_NCSNPP_4),
 }
 
 
@@ -133,16 +145,97 @@ def tfgridnet_from_torch(sd: Mapping[str, np.ndarray], n_layers: int, emb_dim: i
     return {"params": p}
 
 
+# -- NCSN++ v2 -----------------------------------------------------------------
+
+
+def _groupnorm(sd: Mapping[str, np.ndarray], name: str) -> Dict[str, np.ndarray]:
+    return {"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]}
+
+
+def _nin(sd: Mapping[str, np.ndarray], name: str) -> Dict[str, np.ndarray]:
+    """NIN stores W as [in, out] already (layers.py:546-555)."""
+    return {"kernel": sd[f"{name}.W"], "bias": sd[f"{name}.b"]}
+
+
+def _resblock(sd: Mapping[str, np.ndarray], pfx: str) -> Dict[str, Any]:
+    """ResnetBlockBigGANpp (layerspp.py:212-274) -> ResnetBlockBigGAN."""
+    blk = {"gn0": _groupnorm(sd, f"{pfx}.GroupNorm_0"), "conv0": _conv2d(sd, f"{pfx}.Conv_0"),
+           "gn1": _groupnorm(sd, f"{pfx}.GroupNorm_1"), "conv1": _conv2d(sd, f"{pfx}.Conv_1")}
+    if f"{pfx}.Dense_0.weight" in sd:
+        blk["temb_proj"] = _dense(sd, f"{pfx}.Dense_0")
+    if f"{pfx}.Conv_2.weight" in sd:
+        blk["shortcut"] = _dense_from_1x1(sd, f"{pfx}.Conv_2")
+    return blk
+
+
+def _attnblock(sd: Mapping[str, np.ndarray], pfx: str) -> Dict[str, Any]:
+    """AttnBlockpp (layerspp.py:62-91) -> AttnBlock."""
+    return {"norm": _groupnorm(sd, f"{pfx}.GroupNorm_0"),
+            **{key: _nin(sd, f"{pfx}.NIN_{i}") for i, key in enumerate(("q", "k", "v", "proj"))}}
+
+
+def ncsnpp_from_torch(sd: Mapping[str, np.ndarray], nf: int = 128,
+                      ch_mult=(1, 1, 2, 2, 2, 2, 2), num_res_blocks: int = 2,
+                      attn_resolutions=(16,), image_size: int = 256,
+                      time_conditioned: bool = True) -> Dict[str, Any]:
+    """Reference NCSNpp_v2 state_dict of numpy arrays -> the Flax-layout
+    parameter tree (``{"params": ...}``) of ``fdbm_tpu.models.ncsnpp``.
+
+    Walks the reference's flat ``all_modules`` list in construction order
+    (ncsnpp_v2.py:95-239) and gives each index its named submodule; the
+    attention sits where the reference puts it, at the levels whose
+    ``image_size // 2**level`` is in ``attn_resolutions``. The config must
+    be the one the checkpoint was built with."""
+    levels = len(ch_mult)
+    all_res = [image_size // (2 ** i) for i in range(levels)]
+    idx = [0]
+
+    def nxt() -> str:
+        idx[0] += 1
+        return f"all_modules.{idx[0] - 1}"
+
+    p: Dict[str, Any] = {}
+    if time_conditioned:
+        p["time_emb"] = {"W": sd[f"{nxt()}.W"]}
+        p["time_fc0"] = _dense(sd, nxt())
+        p["time_fc1"] = _dense(sd, nxt())
+    p["conv_in"] = _conv2d(sd, nxt())
+    for level in range(levels):
+        for block in range(num_res_blocks):
+            p[f"down_{level}_{block}"] = _resblock(sd, nxt())
+            if all_res[level] in attn_resolutions:
+                p[f"down_attn_{level}_{block}"] = _attnblock(sd, nxt())
+        if level != levels - 1:
+            p[f"down_{level}_ds"] = _resblock(sd, nxt())
+            p[f"combine_{level}"] = _dense_from_1x1(sd, f"{nxt()}.Conv_0")
+    p["mid_0"] = _resblock(sd, nxt())
+    p["mid_attn"] = _attnblock(sd, nxt())
+    p["mid_1"] = _resblock(sd, nxt())
+    for level in reversed(range(levels)):
+        for block in range(num_res_blocks + 1):
+            p[f"up_{level}_{block}"] = _resblock(sd, nxt())
+        if all_res[level] in attn_resolutions:
+            p[f"up_attn_{level}"] = _attnblock(sd, nxt())
+        p[f"pyr_gn_{level}"] = _groupnorm(sd, nxt())
+        p[f"pyr_conv_{level}"] = _conv2d(sd, nxt())
+        if level != 0:
+            p[f"up_{level}_us"] = _resblock(sd, nxt())
+    n_modules = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("all_modules."))
+    if idx[0] != n_modules:
+        raise ValueError(f"module walk consumed {idx[0]} of {n_modules} all_modules: "
+                         "config mismatch with the checkpoint")
+    p["output_layer"] = _dense_from_1x1(sd, "output_layer")
+    return {"params": p}
+
+
 def backbone_state_dict_from_torch(backbone: str,
                                    sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """The port's backbone ``state_dict`` from a reference backbone
     state_dict (numpy arrays), by registry name."""
     if backbone in _TFGRIDNET_PRESETS:
         return tfgridnet_from_flax(tfgridnet_from_torch(sd, **_TFGRIDNET_PRESETS[backbone]))
-    if backbone.startswith("ncsnpp"):
-        raise NotImplementedError(
-            f"backbone {backbone!r}: NCSN++ is not ported to fdbm_tpu_torch yet "
-            "(ROADMAP queue 1 item 6, NCSN++)")
+    if backbone in _NCSNPP_PRESETS:
+        return ncsnpp_from_flax(ncsnpp_from_torch(sd, **_NCSNPP_PRESETS[backbone]))
     raise ValueError(f"No torch-import preset for backbone {backbone!r}")
 
 

@@ -1,6 +1,7 @@
-"""Flax TF-GridNet parameters -> the port's ``state_dict``.
+"""Flax backbone parameters -> the port's ``state_dict``.
 
-The port's modules keep the JAX package's parameter packing (BiLSTM
+TF-GridNet (``tfgridnet_from_flax``): the port's modules keep the JAX
+package's parameter packing (BiLSTM
 ``w_ih [2, 4C, 4H]`` tap-major, ``w_hh [2, H, 4H]``, ``bias [2, 4H]``, the
 fold's ``deconv_kernel [2H, 4C]``, the attention norms' ``[H, 1]`` /
 ``[H, E]``), so most leaves carry over as they are. The rest is layout:
@@ -13,6 +14,11 @@ fold's ``deconv_kernel [2H, 4C]``, the attention norms' ``[H, 1]`` /
   with the spatial taps flipped;
 * GroupNorm ``scale`` -> ``weight``; ``block_i`` / ``time_block_i`` ->
   ``blocks.i`` / ``time_blocks.i``.
+
+NCSN++ (``ncsnpp_from_flax``): the port's submodules carry the Flax names,
+so each leaf keeps its path and only the layouts change (a Conv kernel's
+``kh`` runs over frequency H here, ``kw`` over frames).
+:func:`backbone_state_dict_from_flax` picks the converter by registry name.
 
 Inputs are numpy arrays (``jax.device_get`` of the Flax tree), so this module
 needs neither JAX nor Flax.
@@ -86,3 +92,37 @@ def tfgridnet_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for i in range(n_layers):
         sd.update(gridnet_block_from_flax(p[f"block_{i}"], f"blocks.{i}."))
     return sd
+
+
+def ncsnpp_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``NCSNpp`` state_dict from a Flax NCSN++ parameter tree
+    of numpy arrays (with or without the top-level ``"params"``), generative
+    or predictive: every leaf keeps its path (``down_0_0/conv0/kernel`` ->
+    ``down_0_0.conv0.weight``); Conv ``kernel [kh, kw, I, O]`` ->
+    ``[O, I, kh, kw]``, Dense ``kernel [I, O]`` -> ``[O, I]``, GroupNorm
+    ``scale`` -> ``weight``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping[str, Any], prefix: str) -> None:
+        for name, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{name}.")
+            elif name == "kernel":
+                a = np.asarray(v)
+                sd[f"{prefix}weight"] = _t(a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T)
+            else:
+                sd[f"{prefix}{'weight' if name == 'scale' else name}"] = _t(v)
+
+    walk(params.get("params", params), "")
+    return sd
+
+
+def backbone_state_dict_from_flax(backbone: str,
+                                  params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's backbone ``state_dict`` from a Flax parameter tree, by
+    registry name."""
+    if backbone.startswith("ncsnpp"):
+        return ncsnpp_from_flax(params)
+    if backbone.startswith("tfgridnet"):
+        return tfgridnet_from_flax(params)
+    raise ValueError(f"No Flax converter for backbone {backbone!r}")

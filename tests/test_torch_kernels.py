@@ -216,8 +216,9 @@ def test_registered_variants_and_gate():
     from fdbm_tpu_torch.models import BackboneRegistry
 
     assert BackboneRegistry.get_all_names() == [
-        "tfgridnet_4l32c80", "tfgridnet_4l32c80_predictive", "tfgridnet_5l32c100",
-        "tfgridnet_5l32c100_predictive"]
+        "ncsnpp_v2", "ncsnpp_v2_16M", "ncsnpp_v2_37M", "ncsnpp_v2_5M", "ncsnpp_v2_5M_predictive",
+        "ncsnpp_v2_predictive", "tfgridnet_4l32c80", "tfgridnet_4l32c80_predictive",
+        "tfgridnet_5l32c100", "tfgridnet_5l32c100_predictive"]
     for name, hidden in (("tfgridnet_5l32c100", 100), ("tfgridnet_4l32c80", 80)):
         for twin in (name, f"{name}_predictive"):
             net = BackboneRegistry.get_by_name(twin)()

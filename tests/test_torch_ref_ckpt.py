@@ -140,9 +140,8 @@ def test_both_clis_serve_a_reference_ckpt(ckpt, tmp_path):
     assert read_wav(str(tmp_path / "out" / "x.wav"))[0].shape == (1, 700)
 
 
-@pytest.mark.parametrize("backbone", ["ncsnpp_v2", "ncsnpp_v2_5M_predictive"])
-def test_ncsnpp_presets_raise(backbone):
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        backbone_state_dict_from_torch(backbone, {})
+def test_unknown_backbone_preset_raises():
+    """NCSN++'s presets import (tests/test_torch_ncsnpp_serve.py); a name
+    with no preset raises."""
     with pytest.raises(ValueError, match="No torch-import preset"):
         backbone_state_dict_from_torch("resnet", {})
