@@ -29,8 +29,19 @@ NCSN++:
   at the shapes of a step (B=2, 256 frames), one training step's loss and
   gradients against
   the all-plain route, ``fdbm_tpu_torch.train`` on a synthetic dataset
-  (train, resume, then serve the ``last`` slot), and the training rate of
-  steady steps with one profiled step.
+  (train, resume, then serve the ``last`` slot; its per-epoch evaluation
+  fills the ``best_pesq`` and ``best_si_sdr`` slots), and the training rate
+  of steady steps with one profiled step. Fine-tuning (the enhanced bridge,
+  configs/config_finetuning.yaml: N=5 ``ode_ei``, the first N-1 calls on
+  the serving route without a gradient, the last on the training route):
+  one fine-tuning step's loss and gradients against the all-plain route
+  (``finetune_grad``; against float64 where the unroll carries fp32
+  rounding past the fp32 gate), ``fdbm_tpu_torch.train_finetuning`` from
+  the train phase's run with its evaluation, its ``last`` slot served
+  through both serving CLIs (``finetune``), ``fdbm_tpu_torch.evaluate`` on
+  those outputs (``evaluate``), the fine-tuning rate (``finetune_rate``),
+  and every loss type and PESQ on the card against the CPU
+  (``losses_card``).
 * ``TFGridNet()`` at its class defaults (6 blocks, C=48, H=200; called
   6l48c200 here; no registered name), outside the gate, through the
   generic RNN path and the LSTM kernels of ``ops/lstm.py``. Each LSTM
@@ -107,6 +118,7 @@ recurrences), so a before/after comes from one card.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -427,24 +439,30 @@ def kernel_times(fn, names: dict, calls: int = 3) -> dict:
     torch.profiler: ``names`` maps a stage to a substring of its kernels'
     names, or to a tuple of such substrings. A stage's time is the mean over
     the launches the profiler recorded (it may miss one) times its launches
-    per call; a stage that launched nothing is left out."""
+    per call; a stage that launched nothing is left out. The profiler
+    sometimes records none of a short kernel's launches in a window, so a
+    window that misses a stage is profiled again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)
     times = {}
-    for stage, subs in names.items():
-        subs = (subs,) if isinstance(subs, str) else subs
-        hits = [e for e in kernels if any(sub in e.key for sub in subs)]
-        launches = sum(e.count for e in hits)
-        if launches:
-            per_call = max(1, round(launches / calls))
-            times[stage] = sum(e.self_device_time_total for e in hits) / 1e3 / launches * per_call
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        for stage, subs in names.items():
+            subs = (subs,) if isinstance(subs, str) else subs
+            hits = [e for e in kernels if any(sub in e.key for sub in subs)]
+            launches = sum(e.count for e in hits)
+            if launches and stage not in times:
+                per_call = max(1, round(launches / calls))
+                times[stage] = (sum(e.self_device_time_total for e in hits) / 1e3 / launches
+                                * per_call)
+        if len(times) == len(names):
+            break
     return times
 
 
@@ -748,11 +766,12 @@ def synthetic_batch(rng, dev):
     return tuple(torch.as_tensor(a.astype(np.float32), device=dev) for a in (x, y))
 
 
-def fdbm_with(backbone, dev, **kw):
-    """An FDBM of the default config whose backbone is ``backbone(**kw)``."""
+def fdbm_with(backbone, dev, cfg=None, **kw):
+    """An FDBM of ``cfg`` (the default config) whose backbone is
+    ``backbone(**kw)``."""
     from fdbm_tpu_torch.model import FDBM, FDBMConfig
 
-    fdbm = FDBM(FDBMConfig(), device="cuda")
+    fdbm = FDBM(cfg or FDBMConfig(), device="cuda")
     fdbm.dnn = backbone(**kw).to(dev).eval()
     return fdbm
 
@@ -1013,6 +1032,8 @@ def train_grad_phase(rng, dev, backbone, expected: dict, phase: str = "train_gra
 
 
 DATA_SAMPLES = 5 * 16000
+# configs/config.yaml's sampler steps (sde_ei), which its per-epoch evaluation runs.
+FOLDER_N_TRAIN = 5
 
 
 def write_dataset(tmp: str) -> str:
@@ -1038,12 +1059,13 @@ def write_dataset(tmp: str) -> str:
     return base
 
 
-def train_cli_phase(tmp: str, smi: str, backbone: str = "") -> dict:
+def train_cli_phase(tmp: str, smi: str, backbone: str = ""):
     """fdbm_tpu_torch.train on a synthetic dataset at the config's own
-    operating point: train, resume, then serve the last slot's EMA weights.
-    Returns the training kernels' launches over train + resume. With
-    ``backbone`` set (NCSN++) every kernel of the port stays at 0 launches,
-    training and serving."""
+    operating point, its per-epoch evaluation included (the config's
+    num_eval_files: all 3 valid files): train, resume, then serve the last
+    slot's EMA weights. Returns the launches over train + resume and the run
+    directory. With ``backbone`` set (NCSN++, no evaluation) every kernel of
+    the port stays at 0 launches, training and serving."""
     from fdbm_tpu_torch import infer_single, ops, train
     from fdbm_tpu_torch.utils.audio import read_wav
 
@@ -1052,13 +1074,12 @@ def train_cli_phase(tmp: str, smi: str, backbone: str = "") -> dict:
     root = os.path.dirname(os.path.abspath(__file__))
     args = ["-C", os.path.join(root, "configs", "config.yaml"), f"base_dir={base}",
             f"log_dir={os.path.join(tmp, 'logs' + (f'_{backbone}' if backbone else ''))}",
-            "num_eval_files=0",
             f"batch_size={TRAIN_BATCH}", f"num_frames={TRAIN_FRAMES}", "num_workers=2"]
-    args += [f"backbone={backbone}"] if backbone else []
+    args += [f"backbone={backbone}", "num_eval_files=0"] if backbone else []
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()) as cli_out:
+    with counting_batches() as batches, contextlib.redirect_stdout(io.StringIO()) as cli_out:
         run = train.main(args + ["--max_steps", str(TRAIN_STEPS)])
         first = ops.launch_counts()
         train.main(args + ["--max_steps", str(TRAIN_STEPS + RESUME_STEPS), "--resume", run])
@@ -1068,21 +1089,28 @@ def train_cli_phase(tmp: str, smi: str, backbone: str = "") -> dict:
     records = [json.loads(ln) for ln in open(os.path.join(run, "metrics.jsonl"))]
     valid = [r["valid_loss"] for r in records if "valid_loss" in r]
     train_loss = [r["train_loss"] for r in records if "train_loss" in r]
+    scores = [[r.get(k) for k in ("pesq", "si_sdr", "estoi")] for r in records if "valid_loss" in r]
     ckpts = os.path.join(run, "checkpoints")
     last = torch.load(os.path.join(ckpts, "last.pt"), map_location="cpu", weights_only=True)
     steps = TRAIN_STEPS + RESUME_STEPS
     valid_batches = 2 * len(valid)  # 3 valid files at batch 2 per validation
+    calls = FOLDER_N_TRAIN * len(batches)  # the evaluations' sampler calls (sde_ei, N=5)
     expected = {"grid_fold_train_pair": RNN_PATHS * steps,
                 "grid_fold_train_pair_bwd": RNN_PATHS * steps,
-                "grid_bilstm_fold": RNN_PATHS * valid_batches}
+                "grid_bilstm_fold": RNN_PATHS * valid_batches,
+                "grid_rnn_seq1_pair": RNN_PATHS * calls,
+                "flat_group_norm": RNN_BLOCKS * calls, "frame_attention": RNN_BLOCKS * calls}
+    slots = ("last.pt", "best_valid_loss.pt", "meta.json")
     if backbone:
         expected = dict.fromkeys(counts, 0)
+    else:
+        slots += ("best_pesq.pt", "best_si_sdr.pt")
     ok = (last["train_state"]["step"] == steps and valid and train_loss
           and all(np.isfinite(valid + train_loss))
-          and all(os.path.exists(os.path.join(ckpts, f)) for f in
-                  ("last.pt", "best_valid_loss.pt", "meta.json"))
+          and all(os.path.exists(os.path.join(ckpts, f)) for f in slots)
           and all(counts[k] == v for k, v in expected.items())
-          and all(counts[k] == 0 for k in SERVE_KERNELS))
+          and (backbone or (len(batches) == len(valid)
+                            and all(s is not None and np.isfinite(s) for r in scores for s in r))))
 
     # Serve one file from the run's last slot (its EMA weights).
     noisy = os.path.join(base, "valid", "noisy", "0.wav")
@@ -1103,32 +1131,32 @@ def train_cli_phase(tmp: str, smi: str, backbone: str = "") -> dict:
     emit({"phase": f"train_{backbone}" if backbone else "train", "backbone": backbone or None,
           "steps": steps, "resumed_at": TRAIN_STEPS, "batch": TRAIN_BATCH,
           "frames": TRAIN_FRAMES, "train_files": 6, "valid_files": 3,
-          "train_loss": train_loss, "valid_loss": valid,
-          "last_step": last["train_state"]["step"],
+          "train_loss": train_loss, "valid_loss": valid, "pesq_si_sdr_estoi": scores,
+          "eval_batches": len(batches), "last_step": last["train_state"]["step"],
           "slots": sorted(os.listdir(ckpts)), "wall_seconds": wall,
           "launches": counts, "launches_first_run": first, "expected_launches": expected,
           "served_samples": int(served.shape[-1]), "serve_launches": serve_counts,
           "cli": cli_out.getvalue().strip().splitlines()[-2:], "nvidia_smi": smi})
     if not ok:
         fail(f"train CLI: last step {last['train_state']['step']}, losses {train_loss} "
-             f"{valid}, launches "
+             f"{valid}, scores {scores}, slots {sorted(os.listdir(ckpts))}, launches "
              f"{counts} (expected {expected}), served {served.shape}")
-    return {k: counts[k] for k in TRAIN_KERNELS}
+    return counts, run
 
 
-def train_rate_phase(rng, dev, smi: str, backbone, phase: str = "train_rate"):
+def train_rate_phase(rng, dev, smi: str, backbone, phase: str = "train_rate", cfg=None):
     """Train audio-s/s over steady steps of the full-width model at B=2 and
     256 frames (8.16 audio-s per step), the step time, peak memory, and the
-    device idle share and top kernels of one profiled step. Returns the
-    model, its train state, the batch and the launches of the steady
-    steps."""
+    device idle share and top kernels of one profiled step; ``cfg`` (e.g.
+    fine-tuning mode) replaces the default config. Returns the model, its
+    train state, the batch and the launches of the steady steps."""
     from torch.profiler import ProfilerActivity, profile
 
     from fdbm_tpu_torch import ops
     from fdbm_tpu_torch.model import TrainState
 
     torch.manual_seed(SEED)
-    fdbm = fdbm_with(backbone, dev)
+    fdbm = fdbm_with(backbone, dev, cfg)
     state = TrainState(fdbm.dnn)
     batch = synthetic_batch(rng, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1154,7 +1182,7 @@ def train_rate_phase(rng, dev, smi: str, backbone, phase: str = "train_rate"):
     kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]
-    emit({"phase": phase, "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
+    emit({"phase": phase, "mode": fdbm.cfg.mode, "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
           "audio_seconds_per_step": audio_per_step, "steps": steps, "step_ms": step_s * 1e3,
           "launches": counts,
           "train_audio_seconds_per_second": audio_per_step / step_s,
@@ -1168,6 +1196,315 @@ def train_rate_phase(rng, dev, smi: str, backbone, phase: str = "train_rate"):
     if not busy_ms:
         fail(f"{phase}: the profiler recorded no device time")
     return fdbm, state, batch, counts
+
+
+# -- fine-tuning: the enhanced bridge through its unrolled ODE-EI sampler ---------------
+
+# configs/config_finetuning.yaml: N=5 ode_ei steps, of which the first N-1 run
+# on the serving route without a gradient (kernels 1-3) and the last trains
+# (kernels 5-6; kernel 4 in the valid loss).
+FT_N = 5
+FT_STEPS = 4
+
+
+def finetune_cfg():
+    from fdbm_tpu_torch.model import FDBMConfig
+
+    return FDBMConfig(mode="finetuning", sampler_type="ode_ei", N=FT_N,
+                      scheduler_config={"scheduler": "exp", "config": {"gamma": 0.99995}})
+
+
+def finetune_launches(steps: int, valid_batches: int = 0, eval_calls: int = 0) -> dict:
+    """The kernels' launches of fine-tuning steps, fine-tuning valid batches
+    and evaluation sampler calls of 5l32c100."""
+    serve_calls = (FT_N - 1) * (steps + valid_batches) + eval_calls
+    return {"grid_rnn_seq1_pair": RNN_PATHS * serve_calls,
+            "flat_group_norm": RNN_BLOCKS * serve_calls,
+            "frame_attention": RNN_BLOCKS * serve_calls,
+            "grid_bilstm_fold": RNN_PATHS * valid_batches,
+            "grid_fold_train_pair": RNN_PATHS * steps,
+            "grid_fold_train_pair_bwd": RNN_PATHS * steps}
+
+
+def finetune_grad_phase(rng, dev) -> dict:
+    """One fine-tuning step of 5l32c100 (B=2, 256 frames, N=5 on ``bb``) on
+    the same spectrograms, prior draw and weights through the kernel route
+    and the all-plain route: the unrolled output, the loss and every leaf's
+    gradient. The gate is ``train_grad``'s (loss rel 1e-5, every leaf
+    norm-rel 1e-3, floored at 1e-4 of the global norm). The unroll carries
+    each call's fp32 rounding into the next call's input, so where that gate
+    is missed the two fp32 routes are held against the plain route in
+    float64 instead, as 6l48c200's step is (``float64_gate``'s rule: per
+    group of leaves within max(F64_FLOOR, F64_K x the plain fp32 route's
+    worst), the loss within max(1e-5, F64_K x the plain route's), and the
+    plain route with TF32 on must miss). Returns the kernel route's
+    launches."""
+    from fdbm_tpu_torch import losses, ops
+    from fdbm_tpu_torch.models.tfgridnet import tfgridnet_5l32c100
+
+    torch.manual_seed(SEED)
+    kernel = fdbm_with(tfgridnet_5l32c100, dev, finetune_cfg())
+    plain = fdbm_with(tfgridnet_5l32c100, dev, finetune_cfg(), use_kernels=False)
+    plain.dnn.load_state_dict(kernel.dnn.state_dict())
+    x, y = (kernel.audio_to_spec(a) for a in synthetic_batch(rng, dev))
+    z = complex_like(rng, y)
+
+    def route(fdbm, cdt=torch.complex64):
+        params = {n: p for n, p in fdbm.dnn.named_parameters() if p.requires_grad}
+        t0 = time.perf_counter()
+        out = fdbm._finetune_unrolled(y.to(cdt), z=z.to(cdt))
+        loss = losses.compute_loss(fdbm.loss_cfg, out, x.to(cdt))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        return (out.detach(), float(loss.detach()),
+                {n: g.double() for n, g in zip(params, grads)}, time.perf_counter() - t0)
+
+    ops.reset_launch_counts()
+    out_k, loss_k, g_k, wall_k = route(kernel)
+    counts = ops.launch_counts()
+    out_p, loss_p, g_p, wall_p = route(plain)
+    gnorm = math.sqrt(sum(float((g * g).sum()) for g in g_p.values()))
+    rels = {n: grad_rel(g_k[n], g_p[n], 1e-4 * gnorm) for n in g_p}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    record = {"phase": "finetune_grad", "N": FT_N, "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
+              "out_rel": rel_err(out_k, out_p), "loss": loss_k, "loss_plain": loss_p,
+              "loss_rel": loss_rel, "loss_tol": 1e-5, "worst_leaf": worst,
+              "worst_grad_rel": rels[worst], "grad_tol": 1e-3, "leaves": len(rels),
+              "grad_norm": gnorm, "seconds_kernel_route": wall_k, "seconds_plain_route": wall_p,
+              "launches": counts, "expected_launches": finetune_launches(1)}
+    ok = loss_rel < 1e-5 and rels[worst] < 1e-3
+    record["gate"] = "fp32"
+    if not ok:
+        record["gate"] = "float64"
+        with tf32_on():
+            out_t, loss_t, g_t, _ = route(plain)
+        net64 = tfgridnet_5l32c100(use_kernels=False, remat=True).to(dev).double()
+        net64.load_state_dict(plain.dnn.state_dict())
+        plain.dnn = net64
+        out_64, loss_64, g_64, wall_64 = route(plain, torch.complex128)
+        del net64
+        torch.cuda.empty_cache()
+        norm64 = math.sqrt(sum(float((g * g).sum()) for g in g_64.values()))
+        groups = {}
+        for n in g_64:
+            groups.setdefault(leaf_group(n), []).append(n)
+        by_group = lambda g: {grp: max(grad_rel(g[n], g_64[n], 1e-4 * norm64) for n in names)
+                              for grp, names in groups.items()}
+        worst_p, worst_k, worst_t = by_group(g_p), by_group(g_k), by_group(g_t)
+        limits = {grp: max(F64_FLOOR, F64_K * v) for grp, v in worst_p.items()}
+        missed = lambda w: sorted(grp for grp in groups if not w[grp] <= limits[grp])
+        lrel = lambda v: abs(v - loss_64) / abs(loss_64)
+        loss_limit = max(1e-5, F64_K * lrel(loss_p))
+        out64 = out_64.to(torch.complex64)
+        record["float64"] = {
+            "seconds": wall_64, "grad_norm": norm64, "floor": F64_FLOOR, "k": F64_K,
+            "groups": len(groups), "loss_limit": loss_limit,
+            "routes": {r: {"out_rel": rel_err(o, out64), "loss_rel": lrel(lv),
+                           "worst_group": max(w.items(), key=lambda a: a[1] / limits[a[0]]),
+                           "missed": missed(w)[:4]}
+                       for r, o, lv, w in (("kernel", out_k, loss_k, worst_k),
+                                           ("plain", out_p, loss_p, worst_p),
+                                           ("plain_tf32", out_t, loss_t, worst_t))}}
+        ok = (not missed(worst_k) and lrel(loss_k) <= loss_limit
+              and (bool(missed(worst_t)) or lrel(loss_t) > loss_limit))
+    emit(record)
+    if not ok:
+        fail(f"fine-tuning step: kernel route vs plain route {record}")
+    if counts != {**dict.fromkeys(counts, 0), **finetune_launches(1)}:
+        fail(f"fine-tuning step launched {counts}, expected {finetune_launches(1)}")
+    return counts
+
+
+def finetune_cli_phase(tmp: str, smi: str, pretrained: str):
+    """``python -m fdbm_tpu_torch.train_finetuning -C configs/config_finetuning.yaml``
+    from the train phase's run (its ``last`` slot's EMA weights) on the same
+    synthetic dataset, the config's own settings (B=2, 256 frames, N=5, its
+    num_eval_files: all 3 valid files) for FT_STEPS steps; then its ``last``
+    slot served through ``infer_single`` (one file) and ``infer_folder``
+    (the 3 valid files, which the ``evaluate`` phase scores). Returns the
+    launches of the fine-tuning run and the folder of enhanced files."""
+    from fdbm_tpu_torch import infer_folder, infer_single, ops, train_finetuning
+    from fdbm_tpu_torch.utils.audio import read_wav
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = write_dataset(tmp)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with counting_batches() as batches, contextlib.redirect_stdout(io.StringIO()):
+        run = train_finetuning.main([
+            "-C", os.path.join(root, "configs", "config_finetuning.yaml"), f"ckpt={pretrained}",
+            f"base_dir={base}", f"log_dir={os.path.join(tmp, 'ft_logs')}", "num_workers=2",
+            "--max_steps", str(FT_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    records = [json.loads(ln) for ln in open(os.path.join(run, "metrics.jsonl"))]
+    valid = [r for r in records if "valid_loss" in r]
+    train_loss = [r["train_loss"] for r in records if "train_loss" in r]
+    ckpts = os.path.join(run, "checkpoints")
+    last = torch.load(os.path.join(ckpts, "last.pt"), map_location="cpu", weights_only=True)
+    cfg = last["config"]
+    samples = sorted(os.listdir(os.path.join(run, "valid_samples")))
+    expected = finetune_launches(FT_STEPS, valid_batches=2 * len(valid),
+                                 eval_calls=FT_N * len(batches))
+    # (the trainer logs train_loss every 10 steps: none in FT_STEPS)
+    ok = (len(valid) == len(batches) > 0 and last["train_state"]["step"] == FT_STEPS
+          and np.isfinite(train_loss).all()
+          and all(np.isfinite([r.get(k, np.nan) for k in ("valid_loss", "pesq", "si_sdr",
+                                                          "estoi")]).all() for r in valid)
+          and all(os.path.exists(os.path.join(ckpts, f)) for f in
+                  ("last.pt", "best_valid_loss.pt", "best_pesq.pt", "best_si_sdr.pt"))
+          and (cfg["mode"], cfg["sampler_type"], cfg["N"]) == ("finetuning", "ode_ei", FT_N)
+          and len(samples) == 3 * (2 + len(valid))
+          and all(counts[k] == v for k, v in expected.items()))
+
+    single = os.path.join(tmp, "ft_enhanced.wav")
+    src = os.path.join(base, "valid", "noisy")
+    dst = os.path.join(tmp, "ft_enhanced")
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        infer_single.main(["-C", os.path.join(root, "configs", "config_infer_single.yaml"),
+                           f"ckpt={run}", f"noisy_file={os.path.join(src, '0.wav')}",
+                           f"output_file={single}", "N=5", "sampler_type=ode_ei"])
+        stats = infer_folder.main(["-C", os.path.join(root, "configs", "config_infer_folder.yaml"),
+                                   f"ckpt={run}", f"test_dir={src}", f"enhanced_dir={dst}",
+                                   "N=5", "sampler_type=ode_ei",
+                                   "--batch_size", str(FOLDER_BATCH)])
+    torch.cuda.synchronize()
+    serve = ops.launch_counts()
+    outputs = [read_wav(p)[0] for p in [single] + [os.path.join(dst, f) for f in
+                                                   sorted(os.listdir(src))]]
+    ok = ok and (stats.files == 3 and stats.failures == 0
+                 and all(o.shape == (1, DATA_SAMPLES) and np.isfinite(o).all() for o in outputs)
+                 and min(serve[k] for k in SERVE_KERNELS) > 0)
+    emit({"phase": "finetune", "pretrained": "the train phase's run, slot last (EMA)",
+          "steps": FT_STEPS, "N": cfg["N"], "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
+          "train_loss": train_loss,
+          "valid": [{k: r.get(k) for k in ("step", "valid_loss", "pesq", "si_sdr", "estoi")}
+                    for r in valid],
+          "eval_batches": len(batches), "slots": sorted(os.listdir(ckpts)),
+          "valid_samples": len(samples), "wall_seconds": wall, "launches": counts,
+          "expected_launches": expected, "served_files": stats.files + 1,
+          "serve_launches": serve, "nvidia_smi": smi})
+    if not ok:
+        fail(f"fine-tuning CLI: valid {valid}, train {train_loss}, slots "
+             f"{sorted(os.listdir(ckpts))}, samples {samples}, launches {counts} (expected "
+             f"{expected}), served {stats.files} files, launches {serve}")
+    return counts, dst
+
+
+def evaluate_phase(tmp: str, enhanced: str) -> None:
+    """``python -m fdbm_tpu_torch.evaluate`` on the fine-tuned model's
+    enhanced valid files against their clean and noisy references, PESQ on
+    the card."""
+    from fdbm_tpu_torch import evaluate
+
+    base = write_dataset(tmp)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = evaluate.main(["--clean_dir", os.path.join(base, "valid", "clean"),
+                                 "--enhanced_dir", enhanced,
+                                 "--noisy_dir", os.path.join(base, "valid", "noisy")])
+    wall = time.perf_counter() - t0
+    emit({"phase": "evaluate", "summary": summary, "wall_seconds": wall})
+    metrics = ("si_sdr", "estoi", "pesq", "si_sir", "si_sar")
+    if not (summary["files"] == 3 and summary["missing_refs"] == 0
+            and all(summary[k]["n"] == 3 and np.isfinite(summary[k]["mean"]) for k in metrics)):
+        fail(f"evaluate: {summary}")
+
+
+def speechlike(seconds: float, seed: int) -> np.ndarray:
+    """A gated harmonic voice with formants (the PESQ tests' carrier)."""
+    t = np.arange(int(seconds * 16000)) / 16000
+    phase = 2 * np.pi * np.cumsum(120 * (1 + 0.1 * np.sin(2 * np.pi * 2.1 * t))) / 16000
+    sig = sum((np.exp(-((120 * k - 500) / 350) ** 2) + 0.7 * np.exp(-((120 * k - 1500) / 500) ** 2))
+              * np.sin(k * phase) for k in range(1, 25))
+    gate = (np.sin(2 * np.pi * 4 * t) > -0.3) * (np.sin(2 * np.pi * 0.7 * t + seed) > -0.5)
+    return (0.05 * sig * gate).astype(np.float32)
+
+
+def losses_card_phase(rng, dev) -> None:
+    """Every ``loss_type`` (with ``pesq_weight`` 0.1 on the two that take it)
+    on the spectrograms of a speech-like target and its noisy copy (B=2, 256
+    frames) on the card, against the same on the CPU in float64 (the PESQ
+    term computes in fp32 there too), within rel 1e-5; ``pesq_mos`` of 4 s
+    pairs on the card against the CPU within 1e-4 MOS; the PESQ term's
+    gradient with respect to the estimate, finite and nonzero; and one
+    5l32c100 training step with ``pesq_weight`` 0.1, finite, with the PESQ
+    term's share of its gradient printed (on random weights the output is
+    far from the target, where P.862's clamp of each frame's disturbance at
+    45 can leave the term no gradient)."""
+    from fdbm_tpu_torch import losses, ops, pesq_loss
+    from fdbm_tpu_torch.model import FDBMConfig, TrainState
+    from fdbm_tpu_torch.models.tfgridnet import tfgridnet_5l32c100
+
+    cfg = FDBMConfig()
+    fdbm = fdbm_with(tfgridnet_5l32c100, dev, cfg)
+    n = (TRAIN_FRAMES - 1) * cfg.hop_length
+    clean = np.stack([speechlike(n / cfg.sr, s) for s in range(TRAIN_BATCH)])
+    noisy = clean + 0.003 * rng.standard_normal(clean.shape)
+    x_audio, y_audio = (torch.as_tensor(a.astype(np.float32), device=dev) for a in (clean, noisy))
+    x, x_hat = fdbm.audio_to_spec(x_audio), fdbm.audio_to_spec(y_audio)
+    rows = {}
+    for loss_type, pesq_weight in (("data_prediction", 0.0), ("data_prediction", 0.1),
+                                   ("data_prediction_hybrid", 0.0),
+                                   ("data_prediction_hybrid", 0.1),
+                                   ("data_prediction_mel", 0.0), ("data_prediction_melphase", 0.0)):
+        lcfg = dataclasses.replace(fdbm.loss_cfg, loss_type=loss_type, pesq_weight=pesq_weight)
+        card = float(losses.compute_loss(lcfg, x_hat, x))
+        cpu = float(losses.compute_loss(lcfg, x_hat.cpu().to(torch.complex128),
+                                        x.cpu().to(torch.complex128)))
+        rows[f"{loss_type}+pesq{pesq_weight}"] = {"card": card, "cpu_float64": cpu,
+                                                  "rel": abs(card - cpu) / abs(cpu)}
+    ref = np.stack([speechlike(4.0, s) for s in range(3)])
+    deg = ref + np.array([0.01, 0.003, 0.03])[:, None] * rng.standard_normal(ref.shape)
+    ref_t, deg_t = torch.as_tensor(ref), torch.as_tensor(deg.astype(np.float32))
+    mos_card = pesq_loss.pesq_mos(ref_t.to(dev), deg_t.to(dev)).cpu().numpy()
+    mos_cpu = pesq_loss.pesq_mos(ref_t, deg_t).numpy()
+    mos_ms = timed_ms(lambda: pesq_loss.pesq_mos(ref_t.to(dev), deg_t.to(dev)), 5)
+
+    with_pesq = dataclasses.replace(fdbm.loss_cfg, pesq_weight=0.1)
+    est = x_hat.clone().requires_grad_(True)
+    term = losses.compute_loss(with_pesq, est, x) - losses.compute_loss(fdbm.loss_cfg, est, x)
+    (term_grad,) = torch.autograd.grad(term, est)
+    term_grad_norm = float(term_grad.abs().norm())
+
+    pesq_fdbm = fdbm_with(tfgridnet_5l32c100, dev, dataclasses.replace(cfg, pesq_weight=0.1))
+    pesq_fdbm.dnn.load_state_dict(fdbm.dnn.state_dict())
+    t = torch.tensor([0.3, 0.8], device=dev)
+    z = complex_like(rng, x)
+    grads = []
+    for model in (pesq_fdbm, fdbm):
+        state = TrainState(model.dnn)
+        loss = model.loss_fn((x_audio, y_audio), prior=(t, z))
+        grads.append(torch.autograd.grad(loss, list(state.params.values())))
+    model_term_norm = math.sqrt(sum(float(((a - b).double() ** 2).sum()) for a, b in zip(*grads)))
+    state = TrainState(pesq_fdbm.dnn)
+    step = pesq_fdbm.train_step(state, (x_audio, y_audio),
+                                torch.Generator(device=dev).manual_seed(SEED))
+    emit({"phase": "losses_card", "shape": list(x.shape), "losses": rows, "tol": 1e-5,
+          "pesq_mos_card": mos_card.tolist(), "pesq_mos_cpu": mos_cpu.tolist(),
+          "pesq_mos_max_abs": float(np.abs(mos_card - mos_cpu).max()), "pesq_mos_tol": 1e-4,
+          "pesq_mos_ms_3x4s": mos_ms, "pesq_term_grad_norm_wrt_estimate": term_grad_norm,
+          "pesq_term_grad_norm_through_model": model_term_norm,
+          "pesq_step": {k: step[k] for k in ("train_loss", "grad_norm")}})
+    finite = bool(torch.isfinite(torch.view_as_real(term_grad)).all())
+    if not (all(r["rel"] < 1e-5 for r in rows.values())
+            and float(np.abs(mos_card - mos_cpu).max()) < 1e-4 and finite
+            and term_grad_norm > 0 and np.isfinite(model_term_norm)
+            and np.isfinite([step["train_loss"], step["grad_norm"]]).all()):
+        fail(f"losses on the card: {rows}, MOS {mos_card} vs {mos_cpu}, PESQ term gradient "
+             f"norm {term_grad_norm} (finite {finite}), through the model {model_term_norm}, "
+             f"step {step}")
+
+
+def complex_like(rng, like: torch.Tensor) -> torch.Tensor:
+    """CN(0, 1) noise of ``like``'s shape from ``rng``, on its device."""
+    return torch.complex(*(torch.as_tensor(rng.standard_normal(tuple(like.shape))
+                                           .astype(np.float32) / math.sqrt(2),
+                                           device=like.device) for _ in range(2)))
 
 
 # -- the folder's batch shape and the serving surface of folders ---------------------
@@ -1229,7 +1566,7 @@ def kernel_b16_phase(rand, dev, w, c: int, hidden: int, n_head: int, e_dim: int)
         rel_err=err, tol=1e-5, max_abs_err=abs_err, shape=[list(m[0].shape) for m in maps],
         ms=timed_ms(lambda: attn_ops.flat_group_norms(maps)),
         device_ms=kernel_times(lambda: attn_ops.flat_group_norms(maps),
-                               {"norm": "norm_segments_kernel"})["norm"],
+                               {"norm": "norm_segments_kernel"}).get("norm"),
         plain_ms=timed_ms(plain, 3), bound=bound(10 * elems, 2 * 4 * elems), library_ms=None)
 
     got = attn_ops.frame_attention(q, k, v, n_head, e_dim)
@@ -1927,9 +2264,9 @@ def main(kernels_only: bool = False, ncsnpp_only: bool = False) -> None:
         rel_err=err, tol=1e-5, max_abs_err=abs_err, shape=[list(m[0].shape) for m in maps],
         launches_per_attention_call=launches,
         ms=timed_ms(lambda: norms3(maps)),
-        device_ms=kernel_times(lambda: norms3(maps), norm_kernels)["norm"],
+        device_ms=kernel_times(lambda: norms3(maps), norm_kernels).get("norm"),
         ms_per_map=timed_ms(lambda: per_map(maps)) / 3,
-        device_ms_by_map={name: kernel_times(lambda m=m: per_map([m]), norm_kernels)["norm"]
+        device_ms_by_map={name: kernel_times(lambda m=m: per_map([m]), norm_kernels).get("norm")
                           for name, m in zip("qkv", maps)},
         plain_ms=timed_ms(lambda: plain(maps)),
         bound=bound(10 * elems, 2 * 4 * elems), library_ms=None,
@@ -2118,10 +2455,34 @@ def main(kernels_only: bool = False, ncsnpp_only: bool = False) -> None:
         # -- training: one step against the plain route, the CLI, the rate ---------
         train_grad_phase(rng, dev, tfgridnet_5l32c100,
                          {"grid_fold_train_pair": RNN_PATHS, "grid_fold_train_pair_bwd": RNN_PATHS})
-        totals.update(train_cli_phase(tmp, smi))
+        counts, run = train_cli_phase(tmp, smi)
+        for k, v in counts.items():
+            totals[k] += v
         for k, v in predictive_phase(tmp, smi).items():
             totals[k] += v
         train_rate_phase(rng, dev, smi, tfgridnet_5l32c100)
+
+        # -- fine-tuning: one step against the plain route, the CLI from the train
+        # phase's run with its evaluation, evaluate, the rate; the losses on the card.
+        # Their draws come from a generator of their own: the 6l48c200 phases below
+        # keep the batch and noise their float64 limits were set on.
+        ft_rng = np.random.default_rng(SEED + 71)
+        t_ft, ft_seconds = time.perf_counter(), {}
+        for k, v in finetune_grad_phase(ft_rng, dev).items():
+            totals[k] += v
+        ft_seconds["finetune_grad"] = time.perf_counter() - t_ft
+        counts, enhanced = finetune_cli_phase(tmp, smi, run)
+        for k, v in counts.items():
+            totals[k] += v
+        ft_seconds["finetune"] = time.perf_counter() - t_ft - sum(ft_seconds.values())
+        evaluate_phase(tmp, enhanced)
+        ft_seconds["evaluate"] = time.perf_counter() - t_ft - sum(ft_seconds.values())
+        train_rate_phase(ft_rng, dev, smi, tfgridnet_5l32c100, "finetune_rate", finetune_cfg())
+        ft_seconds["finetune_rate"] = time.perf_counter() - t_ft - sum(ft_seconds.values())
+        losses_card_phase(ft_rng, dev)
+        ft_seconds["losses_card"] = time.perf_counter() - t_ft - sum(ft_seconds.values())
+        emit({"phase": "finetune_seconds", "seconds_by_phase": ft_seconds,
+              "wall_seconds": time.perf_counter() - t_ft})
 
         # -- 6l48c200: the generic RNN path through the LSTM kernels -------------
         wide_backbone_phase(rand, dev)

@@ -1,8 +1,9 @@
 """fdbm_tpu_torch: the PyTorch + CUDA port of fdbm_tpu for one NVIDIA H100.
 
 It serves single files (``infer_single``) and folders in batches
-(``infer_folder``) and trains (``train``) the generative and predictive
-TF-GridNets and NCSN++ U-Nets. It mirrors the JAX package's module names
+(``infer_folder``), trains (``train``) the generative and predictive
+TF-GridNets and NCSN++ U-Nets, fine-tunes the enhanced bridge
+(``train_finetuning``) and scores enhanced audio (``evaluate``). It mirrors the JAX package's module names
 (``dsp``, ``paths``, ``sampling``, ``model``, ``models.tfgridnet``,
 ``models.ncsnpp``, ``ops.gridrnn``, ...) and
 imports nothing of it. Entry points run on ``cuda`` unless the caller

@@ -15,6 +15,8 @@
   weights, as the JAX package's ``infer_single.py`` does. A reference
   PyTorch-Lightning ``.ckpt`` file is imported through
   ``utils/torch_port.py`` (its EMA shadow weights when present).
+  :func:`read_checkpoint` reads the same config and weights without
+  building a model (fine-tuning starts from them).
 
 The port's own files are read back with ``weights_only=True``. The JAX
 package's orbax checkpoints need JAX to read and do not load here;
@@ -28,7 +30,7 @@ import json
 import math
 import os
 import sys
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -106,8 +108,8 @@ def _resolve_checkpoint(path: str, slot: str = "last") -> str:
     ``checkpoints/``. As the JAX package's ``infer_single.py`` does, a slot
     may be named by its path without the extension
     (``<run>/checkpoints/last``, whose basename is then the slot), and a
-    slot that was never written falls back to ``last`` (the port's trainer
-    writes no ``best_pesq``), with one line on stderr."""
+    slot that was never written falls back to ``last`` (a run trained with
+    ``num_eval_files=0`` writes no ``best_pesq``), with one line on stderr."""
     if os.path.isfile(path):
         return path
     ckpt_dir = os.path.join(path, "checkpoints")
@@ -125,23 +127,36 @@ def _resolve_checkpoint(path: str, slot: str = "last") -> str:
     return last
 
 
-def load_checkpoint(path: str, device="cuda", overrides: Optional[Dict[str, Any]] = None,
-                    slot: str = "last") -> FDBM:
-    """Rebuild the model from a checkpoint on ``device`` for serving: a
-    model file's weights, a training slot's EMA weights, or a reference
-    ``.ckpt`` file's (EMA) weights and hyperparameters. Non-None
-    ``overrides`` (e.g. an inference config's N or sampler_type) replace
-    the stored config fields of the same name; other keys are ignored."""
+def read_checkpoint(path: str, slot: str = "last") -> Tuple[Dict[str, Any],
+                                                           Dict[str, torch.Tensor]]:
+    """``(config, state_dict)`` of the weights a checkpoint serves: a model
+    file's weights, a training slot's EMA weights (its config completed by
+    the run's ``meta.json`` config, which also holds the data fields), or a
+    reference ``.ckpt`` file's (EMA) weights and hyperparameters."""
     if os.path.isfile(path) and path.endswith(".ckpt"):
         cfg, state_dict = load_reference_checkpoint(path)
         print(f"imported reference checkpoint {path} (backbone={cfg.get('backbone')})",
               file=sys.stderr)
-    else:
-        blob = torch.load(_resolve_checkpoint(path, slot), map_location="cpu",
-                          weights_only=True)
-        cfg = dict(blob["config"])
-        train_state = blob.get("train_state")
-        state_dict = train_state["ema"] if train_state else blob["state_dict"]
+        return cfg, state_dict
+    found = _resolve_checkpoint(path, slot)
+    blob = torch.load(found, map_location="cpu", weights_only=True)
+    cfg: Dict[str, Any] = {}
+    meta = os.path.join(os.path.dirname(found), "meta.json")
+    if os.path.isfile(meta):
+        with open(meta) as f:
+            cfg.update(json.load(f).get("config") or {})
+    cfg.update(blob["config"])
+    train_state = blob.get("train_state")
+    return cfg, train_state["ema"] if train_state else blob["state_dict"]
+
+
+def load_checkpoint(path: str, device="cuda", overrides: Optional[Dict[str, Any]] = None,
+                    slot: str = "last") -> FDBM:
+    """Rebuild the model from a checkpoint on ``device`` for serving, with
+    the weights :func:`read_checkpoint` reads. Non-None ``overrides`` (e.g.
+    an inference config's N or sampler_type) replace the stored config
+    fields of the same name; other keys are ignored."""
+    cfg, state_dict = read_checkpoint(path, slot)
     if overrides:
         cfg.update({k: v for k, v in overrides.items() if v is not None})
     fdbm = FDBM(FDBMConfig.from_dict(cfg), device=device)

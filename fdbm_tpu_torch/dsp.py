@@ -45,9 +45,17 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int, window: torch.Tensor,
     ``[..., n_fft//2 + 1, n_frames]`` (freq-major, like torch.stft)."""
     if center:
         pad = n_fft // 2
-        lead = x.shape[:-1]
-        x = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode="reflect")
-        x = x.reshape(*lead, x.shape[-1])
+        length = x.shape[-1]
+        if pad < length:
+            lead = x.shape[:-1]
+            x = F.pad(x.reshape(-1, 1, length), (pad, pad), mode="reflect")
+            x = x.reshape(*lead, x.shape[-1])
+        else:
+            # numpy's reflection, repeated where the pad reaches past the signal
+            # (a short signal under a long window, e.g. the mel loss's 2048).
+            period = max(2 * (length - 1), 1)
+            pos = torch.arange(-pad, length + pad, device=x.device) % period
+            x = x.index_select(-1, torch.where(pos < length, pos, period - pos))
     frames = x.unfold(-1, n_fft, hop_length) * window  # [..., n_frames, n_fft]
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
     return spec.transpose(-1, -2).to(torch.complex64)

@@ -14,7 +14,9 @@ call: trained on that call's loss, served without a sampler) follows
 ``fdbm_tpu/model.py``. The backbones are TF-GridNet and NCSN++
 (``models/ncsnpp.py``, built for the config's bin count; its spectrograms
 are padded to a multiple of 64 frames before sampling, ``enhance_batch``).
-The finetuning objective is not ported yet.
+Finetuning mode (the "enhanced bridge") trains a pretrained bridge through
+its own unrolled N-step ODE-EI sampler, with a gradient through the last
+backbone call only (``_finetune_unrolled``).
 """
 
 from __future__ import annotations
@@ -214,20 +216,52 @@ class FDBM:
             z = complex_normal_like(x, generator)
         return t, mean, z, mean + bcast(sigma_t) * z
 
+    def _finetune_unrolled(self, y: torch.Tensor, generator: Optional[torch.Generator] = None,
+                           z: Optional[torch.Tensor] = None,
+                           params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """The bridge's N-step ODE-EI sampler from its prior (``z`` replaces
+        the draw) with a gradient through the last backbone call only, as
+        ``fdbm_tpu/model.py:_finetune_unrolled`` stops it on steps 1..N-1.
+        Those steps run on the serving route (eval mode) without autograd;
+        the last runs on the training route (train mode), with autograd
+        where it is enabled. ``params`` (the EMA weights of the valid loss)
+        replaces the backbone's own on every step. The backbone's mode is
+        restored after."""
+        bridge = self.bridge
+        steps = bridge._steps(bridge.path.sampling_param_ode_ei)
+        call = self.dnn if params is None else \
+            lambda *args: functional_call(self.dnn, params, args)
+        grad = torch.is_grad_enabled()
+        was_training = self.dnn.training
+        try:
+            xt = bridge.prior_sampling(y, generator, z=z)
+            for i, (tp, wxt, ws, wy) in enumerate(steps):
+                last = i == len(steps) - 1
+                self.dnn.train(last)
+                with torch.set_grad_enabled(grad and last):
+                    est = call(xt, y, torch.full((y.shape[0],), tp, device=y.device))
+                xt = wxt * xt + ws * est + wy * y
+        finally:
+            self.dnn.train(was_training)
+        return xt
+
     def loss_fn(self, batch: Sequence[torch.Tensor], generator: Optional[torch.Generator] = None,
-                prior: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                prior: Optional[Tuple[Optional[torch.Tensor], torch.Tensor]] = None,
                 params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        """The configured loss of one batch ``(x_audio, y_audio[, weights])``
-        on the training route; ``params`` replaces the backbone's own (the
-        EMA weights of the valid loss), ``prior`` the ``(t, z)`` draw of the
-        generative objective; the predictive one draws nothing."""
-        if self.cfg.mode == "finetuning":
-            raise NotImplementedError(
-                f"training in mode={self.cfg.mode!r} is not ported to fdbm_tpu_torch yet")
+        """The configured loss of one batch ``(x_audio, y_audio[, weights])``;
+        ``params`` replaces the backbone's own (the EMA weights of the valid
+        loss), ``prior`` the ``(t, z)`` draw of the generative objective (the
+        finetuning objective takes its ``z`` as the sampler's prior draw and
+        has no ``t``); the predictive one draws nothing. The generative and
+        predictive objectives run on the training route."""
         x_audio, y_audio = batch[0], batch[1]
         weights = batch[2] if len(batch) > 2 else None
         x = self.audio_to_spec(x_audio)
         y = self.audio_to_spec(y_audio)
+        if self.cfg.mode == "finetuning":
+            z = prior[1] if prior is not None else None
+            x_hat = self._finetune_unrolled(y, generator, z, params)
+            return losses.compute_loss(self.loss_cfg, x_hat, x, weights)
         if self.cfg.mode == "predictive":
             args = (None, y)
         else:

@@ -8,26 +8,25 @@ Port of ``fdbm_tpu/train.py`` and the root ``train.py`` for one device:
 train steps over ``SpecsDataset`` crops, scalars every
 ``log_every_n_steps`` steps to ``<run>/metrics.jsonl``, then per epoch the
 valid loss under the EMA weights (the mean of the batch losses weighted by
-their real items) and the five checkpoint slots. ``--resume`` continues a
-run directory from its ``last`` slot; ``--ckpt`` starts a new run from
-another run's ``last`` slot. Runs on the GPU unless ``--device cpu`` is
-given.
-
-Not ported yet: the per-epoch evaluation of ``num_eval_files`` files (it
-needs the PESQ/ESTOI metrics, ROADMAP queue 1 item 7), so a config with
-``num_eval_files > 0`` is refused; training on several GPUs (queue 1 item
-8).
+their real items), the evaluation of the first ``num_eval_files`` valid
+files (enhanced whole under the EMA weights, scored by SI-SDR, PESQ and
+ESTOI, the first three written to ``<run>/valid_samples``) and the five
+checkpoint slots. ``--resume`` continues a run directory from its ``last``
+slot; ``--ckpt`` starts a new run from another run's ``last`` slot. Runs on
+the GPU unless ``--device cpu`` is given. Training on several GPUs is not
+ported (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import json
 import os
 import time
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +34,10 @@ import torch
 from fdbm_tpu_torch.checkpoint import CheckpointManager
 from fdbm_tpu_torch.config import load_config, parse_cli_overrides
 from fdbm_tpu_torch.data import BatchLoader, DataConfig, SpecsDataset
+from fdbm_tpu_torch.infer import BucketedEnhancer
 from fdbm_tpu_torch.model import FDBM, FDBMConfig, TrainState
+from fdbm_tpu_torch.utils import metrics as metrics_lib
+from fdbm_tpu_torch.utils.audio import read_wav, resample, write_wav
 
 
 class MetricsLogger:
@@ -54,32 +56,110 @@ class MetricsLogger:
         self.jsonl.close()
 
 
+@contextlib.contextmanager
+def backbone_weights(dnn: torch.nn.Module,
+                     params: Optional[Dict[str, torch.Tensor]]) -> Iterator[None]:
+    """Serve ``dnn`` with ``params`` (e.g. the EMA weights) in place of its
+    own for the block, then put its own back."""
+    if params is None:
+        yield
+        return
+    own = {k: v.detach().clone() for k, v in dnn.state_dict().items() if k in params}
+    with torch.no_grad():
+        dnn.load_state_dict(params, strict=False)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            dnn.load_state_dict(own, strict=False)
+
+
+def evaluate_files(fdbm: FDBM, params: Optional[Dict[str, torch.Tensor]],
+                   valid_set: SpecsDataset, num_eval_files: int,
+                   generator: Optional[torch.Generator] = None, sample_dir: Optional[str] = None,
+                   epoch: int = 0, sampler_batch: int = 4
+                   ) -> Tuple[Dict[str, float], Dict[str, int]]:
+    """Enhance the first ``num_eval_files`` valid files whole under
+    ``params`` (the EMA weights; None: the backbone's own) through
+    ``BucketedEnhancer`` at the config's sampler, ``4 * sampler_batch``
+    files at a time, and score SI-SDR, PESQ (``metrics.pesq_wb`` on the
+    model's device) and ESTOI on the common length; a NaN output is
+    skipped. The first three files' outputs go to ``sample_dir`` as
+    ``<name>_epoch<epoch>_enh.wav``, at epoch 0 also their noisy and clean
+    inputs. Returns ``(means, counts)`` per metric, as
+    ``fdbm_tpu/train.py:evaluate_files`` does in one process."""
+    clean_files = valid_set.clean_files_all[:num_eval_files]
+    noisy_files = valid_set.noisy_files_all[:num_eval_files]
+    if not clean_files:
+        return {}, {}
+    if generator is None:
+        generator = torch.Generator(device=fdbm.device).manual_seed(0)
+    enhancer = BucketedEnhancer(fdbm, batch_size=sampler_batch)
+    vals: Dict[str, list] = {"si_sdr": [], "pesq": [], "estoi": []}
+    chunk = max(1, 4 * sampler_batch)
+    for s in range(0, len(clean_files), chunk):
+        audios, cleans = [], []
+        for cf, nf in zip(clean_files[s:s + chunk], noisy_files[s:s + chunk]):
+            (x, sr_x), (y, sr_y) = read_wav(cf), read_wav(nf)
+            if sr_x != sr_y:
+                raise ValueError(f"sample rates of {cf} ({sr_x}) and {nf} ({sr_y}) differ")
+            x, y = x[0], y[0]
+            if sr_x != 16000:
+                x, y = resample(x, sr_x, 16000), resample(y, sr_y, 16000)
+            cleans.append(x)
+            audios.append(y)
+        with backbone_weights(fdbm.dnn, params):
+            enhanced = enhancer.enhance_many(audios, generator)
+        for j, (x, x_hat) in enumerate(zip(cleans, enhanced)):
+            i = s + j
+            if np.isnan(x_hat).any():
+                continue
+            n = min(len(x), len(x_hat))
+            vals["si_sdr"].append(metrics_lib.si_sdr(x[:n], x_hat[:n]))
+            p = metrics_lib.pesq_wb(16000, x[:n], x_hat[:n], fdbm.device)
+            if p is not None:
+                vals["pesq"].append(p)
+            e = metrics_lib.estoi(x[:n], x_hat[:n], 16000)
+            if np.isfinite(e):
+                vals["estoi"].append(e)
+            if sample_dir and i < 3:
+                base = os.path.splitext(os.path.basename(clean_files[i]))[0]
+                write_wav(os.path.join(sample_dir, f"{base}_epoch{epoch:03d}_enh.wav"), x_hat,
+                          16000)
+                if epoch == 0:
+                    write_wav(os.path.join(sample_dir, f"{base}_noisy.wav"), audios[j], 16000)
+                    write_wav(os.path.join(sample_dir, f"{base}_clean.wav"), x, 16000)
+    means = {k: float(np.mean(v)) for k, v in vals.items() if v}
+    return means, {k: len(v) for k, v in vals.items() if v}
+
+
 class Trainer:
     def __init__(self, fdbm: FDBM, data_cfg: DataConfig, log_dir: str,
                  max_steps: int = 1_000_000, max_epochs: int = 10_000,
                  num_eval_files: int = 20, save_ckpt_interval: int = 20000,
                  log_every_n_steps: int = 10, seed: int = 0,
                  config_blob: Optional[Dict[str, Any]] = None):
-        if num_eval_files > 0:
-            raise NotImplementedError(
-                f"num_eval_files={num_eval_files}: the per-epoch evaluation needs the "
-                "PESQ/ESTOI metrics, which are not ported to fdbm_tpu_torch yet; pass "
-                "num_eval_files=0")
         self.fdbm = fdbm
         self.data_cfg = data_cfg
         self.log_dir = log_dir
         self.max_steps = max_steps
         self.max_epochs = max_epochs
+        self.num_eval_files = num_eval_files
         self.log_every = log_every_n_steps
         self.seed = seed
         os.makedirs(log_dir, exist_ok=True)
+        self.sample_dir = os.path.join(log_dir, "valid_samples")
         self.ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"),
                                       save_interval=save_ckpt_interval, config=config_blob)
         self.logger = MetricsLogger(log_dir)
 
-    def fit(self, resume: bool = True, resume_from: Optional[str] = None) -> TrainState:
+    def fit(self, resume: bool = True, resume_from: Optional[str] = None,
+            init_weights: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
         """Train; ``resume_from`` starts from another run's ``last`` slot,
-        otherwise ``resume`` continues this run's own. Returns the state.
+        otherwise ``resume`` continues this run's own; ``init_weights`` (a
+        backbone ``state_dict``, e.g. a pretrained model's EMA weights)
+        become both the parameters and the EMA weights of a fresh start.
+        Returns the state.
 
         Runs with cuDNN's benchmark mode on (restored after): training
         repeats a few fixed shapes, so timing each convolution's algorithms
@@ -88,12 +168,15 @@ class Trainer:
         saved = torch.backends.cudnn.benchmark
         torch.backends.cudnn.benchmark = True
         try:
-            return self._fit(resume, resume_from)
+            return self._fit(resume, resume_from, init_weights)
         finally:
             torch.backends.cudnn.benchmark = saved
 
-    def _fit(self, resume: bool, resume_from: Optional[str]) -> TrainState:
+    def _fit(self, resume: bool, resume_from: Optional[str],
+             init_weights: Optional[Dict[str, torch.Tensor]]) -> TrainState:
         fdbm = self.fdbm
+        if init_weights is not None:
+            fdbm.dnn.load_state_dict(init_weights)
         state = TrainState(fdbm.dnn)
         if resume_from:
             src = CheckpointManager(resume_from)
@@ -137,6 +220,12 @@ class Trainer:
             val_metrics: Dict[str, float] = {}
             if val_losses and sum(val_counts) > 0:
                 val_metrics["valid_loss"] = float(np.average(val_losses, weights=val_counts))
+            if self.num_eval_files > 0:
+                os.makedirs(self.sample_dir, exist_ok=True)
+                val_metrics.update(evaluate_files(
+                    fdbm, state.ema, valid_set, self.num_eval_files, generator,
+                    sample_dir=self.sample_dir, epoch=epoch)[0])
+            if val_metrics:
                 self.logger.log(state.step, val_metrics)
             self.ckpt.save(fdbm, state, val_metrics)
             epoch += 1

@@ -1010,3 +1010,70 @@ def test_bilstm_fold_matches_plain_on_every_plan(dev, c, hidden):
         torch.cuda.synchronize()
         assert torch.isfinite(out).all(), (cs, tile)
         assert _rel(out, want) < 1e-4, (cs, tile)
+
+
+def test_small_backbone_finetuning_step_kernel_route_matches_plain(dev):
+    """One fine-tuning step (N=3 on ``bb``): the first two calls on the
+    serving kernels without a gradient, the last on the training kernels.
+    The unroll carries each call's fp32 rounding into the next call's input,
+    so both fp32 routes are held against the plain route in float64: the
+    kernel route's loss and worst gradient leaf no farther from it than
+    max(floor, 3 x the plain fp32 route's)."""
+    from fdbm_tpu_torch import losses
+    from fdbm_tpu_torch.model import FDBM, FDBMConfig
+    from fdbm_tpu_torch.models.tfgridnet import TFGridNet
+
+    cfg = FDBMConfig(mode="finetuning", sampler_type="ode_ei", N=3, n_fft=64, hop_length=32,
+                     num_frames=16)
+    torch.manual_seed(0)
+    fdbms = []
+    for use_kernels in (True, False, False):
+        fdbm = FDBM(cfg, device="cuda")
+        fdbm.dnn = TFGridNet(n_layers=2, emb_dim=16, hidden=24, use_kernels=use_kernels).to(dev)
+        fdbms.append(fdbm)
+    for fdbm in fdbms[1:]:
+        fdbm.dnn.load_state_dict(fdbms[0].dnn.state_dict())
+    fdbms[2].dnn.double()
+    rng = np.random.default_rng(8)
+    audio = rng.standard_normal((2, 2, 15 * 32)).astype(np.float32) * 0.3
+    x, y = (fdbms[0].audio_to_spec(torch.as_tensor(a, device=dev)) for a in audio)
+    z = torch.complex(*(_rand(rng, tuple(y.shape), 0.7, dev) for _ in range(2)))
+    results = []
+    for fdbm, cdt in zip(fdbms, (torch.complex64, torch.complex64, torch.complex128)):
+        params = {n: p for n, p in fdbm.dnn.named_parameters() if p.requires_grad}
+        ops.reset_launch_counts()
+        out = fdbm._finetune_unrolled(y.to(cdt), z=z.to(cdt))
+        loss = losses.compute_loss(fdbm.loss_cfg, out, x.to(cdt))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        results.append((float(loss.detach()), {n: g.double() for n, g in zip(params, grads)},
+                        ops.launch_counts()))
+    assert results[0][2] == {**results[2][2], "grid_rnn_seq1_pair": 8, "flat_group_norm": 4,
+                             "frame_attention": 4, "grid_fold_train_pair": 4,
+                             "grid_fold_train_pair_bwd": 4}
+    loss64, g64, _ = results[2]
+    gnorm = float(torch.sqrt(sum((g * g).sum() for g in g64.values())))
+    loss_err = [abs(r[0] - loss64) / abs(loss64) for r in results[:2]]
+    grad_err = [max(_grad_rel(r[1][k], g64[k], gnorm) for k in g64) for r in results[:2]]
+    assert loss_err[0] <= max(1e-6, 3 * loss_err[1]), loss_err
+    assert grad_err[0] <= max(1e-3, 3 * grad_err[1]), grad_err
+
+
+def test_pesq_on_the_card_matches_the_cpu(dev):
+    """A 4 s pair (and a noisier one) through pesq_mos on the card and on
+    the CPU: MOS within 1e-4 (fp32 with TF32 off on both); the loss's
+    gradient on the card is finite and nonzero."""
+    from fdbm_tpu_torch import pesq_loss
+
+    rng = np.random.default_rng(9)
+    t = np.arange(64000) / 16000
+    ref = sum(np.sin(2 * np.pi * 120 * k * t) / k for k in range(1, 20))
+    ref = ref * (np.sin(2 * np.pi * 3 * t) > -0.3) * 0.05
+    ref = np.stack([ref, ref]).astype(np.float32)
+    deg = (ref + np.array([[0.002], [0.02]]) * rng.standard_normal(ref.shape)).astype(np.float32)
+    ref_t, deg_t = torch.as_tensor(ref), torch.as_tensor(deg)
+    card = pesq_loss.pesq_mos(ref_t.to(dev), deg_t.to(dev)).cpu()
+    cpu = pesq_loss.pesq_mos(ref_t, deg_t)
+    assert torch.isfinite(card).all() and float((card - cpu).abs().max()) < 1e-4
+    d = deg_t.to(dev).requires_grad_(True)
+    pesq_loss.pesq_loss(ref_t.to(dev), d).sum().backward()
+    assert torch.isfinite(d.grad).all() and float(d.grad.norm()) > 0

@@ -207,8 +207,8 @@ def test_infer_single_cli_on_cpu(tmp_path):
 
 @pytest.fixture(scope="module")
 def last_only_run(tmp_path_factory):
-    """A training run whose only slot is ``last`` (the port's trainer writes
-    no ``best_pesq``), its EMA weights apart from its parameters, a noisy
+    """A training run whose only slot is ``last`` (a run trained without the
+    per-epoch evaluation writes no ``best_pesq``), its EMA weights apart from its parameters, a noisy
     wav, and the wav served from it with ``--slot last``."""
     tmp = tmp_path_factory.mktemp("last_only")
     torch.manual_seed(0)

@@ -13,7 +13,10 @@ cancellation residue). The optimiser is held to ``FDBM.train_step`` with
 the JAX step's own gradients fed to the port, so params and EMA after each
 step agree to fp32 rounding (rtol 1e-5, atol 1e-7). The data pipeline
 yields the same batches as JAX's for one seed, and the CLI trains, resumes
-and serves its ``last`` slot.
+and serves its ``last`` slot, and with ``num_eval_files`` set evaluates and
+writes the best-metric slots. ``evaluate_files`` is held to the JAX
+package's with every sampler draw zero (``sde_ei``, N=2; the metrics within
+1e-3, the written wavs within rel-L2 1e-4).
 """
 
 import json
@@ -28,10 +31,13 @@ import torch
 
 from fdbm_tpu import data as jdata
 from fdbm_tpu import model as jmodel
+from fdbm_tpu import sampling as jsampling
+from fdbm_tpu import train as jtrain
 from fdbm_tpu.models import tfgridnet as jtfg
 from fdbm_tpu_torch import data as pdata
 from fdbm_tpu_torch import infer_single
 from fdbm_tpu_torch import model as pmodel
+from fdbm_tpu_torch import sampling as psampling
 from fdbm_tpu_torch import train as ptrain
 from fdbm_tpu_torch.checkpoint import load_checkpoint
 from fdbm_tpu_torch.models.tfgridnet import TFGridNet
@@ -260,5 +266,62 @@ def test_cli_trains_resumes_and_serves_last_on_cpu(tmp_path):
     written, sr = read_wav(out)
     assert written.shape == (1, 300) and x_hat.shape == (300,) and np.isfinite(x_hat).all()
 
-    with pytest.raises(NotImplementedError, match="num_eval_files=0"):
-        ptrain.main(["-C", str(cfg), "--device", "cpu", "num_eval_files=2", "--max_steps", "1"])
+    # The per-epoch evaluation: two valid files long enough for PESQ (1024
+    # samples), scored under the EMA weights, fill the best_pesq and
+    # best_si_sdr slots.
+    eval_base = str(tmp_path / "eval")
+    _write_pairs(eval_base, "train", [300, 260], seed=2)
+    _write_pairs(eval_base, "valid", [1500, 1200, 1100], seed=3)
+    run = ptrain.main(["-C", str(cfg), "--device", "cpu", "num_eval_files=2", "--max_steps", "1",
+                       f"base_dir={eval_base}", f"log_dir={eval_base}/logs"])
+    ckpts = Path(run) / "checkpoints"
+    assert {"best_pesq.pt", "best_si_sdr.pt", "best_valid_loss.pt"} <= set(os.listdir(ckpts))
+    records = [json.loads(line) for line in (Path(run) / "metrics.jsonl").read_text().splitlines()]
+    (scores,) = [r for r in records if "pesq" in r]
+    assert np.isfinite([scores["pesq"], scores["si_sdr"], scores["valid_loss"]]).all()
+    best = json.loads((ckpts / "meta.json").read_text())["best"]
+    assert (best["pesq"], best["si_sdr"]) == (scores["pesq"], scores["si_sdr"])
+    assert len(os.listdir(Path(run) / "valid_samples")) == 6  # 2 files: enhanced, noisy, clean
+
+
+def test_evaluate_files_matches_jax(tmp_path, monkeypatch):
+    """The first three of four valid files (of one length: the JAX
+    package's eager PESQ compiles once a length), enhanced whole,
+    with the weights to evaluate handed in while the backbone holds others,
+    which it has back after."""
+    monkeypatch.setattr(jsampling, "complex_normal_like", lambda key, x: jnp.zeros_like(x))
+    monkeypatch.setattr(psampling, "complex_normal_like",
+                        lambda x, generator=None: torch.zeros_like(x))
+    base = str(tmp_path)
+    _write_pairs(base, "valid", [7000, 7000, 7000, 3000], seed=4)
+    net = dict(n_layers=1, emb_dim=8, hidden=8)
+    kw = dict(sampler_type="sde_ei", N=2, **MODEL)
+    jf = jmodel.FDBM(jmodel.FDBMConfig(**kw))
+    jf.dnn = jf.dnn_sample = jtfg.TFGridNet(**net)
+    params = jf.init_params(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(1)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + 0.05 * rng.standard_normal(np.shape(a)).astype(np.float32),
+        jax.device_get(params))
+    pf = pmodel.FDBM(pmodel.FDBMConfig(**kw), device="cpu")
+    pf.dnn = TFGridNet(**net).eval()
+    own = {k: v.clone() for k, v in pf.dnn.state_dict().items()}
+    data = dict(base_dir=base, n_fft=64, hop_length=32, num_frames=16)
+    jds = jdata.SpecsDataset(jdata.DataConfig(**data), "valid", shuffle_spec=False)
+    pds = pdata.SpecsDataset(pdata.DataConfig(**data), "valid", shuffle_spec=False)
+    for d in ("jax", "port"):
+        os.makedirs(tmp_path / d)
+    want, want_n = jtrain.evaluate_files(jf, params, jds, 3, jax.random.PRNGKey(0),
+                                         sample_dir=str(tmp_path / "jax"))
+    got, got_n = ptrain.evaluate_files(pf, tfgridnet_from_flax(params), pds, 3,
+                                       sample_dir=str(tmp_path / "port"))
+    assert got_n == want_n == {"si_sdr": 3, "pesq": 3, "estoi": 3}
+    for k, w in want.items():
+        assert abs(got[k] - w) < 1e-3, (k, got[k], w)
+    for k, v in pf.dnn.state_dict().items():
+        assert torch.equal(v, own[k]), k
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port")) and len(names) == 9
+    for name in names:
+        w, g = (read_wav(str(tmp_path / d / name))[0] for d in ("jax", "port"))
+        assert np.linalg.norm(g - w) / np.linalg.norm(w) < 1e-4, name
