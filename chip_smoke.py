@@ -16,7 +16,7 @@ NCSN++:
   B=1 and at B=16 (``serve_batch_check``, with one row of the batch against
   the same row served alone), three files through
   ``fdbm_tpu_torch.infer_single``, one profiled request; the folder CLI
-  ``fdbm_tpu_torch.infer_folder`` at --batch_size 16 on 40 files of 1-12 s
+  ``fdbm_tpu_torch.infer_folder`` at --batch_size 16 on 30 files of 1-12 s
   and one of 35 s (``serve_folder``: pooled 4.096 s chunks, 30-step
   sde_ei, with one profiled batch) and on eight of them whole
   (``serve_folder_whole``, --chunk_seconds 0); the ``pc`` and ``ode_int``
@@ -68,6 +68,24 @@ NCSN++:
   benchmark mode on, as ``Trainer.fit`` runs); ``ncsnpp_v2_5M_predictive``
   trained through config_predictive.yaml and served through the folder CLI.
   ``--ncsnpp-only`` runs these phases alone (no kernel is built).
+* bf16 serving (``inference_dtype=bfloat16``, the JAX package's serving
+  dtype). Kernels 1, 2, 3 and 7 in their bf16 forms at the main path's
+  shapes and rows 1-3 at B=16, on draws of their own (``kernel_bf16``,
+  ``kernel_bf16_b16``: each with its up-cast control, beside the fp32
+  form's time on the same inputs, SDPA on bf16 and cuDNN's bf16 LSTM). The
+  serving phases above run once more with the override: the three
+  requests through ``infer_single`` and one profiled request
+  (``serve_bf16``, ``profile_bf16``), the pooled folder
+  (``serve_folder_bf16``, one profiled batch), 6l48c200's 4 s request
+  (``serve_bf16_6l48c200``), ncsnpp_v2 through ``infer_single`` and its
+  folder (``ncsnpp_serve_bf16``, ``ncsnpp_serve_folder_bf16``); a bf16 serve
+  launches only bf16 forms, as many as the same serve in fp32 launched of
+  the fp32 forms. Last, the three backbones in bf16 (``backbone_bf16``),
+  2-step serves at B=1 and B=16 and of 6l48c200 (``serve_check_bf16``), and
+  5l32c100 trained QUALITY_STEPS steps on the card on speech-like pairs,
+  four held-out files served with ode_ei N=8 in fp32 and bf16
+  (``bf16_quality``). ``--bf16-only`` runs the bf16 kernel rows and the
+  phases with a bf16 run (their fp32 runs too) alone.
 
 Launch counts are set to 0 just before each path runs and read just after.
 Every phase prints one JSON line; any failure exits non-zero. The last
@@ -91,7 +109,16 @@ LSTM calls one by one against the plain version (``float64_gate``), and its
 (``wide_serve_check``); the fp32-vs-fp32 readings are printed beside.
 NCSN++ is held to float64 within 1e-4 (backbone, 2-step serve) and, for a
 training step, 1e-5 on the loss and 1e-3 norm-relative per leaf (floored
-at 1e-4 of the global norm).
+at 1e-4 of the global norm). bf16 (``bf16_gate``): each bf16 kernel within
+rel-L2 BF16_TOLS of its bf16 plain version (2e-3, 3e-5, 2.5e-4 and 1e-3
+for kernels 1, 2, 3 and 7), which the up-cast control (the fp32 form on the
+same bf16 inputs, rounded to bf16 after) must miss for kernels 1, 3 and 7,
+and within 1.5x the plain version's distance to float64 plus 1e-3; a bf16
+backbone or 2-step serve within that float64 gate (their rel-L2 to the bf16
+plain route printed: random weights amplify the kernels' rare one-step
+differences); ncsnpp_v2 in bf16 between
+1e-4 and NCSNPP_BF16_TOL of float64; on trained weights, bf16 against fp32
+at least 15 dB SI-SDR and within 0.5 dB enhanced-vs-clean.
 
     python3 chip_smoke.py --probe-seeds 4 --probe-out readings.json
 
@@ -104,6 +131,13 @@ only times the six cluster kernels (frame_attention, the LSTM recurrence,
 kernel 1's fused recurrence, kernel 5's (the same with its stash), kernel
 6's reverse sweep, kernel 9's reverse sweep) with one part of their work
 switched off at a time.
+
+    python3 chip_smoke.py --probe-fp32 fp32.pt
+
+writes what the fp32 route computes (the ten kernels' outputs on fixed
+inputs, whether a forward and its convolutions repeat their bits, and the
+samplers phase's ode_int gate repeated), for a comparison of two checkouts:
+a copy of this script run from each checkout's root reads that checkout.
 
     python3 chip_smoke.py --kernels-only
 
@@ -133,8 +167,11 @@ import torch
 
 SEED = 0
 # The card's published peaks (NVIDIA H100 SXM data sheet): fp32 outside the
-# tensor cores and HBM3 bandwidth; the kernels run fp32 on the CUDA cores.
+# tensor cores, dense bf16 on the tensor cores, and HBM3 bandwidth. A row's
+# bound takes the peak of its operands' type: fp32 for the fp32 forms, bf16
+# for the bf16 forms (whatever units their multiplies run on today).
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 SERVE_REQUESTS = ((2.0, "sde_ei", 30), (3.0, "ode_ei", 5), (4.0, "sde_ei", 30))
 _TRAIN_CU = "fdbm_tpu_torch/ops/csrc/gridrnn_train.cu"
@@ -152,11 +189,18 @@ REPLACES = {
     "lstm_core_bwd": (_LSTM_CU, "fdbm_tpu/ops/lstm.py:354"),
     "lstm_forward": (_LSTM_CU, "fdbm_tpu/ops/lstm.py:108"),
 }
+REPLACES.update({
+    "grid_rnn_seq1_pair_bf16": REPLACES["grid_rnn_seq1_pair"],
+    "flat_group_norm_bf16": REPLACES["flat_group_norm"],
+    "frame_attention_bf16": REPLACES["frame_attention"],
+    "bilstm_fused_forward_bf16": REPLACES["bilstm_fused_forward"],
+})
 SERVE_KERNELS = ("grid_rnn_seq1_pair", "flat_group_norm", "frame_attention")
 TRAIN_KERNELS = ("grid_bilstm_fold", "grid_fold_train_pair", "grid_fold_train_pair_bwd")
 # The training operating point of configs/config.yaml: batch 2, 256 frames.
 TRAIN_BATCH, TRAIN_FRAMES = 2, 256
 TRAIN_STEPS, RESUME_STEPS = 8, 2
+RNN_MODEL = "tfgridnet_5l32c100"
 RNN_BLOCKS = 5
 RNN_PATHS = 2 * RNN_BLOCKS  # intra, inter
 # TFGridNet() at its class defaults, the JAX package's and the reference's.
@@ -164,7 +208,13 @@ WIDE = "6l48c200"
 WIDE_C, WIDE_H, WIDE_PATHS = 48, 200, 12  # 6 blocks x (intra, inter)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -196,8 +246,8 @@ def timed_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -217,10 +267,18 @@ def device_kernels(prof):
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
 
 
+# Sampler steps of a profiled request or folder batch: 10 (of the served 30),
+# to keep the run with its bf16 phases under 600 s (the profiler's own host
+# work grows with the launches it records: at 30 steps the profiles took 60
+# s more); a step is one backbone call, so the breakdown by kernel and the
+# idle share are a call's either way.
+PROFILE_N = 10
+
+
 def profile_request(fdbm, noisy: str, phase: str = "profile", **enhance_kwargs) -> dict:
-    """Device time by kernel for one N=30 sde_ei request (the last serve
-    file), from torch.profiler, and the device's idle share of its wall;
-    ``enhance_kwargs`` go to ``FDBM.enhance_batch``."""
+    """Device time by kernel for one PROFILE_N-step sde_ei request (the last
+    serve file), from torch.profiler, and the device's idle share of its
+    wall; ``enhance_kwargs`` go to ``FDBM.enhance_batch``."""
     from torch.profiler import ProfilerActivity, profile
 
     from fdbm_tpu_torch.infer import BUCKET_FRAMES, bucket_length, pad_to
@@ -230,7 +288,7 @@ def profile_request(fdbm, noisy: str, phase: str = "profile", **enhance_kwargs) 
     blen = bucket_length(len(audio), fdbm.cfg.hop_length, BUCKET_FRAMES)
     batch = torch.as_tensor(pad_to(audio / np.abs(audio).max(), blen)[None], device="cuda")
     run = lambda: fdbm.enhance_batch(batch, torch.Generator(device="cuda").manual_seed(SEED),
-                                     sampler_type="sde_ei", N=30, **enhance_kwargs)
+                                     sampler_type="sde_ei", N=PROFILE_N, **enhance_kwargs)
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -243,7 +301,7 @@ def profile_request(fdbm, noisy: str, phase: str = "profile", **enhance_kwargs) 
     if busy_ms == 0:
         return {"phase": phase, "wall_ms": wall_ms, "note": "no device time recorded"}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]
-    return {"phase": phase, "request": "4 s, sde_ei, N=30, B=1", "wall_ms": wall_ms,
+    return {"phase": phase, "request": f"4 s, sde_ei, N={PROFILE_N}, B=1", "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
             "busy_by_kind": busy_by_kind(kernels),
             "top_kernels": [{"name": e.key[:90], "calls": e.count,
@@ -685,7 +743,9 @@ def wide_serve_check(rng, dev, seed: int = SEED):
 def wide_serve_phase(rng, dev, noisy: str) -> dict:
     """6l48c200 serving: a 2-step sde_ei serve against the plain route, then
     the main path, one 4 s sde_ei N=30 request through FDBM.enhance_audio,
-    and that request once more under the profiler. Returns the request's
+    and that request once more under the profiler; then the same request
+    with a bf16 serving dtype, launching only kernel 7's and 3's bf16 forms,
+    as many as the fp32 request launched. Returns the two requests'
     launches."""
     from fdbm_tpu_torch import ops
     from fdbm_tpu_torch.utils.audio import read_wav
@@ -729,7 +789,25 @@ def wide_serve_phase(rng, dev, noisy: str) -> dict:
     emit({"phase": f"recurrence_{WIDE}", "kernels": [k["name"] for k in rec], "calls": calls,
           "ms": ms, "ms_per_call": ms / calls, "steps_per_call": steps,
           "us_per_step": ms / calls / steps * 1e3, "share_of_busy": ms / prof["device_busy_ms"]})
-    return counts
+
+    fdbm.dnn.serve_dtype = torch.bfloat16
+    fdbm.enhance_audio(y[:16000], gen(), sampler_type="sde_ei", N=2)  # warms the bf16 route
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    enhanced = fdbm.enhance_audio(y, gen(), sampler_type="sde_ei", N=30)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts_bf16 = ops.launch_counts()
+    emit({"phase": f"serve_bf16_{WIDE}", "sampler": "sde_ei", "N": 30, "audio_seconds": seconds,
+          "samples": int(enhanced.shape[-1]), "wall_seconds": wall,
+          "audio_seconds_per_second": seconds / wall, "launches": counts_bf16,
+          "finite": bool(np.isfinite(enhanced).all())})
+    if enhanced.shape != y.shape or not np.isfinite(enhanced).all():
+        fail(f"{WIDE} bf16 serve: shape {enhanced.shape}")
+    expect_bf16_like(f"serve_bf16_{WIDE}", counts, counts_bf16,
+                     ("bilstm_fused_forward", "frame_attention"))
+    return {k: counts[k] + counts_bf16[k] for k in counts}
 
 
 def wide_train_phase(rng, dev, smi: str) -> dict:
@@ -803,6 +881,18 @@ def cudnn_benchmark():
         yield
     finally:
         torch.backends.cudnn.benchmark = saved
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms (its default transposed convolution
+    does not repeat its bits run to run)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 @contextlib.contextmanager
@@ -1512,7 +1602,9 @@ def complex_like(rng, like: torch.Tensor) -> torch.Tensor:
 # The folder CLI's batch: 16 rows of one pooled 4.096 s chunk (257 frames).
 FOLDER_BATCH = 16
 CHUNK_SAMPLES = 65536
-FOLDER_FILES, FOLDER_LONG_SECONDS = 40, 35.0
+# 30 files of 1-12 s (40 before the bf16 folder joined them: one batch fewer
+# in each dtype keeps the run with a fresh build under 600 s) and one of 35 s.
+FOLDER_FILES, FOLDER_LONG_SECONDS = 30, 35.0
 FOLDER_N = 30
 # ode_int's attempted steps held against the plain route (samplers_phase).
 ODE_INT_STEPS = 3
@@ -1665,7 +1757,7 @@ def write_folder(root: str, seconds) -> dict:
     return lengths
 
 
-def profile_batch(fdbm, n_steps: int = FOLDER_N, **enhance_kwargs) -> dict:
+def profile_batch(fdbm, n_steps: int = PROFILE_N, **enhance_kwargs) -> dict:
     """Device busy time and idle share of one folder batch (16 rows of one
     4.096 s chunk, sde_ei at ``n_steps``) under torch.profiler, its time by
     kind of kernel and its top kernels."""
@@ -1706,12 +1798,13 @@ SERVE_CALL_LAUNCHES = {"grid_rnn_seq1_pair": 2 * RNN_BLOCKS, "flat_group_norm": 
 
 def serve_folder(tmp: str, ckpt: str, name: str, seconds, chunk_seconds: str, smi: str,
                  profile_fdbm=None, per_call: dict = SERVE_CALL_LAUNCHES,
-                 profile_kwargs: dict = None) -> dict:
+                 profile_kwargs: dict = None, extra=()) -> dict:
     """The folder CLI (``fdbm_tpu_torch.infer_folder.main``) on a folder of
     the given lengths, 30-step sde_ei at --batch_size 16: every file written
     at its input length and finite, no failures, and per enhanced batch one
     backbone call a step, each launching ``per_call`` (5l32c100: 10 RNN
-    paths, 5 norms, 5 attentions). Returns the launches."""
+    paths, 5 norms, 5 attentions). ``extra`` are more config overrides
+    (``inference_dtype=bfloat16``). Returns the launches."""
     from fdbm_tpu_torch import infer_folder, ops
     from fdbm_tpu_torch.utils.audio import read_wav
 
@@ -1725,7 +1818,7 @@ def serve_folder(tmp: str, ckpt: str, name: str, seconds, chunk_seconds: str, sm
         stats = infer_folder.main(["-C", config, f"ckpt={ckpt}", f"test_dir={src}",
                                    f"enhanced_dir={dst}", f"N={FOLDER_N}", "sampler_type=sde_ei",
                                    "--batch_size", str(FOLDER_BATCH),
-                                   "--chunk_seconds", chunk_seconds])
+                                   "--chunk_seconds", chunk_seconds, *extra])
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     calls = FOLDER_N * len(batches)
@@ -1739,7 +1832,8 @@ def serve_folder(tmp: str, ckpt: str, name: str, seconds, chunk_seconds: str, sm
         x, sr = read_wav(path)
         if x.shape != (1, n) or sr != 16000 or not np.isfinite(x).all():
             bad.append((rel, x.shape))
-    record = {"phase": name, "chunk_seconds": float(chunk_seconds), "batch_size": FOLDER_BATCH,
+    record = {"phase": name, "overrides": list(extra),
+              "chunk_seconds": float(chunk_seconds), "batch_size": FOLDER_BATCH,
               "sampler": "sde_ei", "N": FOLDER_N, "files": stats.files,
               "failures": stats.failures, "audio_seconds": stats.audio_seconds,
               "wall_seconds": stats.wall_seconds, "prewarm_seconds": stats.prewarm_seconds,
@@ -1760,6 +1854,127 @@ def serve_folder(tmp: str, ckpt: str, name: str, seconds, chunk_seconds: str, sm
     return counts
 
 
+def folder_seconds() -> list:
+    """The serve folder's lengths: FOLDER_FILES of 1-12 s and one long file."""
+    rng = np.random.default_rng(SEED + 41)
+    return list(rng.uniform(1.0, 12.0, FOLDER_FILES)) + [FOLDER_LONG_SECONDS]
+
+
+def serve_folder_bf16(tmp: str, ckpt: str, smi: str) -> dict:
+    """The serve folder at ``inference_dtype=bfloat16``, pooled, with one
+    profiled bf16 batch: per batch a step launches only the bf16 forms."""
+    from fdbm_tpu_torch.checkpoint import load_checkpoint
+
+    return serve_folder(tmp, ckpt, "serve_folder_bf16", folder_seconds(), "4.096", smi,
+                        per_call=BF16_CALL_LAUNCHES, extra=(BF16_OVERRIDE,),
+                        profile_fdbm=load_checkpoint(ckpt, device="cuda",
+                                                     overrides={"inference_dtype": "bfloat16"}))
+
+
+def serve_cli(tmp: str, ckpt: str, phase: str, requests, smi: str, seed: int = SEED,
+              extra=()):
+    """Each (seconds, sampler, N) of ``requests`` written as a wav (its noise
+    from ``seed`` + its index) and served through
+    ``fdbm_tpu_torch.infer_single`` with the config overrides ``extra``: the
+    output at the input's length and rate, and finite. One record a request
+    and the rate of the 30-step ones (``{phase}_rate``). Returns each
+    request's launches and its file's path."""
+    from fdbm_tpu_torch import infer_single, ops
+    from fdbm_tpu_torch.utils.audio import read_wav, write_wav
+
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                          "config_infer_single.yaml")
+    launches, files = [], []
+    rate_audio = rate_wall = 0.0
+    for i, (seconds, sampler, n_steps) in enumerate(requests):
+        n = int(seconds * 16000)
+        noisy = os.path.join(tmp, f"noisy_{seed + i}.wav")
+        out_file = os.path.join(tmp, f"{phase}_enhanced_{i}.wav")
+        files.append(noisy)
+        if not os.path.exists(noisy):
+            wav = np.random.default_rng(seed + i).standard_normal(n).astype(np.float32)
+            write_wav(noisy, 0.1 * wav + 0.3 * np.sin(np.arange(n) * 0.05), 16000)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as cli_out:
+            infer_single.main(["-C", config, f"ckpt={ckpt}", f"noisy_file={noisy}",
+                               f"output_file={out_file}", f"N={n_steps}",
+                               f"sampler_type={sampler}", *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches.append(ops.launch_counts())
+        enhanced, sr = read_wav(out_file)
+        finite = bool(np.isfinite(enhanced).all())
+        emit({"phase": phase, "request": i, "overrides": list(extra), "sampler": sampler,
+              "N": n_steps, "audio_seconds": seconds, "samples": int(enhanced.shape[-1]),
+              "wall_seconds": wall, "audio_seconds_per_second": seconds / wall,
+              "launches": launches[-1], "finite": finite, "cli": cli_out.getvalue().strip(),
+              "nvidia_smi": smi})
+        if enhanced.shape != (1, n) or sr != 16000 or not finite:
+            fail(f"{phase} request {i}: shape {enhanced.shape}, sr {sr}, finite {finite}")
+        if n_steps == 30:
+            rate_audio += seconds
+            rate_wall += wall
+    emit({"phase": f"{phase}_rate", "N": 30, "audio_seconds": rate_audio,
+          "wall_seconds": rate_wall, "audio_seconds_per_second": rate_audio / rate_wall})
+    return launches, files
+
+
+def expect_bf16_like(name: str, fp32: dict, bf16: dict, kernels) -> None:
+    """A bf16 serve launched only the bf16 forms of ``kernels``, each as
+    many times as the same serve in fp32 launched its fp32 form (at least
+    once)."""
+    expected = {BF16_FORMS[k]: fp32[k] for k in kernels}
+    if not (only_bf16(bf16, expected) and min(expected.values()) > 0):
+        fail(f"{name}: bf16 launches {bf16}, expected {expected} (the fp32 serve's)")
+
+
+def serve_phase(tmp: str, ckpt: str, smi: str):
+    """The main path through the single-file CLI: the SERVE_REQUESTS files
+    in fp32 (each launching kernels 1-3, as many norms as attentions), then
+    at ``inference_dtype=bfloat16`` (only the bf16 forms, as many as fp32
+    launched), and one profiled 4 s request in each dtype. Returns the
+    launches of all six requests and the 4 s file's path."""
+    from fdbm_tpu_torch.checkpoint import load_checkpoint
+
+    fp32, files = serve_cli(tmp, ckpt, "serve", SERVE_REQUESTS, smi)
+    noisy = files[-1]
+    bf16, _ = serve_cli(tmp, ckpt, "serve_bf16", SERVE_REQUESTS, smi, extra=(BF16_OVERRIDE,))
+    totals = {}
+    for i, (c32, c16) in enumerate(zip(fp32, bf16)):
+        if not (min(c32[k] for k in SERVE_KERNELS) > 0
+                and c32["flat_group_norm"] == c32["frame_attention"]):
+            fail(f"serve request {i}: launches {c32}")
+        expect_bf16_like(f"serve_bf16 request {i}", c32, c16, SERVE_KERNELS)
+        for k in c32:
+            totals[k] = totals.get(k, 0) + c32[k] + c16[k]
+    emit(profile_request(load_checkpoint(ckpt, device="cuda"), noisy))
+    emit(profile_request(load_checkpoint(ckpt, device="cuda",
+                                         overrides={"inference_dtype": "bfloat16"}),
+                         noisy, "profile_bf16"))
+    return totals, noisy
+
+
+def samplers_draws(fdbm, dev) -> dict:
+    """The samplers phase's input and draws, in their order: a 2 s file's
+    spectrogram ``y``, ``y`` moved by 1e-7 of its mean magnitude, pc's noise
+    at N=2 and N=5, and ode_int's prior ``z``."""
+    from fdbm_tpu_torch.infer import bucket_length, pad_to
+
+    rng = np.random.default_rng(SEED + 20)
+    n = 2 * 16000
+    audio = 0.1 * rng.standard_normal(n) + 0.3 * np.sin(np.arange(n) * 0.05)
+    audio = pad_to((audio / np.abs(audio).max()).astype(np.float32), bucket_length(n, 256))
+    y = fdbm.audio_to_spec(torch.as_tensor(audio[None], device=dev))
+    cn = lambda *shape: torch.complex(
+        torch.as_tensor(rng.standard_normal(shape).astype(np.float32)),
+        torch.as_tensor(rng.standard_normal(shape).astype(np.float32))).to(dev) / math.sqrt(2.0)
+    y_moved = y + cn(*y.shape) * 1e-7 * y.abs().mean()
+    return {"y": y, "y_moved": y_moved, "noise_2": cn(5, *y.shape), "noise_5": cn(11, *y.shape),
+            "z": cn(*y.shape)}
+
+
 def samplers_phase(fdbm, plain, dev) -> dict:
     """``pc`` and ``ode_int`` on one 2 s file, kernel route against plain
     route on the same draws. On random weights both samplers are chaotic
@@ -1774,17 +1989,9 @@ def samplers_phase(fdbm, plain, dev) -> dict:
     control; both must be finite. Every run on the kernel route must run
     kernels 1-3. Returns the kernel route's launches."""
     from fdbm_tpu_torch import ops
-    from fdbm_tpu_torch.infer import bucket_length, pad_to
 
-    rng = np.random.default_rng(SEED + 20)
-    n = 2 * 16000
-    audio = 0.1 * rng.standard_normal(n) + 0.3 * np.sin(np.arange(n) * 0.05)
-    audio = pad_to((audio / np.abs(audio).max()).astype(np.float32), bucket_length(n, 256))
-    y = fdbm.audio_to_spec(torch.as_tensor(audio[None], device=dev))
-    cn = lambda *shape: torch.complex(
-        torch.as_tensor(rng.standard_normal(shape).astype(np.float32)),
-        torch.as_tensor(rng.standard_normal(shape).astype(np.float32))).to(dev) / math.sqrt(2.0)
-    y_moved = y + cn(*y.shape) * 1e-7 * y.abs().mean()
+    draws = samplers_draws(fdbm, dev)
+    y = draws["y"]
     totals = dict.fromkeys(ops.launch_counts(), 0)
     runs = {}
     finite = lambda t: bool(torch.isfinite(torch.view_as_real(t)).all())
@@ -1802,17 +2009,16 @@ def samplers_phase(fdbm, plain, dev) -> dict:
         return out
 
     pc = lambda steps: dict(sampler_type="pc", N=steps, predictor_name="euler_maruyama",
-                            corrector_name="ald", corrector_steps=1,
-                            noise=cn(1 + steps * 2, *y.shape))
+                            corrector_name="ald", corrector_steps=1, noise=draws[f"noise_{steps}"])
     first = pc(2)
     pc_first_err = rel_err(run("pc_N2", fdbm, **first), run("pc_N2_plain", plain, **first))
     full = pc(5)
     pc_out = run("pc_N5", fdbm, **full)
     pc_plain = run("pc_N5_plain", plain, **full)
     pc_err = rel_err(pc_out, pc_plain)
-    pc_control = rel_err(run("pc_N5_plain_moved", plain, spec=y_moved, **full), pc_plain)
-    z = cn(*y.shape)
-    ode = dict(sampler_type="ode_int", rtol=1e-2, atol=1e-2, z=z)
+    pc_control = rel_err(run("pc_N5_plain_moved", plain, spec=draws["y_moved"], **full),
+                         pc_plain)
+    ode = dict(sampler_type="ode_int", rtol=1e-2, atol=1e-2, z=draws["z"])
     ode_out = run("ode_int", fdbm, **ode)
     ode_err = rel_err(run("ode_int_steps", fdbm, max_steps=ODE_INT_STEPS, **ode),
                       run("ode_int_steps_plain", plain, max_steps=ODE_INT_STEPS, **ode))
@@ -1905,6 +2111,8 @@ def predictive_phase(tmp: str, smi: str, backbone: str = "", steps: int = 4) -> 
 NCSNPP = "ncsnpp_v2"
 NCSNPP_SHAPE = (1, 1, 257, 256)  # 4.1 s of audio
 NCSNPP_FOLDER_FILES = 16
+# ncsnpp_v2 served in bf16 against itself in float64 (backbone_bf16).
+NCSNPP_BF16_TOL = 3e-2
 # One block's conv0 zeroed: the control that must miss the float64 gate.
 NCSNPP_CONTROL_LEAF = "down_3_0.conv0.weight"
 
@@ -2022,11 +2230,10 @@ def ncsnpp_serve_phase(tmp: str, rng, dev, smi: str):
     """ncsnpp_v2 serving: a 2-step reflection-padded serve against the float64
     route on the same noise (rel < 1e-4), then a checkpoint the script writes
     served through the single-file CLI on a 4 s and a 3 s file (257 and 193
-    frames, reflection-padded to 320 and 256), 30-step sde_ei, and one
-    profiled 4 s request. Returns the checkpoint's path and the model."""
-    from fdbm_tpu_torch import infer_single
+    frames, reflection-padded to 320 and 256), 30-step sde_ei, in fp32 and
+    then at ``inference_dtype=bfloat16``, and one profiled 4 s request.
+    Returns the checkpoint's path and the model."""
     from fdbm_tpu_torch.checkpoint import save_checkpoint
-    from fdbm_tpu_torch.utils.audio import read_wav, write_wav
 
     fdbm = ncsnpp_fdbm(dev)
     ckpt = os.path.join(tmp, "ncsnpp_v2.pt")
@@ -2047,35 +2254,11 @@ def ncsnpp_serve_phase(tmp: str, rng, dev, smi: str):
     if not err < 1e-4:
         fail(f"{NCSNPP} 2-step serve disagrees with the float64 route: rel {err}")
 
-    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
-                          "config_infer_single.yaml")
-    rate_audio = rate_wall = 0.0
-    for i, seconds in enumerate((4.0, 3.0)):
-        n = int(seconds * 16000)
-        noisy, out_file = (os.path.join(tmp, f"ncsnpp_{k}_{i}.wav") for k in ("noisy", "enh"))
-        wav = np.random.default_rng(SEED + 50 + i).standard_normal(n).astype(np.float32)
-        write_wav(noisy, 0.1 * wav + 0.3 * np.sin(np.arange(n) * 0.05), 16000)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()) as cli_out:
-            infer_single.main(["-C", config, f"ckpt={ckpt}", f"noisy_file={noisy}",
-                               f"output_file={out_file}", "N=30", "sampler_type=sde_ei"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        enhanced, sr = read_wav(out_file)
-        emit({"phase": "ncsnpp_serve", "request": i, "sampler": "sde_ei", "N": 30,
-              "audio_seconds": seconds, "samples": int(enhanced.shape[-1]), "wall_seconds": wall,
-              "audio_seconds_per_second": seconds / wall,
-              "finite": bool(np.isfinite(enhanced).all()), "cli": cli_out.getvalue().strip(),
-              "nvidia_smi": smi})
-        if enhanced.shape != (1, n) or sr != 16000 or not np.isfinite(enhanced).all():
-            fail(f"{NCSNPP} serve request {i}: shape {enhanced.shape}, sr {sr}")
-        rate_audio += seconds
-        rate_wall += wall
-    emit({"phase": "ncsnpp_serve_rate", "N": 30, "audio_seconds": rate_audio,
-          "wall_seconds": rate_wall, "audio_seconds_per_second": rate_audio / rate_wall})
-    emit(profile_request(fdbm, os.path.join(tmp, "ncsnpp_noisy_0.wav"), "ncsnpp_profile",
-                         pad_mode="reflection"))
+    requests = ((4.0, "sde_ei", 30), (3.0, "sde_ei", 30))
+    _, files = serve_cli(tmp, ckpt, "ncsnpp_serve", requests, smi, seed=SEED + 50)
+    serve_cli(tmp, ckpt, "ncsnpp_serve_bf16", requests, smi, seed=SEED + 50,
+              extra=(BF16_OVERRIDE,))
+    emit(profile_request(fdbm, files[0], "ncsnpp_profile", pad_mode="reflection"))
     return ckpt, fdbm
 
 
@@ -2135,6 +2318,16 @@ def ncsnpp_grad_phase(rng, dev) -> None:
              f"{[(n, rels[n]) for n in worst]}")
 
 
+def ncsnpp_folder(tmp: str, ckpt: str, smi: str, profile_fdbm=None, extra=()) -> None:
+    """ncsnpp_v2's folder: NCSNPP_FOLDER_FILES files of 1-12 s through the
+    folder CLI at --batch_size 16 with the overrides ``extra``, and one
+    5-step profiled batch of ``profile_fdbm`` unless it is None."""
+    seconds = list(np.random.default_rng(SEED + 61).uniform(1.0, 12.0, NCSNPP_FOLDER_FILES))
+    serve_folder(tmp, ckpt, "ncsnpp_serve_folder" + ("_bf16" if extra else ""), seconds, "4.096",
+                 smi, profile_fdbm=profile_fdbm, per_call={}, extra=extra,
+                 profile_kwargs={"n_steps": 5, "pad_mode": "reflection"})
+
+
 def ncsnpp_phases(tmp: str, rng, dev, smi: str) -> None:
     """Every NCSN++ phase, with the ten kernels' launch counts held at 0."""
     from fdbm_tpu_torch import ops
@@ -2152,11 +2345,9 @@ def ncsnpp_phases(tmp: str, rng, dev, smi: str) -> None:
     ops.reset_launch_counts()
     timed("backbone", ncsnpp_backbone_phase, rng, dev)
     ckpt, fdbm = timed("serve", ncsnpp_serve_phase, tmp, rng, dev, smi)
-    folder_rng = np.random.default_rng(SEED + 61)
-    seconds = list(folder_rng.uniform(1.0, 12.0, NCSNPP_FOLDER_FILES))
-    timed("serve_folder", serve_folder, tmp, ckpt, "ncsnpp_serve_folder", seconds, "4.096", smi,
-          profile_fdbm=fdbm, per_call={}, profile_kwargs={"n_steps": 5, "pad_mode": "reflection"})
+    timed("serve_folder", ncsnpp_folder, tmp, ckpt, smi, profile_fdbm=fdbm)
     del fdbm
+    timed("serve_folder_bf16", ncsnpp_folder, tmp, ckpt, smi, extra=(BF16_OVERRIDE,))
     timed("train_grad", ncsnpp_grad_phase, rng, dev)
     timed("train_cli", train_cli_phase, tmp, smi, NCSNPP)
     with cudnn_benchmark():  # as the trainer runs
@@ -2169,20 +2360,474 @@ def ncsnpp_phases(tmp: str, rng, dev, smi: str) -> None:
         fail(f"the NCSN++ phases launched the port's kernels: {counts}")
 
 
-def main(kernels_only: bool = False, ncsnpp_only: bool = False) -> None:
+# -- bf16 serving: inference_dtype=bfloat16 ------------------------------------------------
+
+# The serving kernels with a bf16 form (kernels 1, 2, 3 and 7), by the name
+# their bf16 launches count under (ops.launch_counts).
+BF16_FORMS = {"grid_rnn_seq1_pair": "grid_rnn_seq1_pair_bf16",
+              "flat_group_norm": "flat_group_norm_bf16",
+              "frame_attention": "frame_attention_bf16",
+              "bilstm_fused_forward": "bilstm_fused_forward_bf16"}
+# A bf16 kernel against its bf16 plain version: rel-L2 within its entry of
+# BF16_TOLS, about 2.5x what the card reads at the path's shapes (8.4e-4,
+# 1.1e-5, 9.0e-5 and 3.4e-4 on an H100: the sums' order moves a value across
+# a bf16 rounding boundary now and then), and its distance to the plain
+# version run in float64 within BF16_F64_K x the plain version's plus
+# BF16_F64_ABS. The up-cast control, the fp32 form on the same bf16 inputs
+# with its output rounded to bf16 (no rounding of the weights, of h before
+# each product or of P before P.V), must miss BF16_TOLS for kernels 1, 3 and
+# 7 (it reads 1.4e-3 to 3.9e-3 from the plain versions); kernel 2 rounds
+# nothing before its output, so it has none. A backbone or a serve on random
+# weights carries the kernels' rare one-step differences through the E=2
+# q/k norms, which amplify them (a pair of lanes within rounding of each
+# other flips sign: 5l32c100's forward reads 1.8e-2 between the routes), so
+# there the float64 gate alone decides and the routes' rel-L2 is reported.
+BF16_TOLS = {"grid_rnn_seq1_pair": 2e-3, "flat_group_norm": 3e-5, "frame_attention": 2.5e-4,
+             "bilstm_fused_forward": 1e-3}
+BF16_F64_K, BF16_F64_ABS = 1.5, 1e-3
+BF16_CALL_LAUNCHES = {"grid_rnn_seq1_pair_bf16": 2 * RNN_BLOCKS,
+                      "flat_group_norm_bf16": RNN_BLOCKS, "frame_attention_bf16": RNN_BLOCKS,
+                      "grid_rnn_seq1_pair": 0, "flat_group_norm": 0, "frame_attention": 0}
+BF16_OVERRIDE = "inference_dtype=bfloat16"
+# bf16_quality: 5l32c100 trained on the card on speech-like pairs, then four
+# held-out files served with ode_ei at N=8 in fp32 and in bf16.
+QUALITY_STEPS, QUALITY_LR, QUALITY_N = 200, 5e-4, 8
+QUALITY_TRAIN_FILES, QUALITY_TEST_FILES, QUALITY_SECONDS = 8, 4, 3.0
+QUALITY_AGREEMENT_DB, QUALITY_DELTA_DB = 15.0, 0.5
+
+
+def as_real64(t: torch.Tensor) -> torch.Tensor:
+    t = t.detach()
+    return (torch.view_as_real(t) if t.is_complex() else t).double()
+
+
+def bf16_gate(got, plain, f64, tol) -> dict:
+    """The bf16 gate of a kernel, a backbone or a serve: ``got`` (the bf16
+    kernel route) against ``plain`` (the bf16 plain route; within ``tol``
+    unless it is None) and ``f64`` (the plain route in float64), over
+    tensors or lists of tensors."""
+    cat = lambda ts: torch.cat([as_real64(t).flatten() for t in ts]) \
+        if isinstance(ts, (list, tuple)) else as_real64(ts)
+    g, p, f = cat(got), cat(plain), cat(f64)
+    r = {"rel_err": rel_err(g, p), "kernel_f64": rel_err(g, f), "plain_f64": rel_err(p, f),
+         "max_abs_err": float((g - p).abs().max())}
+    r["limit_f64"] = BF16_F64_K * r["plain_f64"] + BF16_F64_ABS
+    r["tol"] = tol
+    r["ok"] = bool((tol is None or r["rel_err"] <= tol) and r["kernel_f64"] <= r["limit_f64"]
+                   and torch.isfinite(g).all())
+    return r
+
+
+def only_bf16(counts: dict, expected: dict) -> bool:
+    """The bf16 forms launched as ``expected`` and no fp32 form of them."""
+    return (all(counts[k] == v for k, v in expected.items())
+            and not any(counts[k] for k in BF16_FORMS))
+
+
+def kernel_bf16_phase(dev, summary: dict) -> None:
+    """Rows 1, 2, 3 and 7 in their bf16 forms at the main path's shapes (the
+    4 s request, B=1; row 7 at 6l48c200's intra path) and rows 1-3 at the
+    folder's batch (B=16), each against its bf16 plain version and float64
+    (``bf16_gate`` within BF16_TOLS), the up-cast control beside rows 1, 3
+    and 7, and the fp32 form's time on the same inputs. Bound: bf16 bytes
+    (fp32 weights) over the HBM rate against the operations over the bf16
+    tensor-core rate (``cuda_core_bound_ms``: over the fp32 rate of the CUDA
+    cores, where the bf16 forms multiply today). Library: SDPA on bf16 (row
+    3), cuDNN's bf16 LSTM (row 7)."""
+    from fdbm_tpu_torch.dsp import num_frames_for_length
+    from fdbm_tpu_torch.ops import attention as attn_ops, gridrnn, lstm as lstm_ops
+
+    rng = np.random.default_rng(SEED + 90)
+    rand = lambda *shape, s=1.0: torch.as_tensor(
+        rng.standard_normal(shape).astype(np.float32) * s, device=dev)
+    bf = lambda t: t.to(torch.bfloat16)
+    dbl = lambda ts: [t.double() for t in ts]
+    c, hidden, n_head, e_dim, q_bins = 32, 100, 4, 2, 257
+    d_dim = c // n_head
+    w = (rand(2, 4 * c, 4 * hidden, s=0.1), rand(2, hidden, 4 * hidden, s=0.1),
+         rand(2, 4 * hidden, s=0.1), rand(2 * hidden, 4 * c, s=0.1))
+    w_bytes = 4 * sum(t.numel() for t in w)
+    n_request = num_frames_for_length(65536, 512, 256)  # the 4 s request's 64-frame bucket
+    rows = {}
+
+    def gated(name, got, plain, f64, upcast=None):
+        """``bf16_gate`` within BF16_TOLS[name]; ``upcast``, the fp32 form's
+        output on the same inputs, rounded to bf16 must miss it."""
+        r = bf16_gate(got, plain, f64, BF16_TOLS[name])
+        if upcast is not None:
+            ctl = bf16_gate(upcast, plain, f64, BF16_TOLS[name])
+            r["upcast_control"] = {"rel_err": ctl["rel_err"], "kernel_f64": ctl["kernel_f64"],
+                                   "missed": not ctl["ok"]}
+            r["ok"] = r["ok"] and not ctl["ok"]
+        return r
+
+    def bounds(flops, nbytes):
+        return {"bound": bound(flops, nbytes, PEAK_BF16_FLOPS),
+                "cuda_core_bound_ms": bound(flops, nbytes)[0]}
+
+    def rnn_row(b, frames):
+        s_len, p_len = q_bins + 6, frames + 6
+        length = s_len - 3
+        x = bf(rand(b, s_len, p_len, c, s=0.5))
+        x32 = x.float()
+        crop = lambda pair: [t[:, 3:length] for t in pair]
+        gate = gated("grid_rnn_seq1_pair", crop(gridrnn.grid_rnn_seq1_pair(x, *w)),
+                     crop(gridrnn.grid_rnn_seq1_pair_plain(x, *w)),
+                     crop(gridrnn.grid_rnn_seq1_pair_plain(x.double(), *dbl(w))),
+                     crop([bf(t) for t in gridrnn.grid_rnn_seq1_pair(x32, *w)]))
+        lines = b * p_len
+        flops = 2 * lines * length * 2 * (4 * c * 4 * hidden + hidden * 4 * hidden
+                                           + hidden * 4 * c)
+        return dict(
+            gate, shape=list(x.shape), plan=gridrnn.fused_plan(lines, c, hidden)._asdict(),
+            stages_ms=kernel_times(lambda: gridrnn.grid_rnn_seq1_pair(x, *w),
+                                   {"recurrence": "gridrnn_fused_kernel",
+                                    "fold": "fold_kernel"}),
+            ms=timed_ms(lambda: gridrnn.grid_rnn_seq1_pair(x, *w), 5 if b > 1 else 20),
+            fp32_ms=timed_ms(lambda: gridrnn.grid_rnn_seq1_pair(x32, *w), 5 if b > 1 else 20),
+            plain_ms=timed_ms(lambda: gridrnn.grid_rnn_seq1_pair_plain(x, *w), 1 if b > 1 else 3),
+            **bounds(flops, 2 * 3 * x.numel() + w_bytes), library_ms=None)
+
+    def attention_rows(b, frames):
+        out = {}
+        q, k = (bf(rand(b, frames, q_bins, n_head * e_dim)) for _ in range(2))
+        v = bf(rand(b, frames, q_bins, c))
+        norms = tuple((rand(n_head, 1, s=0.3), rand(n_head, wd), rand(n_head, wd))
+                      for wd in (e_dim, e_dim, d_dim))
+        maps = [(a, *p, wd) for a, p, wd in zip((q, k, v), norms, (e_dim, e_dim, d_dim))]
+        maps32 = [(m[0].float(), *m[1:]) for m in maps]
+        plain = lambda ms: [attn_ops.flat_group_norm_plain(*m[:4], width=m[4]) for m in ms]
+        elems = sum(m[0].numel() for m in maps)
+        out["flat_group_norm"] = dict(
+            gated("flat_group_norm", attn_ops.flat_group_norms(maps), plain(maps),
+                  plain([(*dbl(m[:4]), m[4]) for m in maps])),
+            shape=[list(m[0].shape) for m in maps],
+            ms=timed_ms(lambda: attn_ops.flat_group_norms(maps)),
+            device_ms=kernel_times(lambda: attn_ops.flat_group_norms(maps),
+                                   {"norm": "norm_segments_kernel"}).get("norm"),
+            fp32_ms=timed_ms(lambda: attn_ops.flat_group_norms(maps32)),
+            fp32_device_ms=kernel_times(lambda: attn_ops.flat_group_norms(maps32),
+                                        {"norm": "norm_segments_kernel"}).get("norm"),
+            plain_ms=timed_ms(lambda: plain(maps), 3),
+            **bounds(10 * elems, 2 * 2 * elems), library_ms=None,
+            calls="the q, k and v maps of one attention call (one launch); ms by events "
+                  "around the wrapper, device_ms from the profiler")
+        scale = 1.0 / math.sqrt(e_dim * q_bins)
+        to_heads = lambda t, w_: t.reshape(b, frames, q_bins, n_head, w_).permute(
+            0, 3, 1, 2, 4).reshape(b, n_head, frames, q_bins * w_)
+        qh, kh, vh = to_heads(q, e_dim), to_heads(k, e_dim), to_heads(v, d_dim)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        t2 = b * n_head * frames * frames
+        run = lambda: attn_ops.frame_attention(q, k, v, n_head, e_dim)
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        out["frame_attention"] = dict(
+            gated("frame_attention", run(), attn_ops.frame_attention_plain(q, k, v, n_head, e_dim),
+                  attn_ops.frame_attention_plain(q.double(), k.double(), v.double(), n_head,
+                                                 e_dim),
+                  bf(attn_ops.frame_attention(q32, k32, v32, n_head, e_dim))),
+            shape=[list(q.shape), list(v.shape)],
+            plan=attn_ops.card_attention_plan(b, frames, q_bins, n_head, e_dim,
+                                              d_dim)._asdict(),
+            ms=timed_ms(run),
+            fp32_ms=timed_ms(lambda: attn_ops.frame_attention(q32, k32, v32, n_head, e_dim)),
+            plain_ms=timed_ms(lambda: attn_ops.frame_attention_plain(q, k, v, n_head, e_dim), 3),
+            **bounds(2 * t2 * q_bins * (e_dim + d_dim) + 5 * t2,
+                     2 * (q.numel() + k.numel() + 2 * v.numel())),
+            library_ms=timed_ms(sdpa))
+        return out
+
+    rows["grid_rnn_seq1_pair"] = rnn_row(1, n_request)
+    rows.update(attention_rows(1, n_request))
+
+    d, wide_h = 4 * WIDE_C, WIDE_H
+    length = q_bins + 6 - 3
+    sc = wide_h ** -0.5
+    w2 = (rand(2, d, 4 * wide_h, s=sc), rand(2, wide_h, 4 * wide_h, s=sc),
+          rand(2, 4 * wide_h, s=sc))
+    x = bf(rand(length, n_request + 6, d))
+    n = x.shape[0] * x.shape[1]
+    lib = cudnn_lstm(*w2, dev).to(torch.bfloat16)
+    with torch.no_grad():
+        rows["bilstm_fused_forward"] = dict(
+            gated("bilstm_fused_forward", lstm_ops.bilstm_fused_forward(x, *w2),
+                  lstm_ops.bilstm_fused_forward_plain(x, *w2),
+                  lstm_ops.bilstm_fused_forward_plain(x.double(), *dbl(w2)),
+                  [bf(t) for t in lstm_ops.bilstm_fused_forward(x.float(), *w2)]),
+            shape=list(x.shape), plan=lstm_ops.recurrence_plan(x.shape[1], 2, wide_h)._asdict(),
+            ms=timed_ms(lambda: lstm_ops.bilstm_fused_forward(x, *w2)),
+            fp32_ms=timed_ms(lambda: lstm_ops.bilstm_fused_forward(x.float(), *w2)),
+            plain_ms=timed_ms(lambda: lstm_ops.bilstm_fused_forward_plain(x, *w2), 3),
+            **bounds(2 * n * (2 * d * 4 * wide_h + 2 * wide_h * 4 * wide_h),
+                     2 * x.numel() + 4 * sum(t.numel() for t in w2) + 2 * 2 * n * wide_h),
+            library_ms=timed_ms(lambda: lib(x)),
+            **recurrence_time(lambda: lstm_ops.bilstm_fused_forward(x, *w2), length),
+            calls="one intra path of 6l48c200's 4 s request (B=1)")
+    del x, lib
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+        emit({"phase": "kernel_bf16", "name": BF16_FORMS[name], **r})
+        if not r["ok"]:
+            fail(f"{BF16_FORMS[name]} disagrees with its bf16 plain version, or its up-cast "
+                 f"control does not: {r}")
+        summary[BF16_FORMS[name]] = r
+
+    b16 = {"grid_rnn_seq1_pair": rnn_row(FOLDER_BATCH, num_frames_for_length(
+        CHUNK_SAMPLES, 512, 256))}
+    b16.update(attention_rows(FOLDER_BATCH, num_frames_for_length(CHUNK_SAMPLES, 512, 256)))
+    for name, r in b16.items():
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+        emit({"phase": "kernel_bf16_b16", "name": BF16_FORMS[name], "batch": FOLDER_BATCH, **r})
+        if not r["ok"]:
+            fail(f"{BF16_FORMS[name]} at B={FOLDER_BATCH} disagrees with its bf16 plain "
+                 f"version, or its up-cast control does not: {r}")
+    torch.cuda.empty_cache()
+
+
+def backbone_bf16_phase(dev) -> None:
+    """The three backbones in eval mode with a bf16 serving dtype at a 4 s
+    request's spectrogram (B=1, 256 frames): 5l32c100 and 6l48c200 on the
+    kernel route against their bf16 plain route and the plain route in
+    float64 (``bf16_gate``), with their launches per forward (only bf16
+    forms) and the forward's time beside fp32's; ncsnpp_v2 (fan-in weights,
+    no kernel) against itself in float64."""
+    import copy
+
+    from fdbm_tpu_torch import ops
+    from fdbm_tpu_torch.models.ncsnpp import ncsnpp_v2
+    from fdbm_tpu_torch.models.tfgridnet import TFGridNet, tfgridnet_5l32c100
+
+    rng = np.random.default_rng(SEED + 91)
+    cn = lambda shape: torch.complex(*(torch.as_tensor(
+        rng.standard_normal(shape).astype(np.float32), device=dev) for _ in range(2)))
+    shape = (1, 1, 257, 256)
+    xs, ys, ts = cn(shape), cn(shape), torch.tensor([0.6], device=dev)
+    as64 = lambda: (xs.to(torch.complex128), ys.to(torch.complex128), ts.double())
+    cases = ((RNN_MODEL, tfgridnet_5l32c100,
+              {"grid_rnn_seq1_pair_bf16": 2 * RNN_BLOCKS, "flat_group_norm_bf16": RNN_BLOCKS,
+               "frame_attention_bf16": RNN_BLOCKS}),
+             (WIDE, TFGridNet, {"bilstm_fused_forward_bf16": WIDE_PATHS,
+                                "frame_attention_bf16": 6, "flat_group_norm_bf16": 0,
+                                "grid_rnn_seq1_pair_bf16": 0}))
+    for name, make, expected in cases:
+        torch.manual_seed(SEED)
+        net = make(serve_dtype=torch.bfloat16).to(dev).eval()
+        ref = make(use_kernels=False, serve_dtype=torch.bfloat16).to(dev).eval()
+        ref.load_state_dict(net.state_dict())
+        f64 = make(use_kernels=False).to(dev).eval()
+        f64.load_state_dict(net.state_dict())
+        f64.double()
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            out = net(xs, ys, ts)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            gate = bf16_gate(out, ref(xs, ys, ts), f64(*as64()), tol=None)
+            fwd_ms = timed_ms(lambda: net(xs, ys, ts), 3)
+            net.serve_dtype = torch.float32
+            fwd32_ms = timed_ms(lambda: net(xs, ys, ts), 3)
+        ok = gate["ok"] and only_bf16(counts, expected)
+        emit({"phase": "backbone_bf16", "backbone": name, "shape": list(shape), **gate,
+              "launches_per_forward": counts, "expected": expected, "forward_ms": fwd_ms,
+              "fp32_forward_ms": fwd32_ms})
+        if not ok:
+            fail(f"{name} in bf16: {gate}, launches {counts}, expected {expected}")
+        del net, ref, f64
+
+    torch.manual_seed(SEED)
+    net = fan_in_weights_(ncsnpp_v2(serve_dtype=torch.bfloat16)).to(dev).eval()
+    net64 = copy.deepcopy(net)
+    net64.serve_dtype = torch.float32
+    net64.double()
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        out = net(xs, ys, ts)
+        counts = ops.launch_counts()
+        err = rel_err(as_real64(out), as_real64(net64(*as64())))
+        fwd_ms = timed_ms(lambda: net(xs, ys, ts), 5)
+        net.serve_dtype = torch.float32
+        fwd32_ms = timed_ms(lambda: net(xs, ys, ts), 5)
+    emit({"phase": "backbone_bf16", "backbone": NCSNPP, "shape": list(shape),
+          "weights": "fan-in scale, seeded", "float64_rel_err": err, "tol": NCSNPP_BF16_TOL,
+          "floor": 1e-4, "launches_per_forward": counts, "forward_ms": fwd_ms,
+          "fp32_forward_ms": fwd32_ms})
+    if not 1e-4 < err <= NCSNPP_BF16_TOL or any(counts.values()):
+        fail(f"{NCSNPP} in bf16 against float64: rel {err} (within (1e-4, {NCSNPP_BF16_TOL}]), "
+             f"launches {counts}")
+    del net, net64
+    torch.cuda.empty_cache()
+
+
+def serve_check_bf16_phase(dev) -> None:
+    """A 2-step sde_ei serve at ``inference_dtype=bfloat16``: 5l32c100 at B=1
+    (1 s) and B=16 (16 rows of 1 s), 6l48c200 at B=1, each through the kernel
+    route against the bf16 plain route and the plain network in float64 in
+    the same sampler (``Float64Backbone``), on the same noise
+    (``bf16_gate``); the kernel route launches only bf16 forms."""
+    from fdbm_tpu_torch import ops
+    from fdbm_tpu_torch.model import FDBMConfig
+    from fdbm_tpu_torch.models.tfgridnet import TFGridNet, tfgridnet_5l32c100
+
+    rng = np.random.default_rng(SEED + 92)
+    cfg = FDBMConfig(inference_dtype="bfloat16")
+    for name, make, rows, per_call in (
+            (RNN_MODEL, tfgridnet_5l32c100, 1, BF16_CALL_LAUNCHES),
+            (RNN_MODEL, tfgridnet_5l32c100, FOLDER_BATCH, BF16_CALL_LAUNCHES),
+            (WIDE, TFGridNet, 1, {"bilstm_fused_forward_bf16": WIDE_PATHS,
+                                  "frame_attention_bf16": 6})):
+        torch.manual_seed(SEED)
+        fdbm = fdbm_with(make, dev, cfg, serve_dtype=torch.bfloat16)
+        plain = fdbm_with(make, dev, cfg, use_kernels=False, serve_dtype=torch.bfloat16)
+        plain.dnn.load_state_dict(fdbm.dnn.state_dict())
+        f64 = fdbm_with(make, dev, cfg, use_kernels=False)
+        f64.dnn.load_state_dict(fdbm.dnn.state_dict())
+        f64.dnn = Float64Backbone(f64.dnn).eval()
+        audio = torch.as_tensor(rng.standard_normal((rows, 16000)).astype(np.float32) * 0.3,
+                                device=dev)
+        serve = lambda f: f.enhance_batch(audio, torch.Generator(device=dev).manual_seed(SEED),
+                                          sampler_type="sde_ei", N=2)
+        ops.reset_launch_counts()
+        out = serve(fdbm)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        gate = bf16_gate(out, serve(plain), serve(f64), tol=None)
+        expected = {k: 2 * v for k, v in per_call.items()}
+        emit({"phase": "serve_check_bf16", "backbone": name, "batch": rows, "sampler": "sde_ei",
+              "N": 2, "samples": audio.shape[-1], **gate, "launches": counts})
+        if not (gate["ok"] and only_bf16(counts, expected)):
+            fail(f"{name} bf16 serve at B={rows}: {gate}, launches {counts}, "
+                 f"expected {expected}")
+        del fdbm, plain, f64
+
+
+def quality_pairs(count: int, seconds: float, seed: int):
+    """Speech-like clean signals and their noisy copies (white noise at 0 dB
+    SNR), normalised by the noisy peak as the data loader does."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for i in range(count):
+        clean = speechlike(seconds, seed + i) * rng.uniform(0.5, 1.5)
+        noisy = clean + rng.standard_normal(len(clean)).astype(np.float32) * clean.std()
+        peak = np.abs(noisy).max()
+        pairs.append(((clean / peak).astype(np.float32), (noisy / peak).astype(np.float32)))
+    return pairs
+
+
+@cudnn_deterministic()
+def bf16_quality_phase(dev, smi: str) -> None:
+    """bf16 serving on trained weights. Random weights cannot judge it (a
+    random 30-step sampler is chaotic: 0.4 dB SI-SDR between fp32 and bf16
+    in the JAX package's records), so 5l32c100 is trained on the card first
+    (QUALITY_STEPS steps of ``FDBM.train_step`` at B=2 x 256 frames on
+    speech-like pairs at 0 dB SNR, lr QUALITY_LR), then its EMA weights
+    serve QUALITY_TEST_FILES held-out files with ode_ei at N=QUALITY_N in
+    fp32 and in bf16. Gates: the mean SI-SDR of the bf16 outputs against the
+    fp32 outputs (agreement) at least QUALITY_AGREEMENT_DB, and the mean
+    enhanced-vs-clean SI-SDR of bf16 within QUALITY_DELTA_DB of fp32's. The
+    same agreement on the untrained weights is printed as a control. The
+    phase runs on cuDNN's deterministic algorithms, so every run trains and
+    judges the same model: on the default ones the training differed from
+    run to run, and so did the agreement, which one model in five read
+    under the gate (PERF.md §6)."""
+    from fdbm_tpu_torch import ops
+    from fdbm_tpu_torch.model import FDBM, FDBMConfig, TrainState
+    from fdbm_tpu_torch.utils.metrics import si_sdr
+
+    crop = (TRAIN_FRAMES - 1) * 256
+    train = quality_pairs(QUALITY_TRAIN_FILES, 5.0, SEED + 100)
+    test = quality_pairs(QUALITY_TEST_FILES, QUALITY_SECONDS, SEED + 200)
+    rng = np.random.default_rng(SEED + 93)
+    cfg = FDBMConfig(lr=QUALITY_LR)
+    torch.manual_seed(SEED)
+    fdbm = FDBM(cfg, device=dev)
+    untrained = {k: v.detach().clone() for k, v in fdbm.dnn.state_dict().items()}
+    state = TrainState(fdbm.dnn)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(QUALITY_STEPS):
+        picks = rng.integers(0, len(train), TRAIN_BATCH)
+        starts = rng.integers(0, len(train[0][0]) - crop, TRAIN_BATCH)
+        batch = tuple(torch.as_tensor(np.stack([train[p][j][s:s + crop]
+                                                for p, s in zip(picks, starts)]), device=dev)
+                      for j in (0, 1))
+        losses.append(fdbm.train_step(state, batch, gen)["train_loss"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+
+    def serve_all(weights):
+        outs = {}
+        for dtype in ("float32", "bfloat16"):
+            model = FDBM(dataclasses.replace(cfg, inference_dtype=dtype), device=dev)
+            model.dnn.load_state_dict(weights)
+            ops.reset_launch_counts()
+            outs[dtype] = [model.enhance_audio(noisy, torch.Generator(device=dev).manual_seed(SEED),
+                                               sampler_type="ode_ei", N=QUALITY_N)
+                           for _, noisy in test]
+            outs[dtype + "_launches"] = ops.launch_counts()
+        return outs
+
+    trained = serve_all(state.ema)
+    control = serve_all(untrained)
+    agree = [si_sdr(a, b) for a, b in zip(trained["float32"], trained["bfloat16"])]
+    quality = {dtype: [si_sdr(clean, out) for (clean, _), out in zip(test, trained[dtype])]
+               for dtype in ("float32", "bfloat16")}
+    noisy_db = [si_sdr(clean, noisy) for clean, noisy in test]
+    mean = lambda v: float(np.mean(v))
+    delta = mean(quality["bfloat16"]) - mean(quality["float32"])
+    calls = QUALITY_N * QUALITY_TEST_FILES
+    expected = {k: v * calls for k, v in BF16_CALL_LAUNCHES.items()}
+    ok = (mean(agree) >= QUALITY_AGREEMENT_DB and abs(delta) <= QUALITY_DELTA_DB
+          and all(np.isfinite(losses)) and only_bf16(trained["bfloat16_launches"], expected))
+    emit({"phase": "bf16_quality", "backbone": RNN_MODEL, "steps": QUALITY_STEPS,
+          "lr": QUALITY_LR, "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
+          "train_seconds": train_s, "loss_first_10": mean(losses[:10]),
+          "loss_last_10": mean(losses[-10:]), "sampler": "ode_ei", "N": QUALITY_N,
+          "test_files": QUALITY_TEST_FILES, "test_seconds": QUALITY_SECONDS,
+          "agreement_db": agree, "agreement_mean_db": mean(agree),
+          "agreement_gate_db": QUALITY_AGREEMENT_DB,
+          "si_sdr_noisy_db": noisy_db, "si_sdr_fp32_db": quality["float32"],
+          "si_sdr_bf16_db": quality["bfloat16"], "si_sdr_mean_fp32_db": mean(quality["float32"]),
+          "si_sdr_mean_bf16_db": mean(quality["bfloat16"]), "si_sdr_delta_db": delta,
+          "delta_gate_db": QUALITY_DELTA_DB,
+          "control_untrained_agreement_db": [si_sdr(a, b) for a, b in
+                                             zip(control["float32"], control["bfloat16"])],
+          "launches_bf16": trained["bfloat16_launches"], "nvidia_smi": smi})
+    if not ok:
+        fail(f"bf16_quality: agreement {agree} (mean >= {QUALITY_AGREEMENT_DB} dB), "
+             f"SI-SDR fp32 {quality['float32']} bf16 {quality['bfloat16']} (delta {delta}), "
+             f"launches {trained['bfloat16_launches']} (expected {expected})")
+
+
+def bf16_phases(dev, smi: str) -> None:
+    """The bf16 phases that have no fp32 run beside them: the backbones, the
+    2-step serves and the quality on trained weights."""
+    t0 = time.perf_counter()
+    seconds_by_phase = {}
+    for name, fn, args in (("backbone_bf16", backbone_bf16_phase, (dev,)),
+                           ("serve_check_bf16", serve_check_bf16_phase, (dev,)),
+                           ("bf16_quality", bf16_quality_phase, (dev, smi))):
+        start = time.perf_counter()
+        fn(*args)
+        seconds_by_phase[name] = time.perf_counter() - start
+    emit({"phase": "bf16_seconds", "seconds_by_phase": seconds_by_phase,
+          "wall_seconds": time.perf_counter() - t0})
+
+
+def main(kernels_only: bool = False, ncsnpp_only: bool = False, bf16_only: bool = False) -> None:
     """The smoke run; ``kernels_only`` stops after the kernel rows,
-    ``ncsnpp_only`` runs only the NCSN++ phases (no kernel is built)."""
+    ``ncsnpp_only`` runs only the NCSN++ phases (no kernel is built),
+    ``bf16_only`` only the bf16 kernel rows and the phases with a bf16 run
+    (beside their fp32 runs)."""
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
     from fdbm_tpu_torch import ops
-    from fdbm_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from fdbm_tpu_torch.checkpoint import save_checkpoint
     from fdbm_tpu_torch.dsp import num_frames_for_length
     from fdbm_tpu_torch.infer import bucket_length
-    from fdbm_tpu_torch import infer_single
     from fdbm_tpu_torch.model import FDBM, FDBMConfig
     from fdbm_tpu_torch.models.tfgridnet import tfgridnet_5l32c100
     from fdbm_tpu_torch.ops import _build, attention as attn_ops, gridrnn
-    from fdbm_tpu_torch.utils.audio import read_wav, write_wav
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2206,6 +2851,21 @@ def main(kernels_only: bool = False, ncsnpp_only: bool = False) -> None:
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "nvcc_seconds": built["seconds"], "built": built["built"],
           "libraries": built["libraries"], "ptxas": ptxas})
+    if bf16_only:
+        kernel_bf16_phase(dev, {})
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            torch.manual_seed(SEED)
+            ckpt = os.path.join(tmp, "model.pt")
+            save_checkpoint(ckpt, FDBM(FDBMConfig(), device="cuda"))
+            _, noisy = serve_phase(tmp, ckpt, smi)
+            serve_folder_bf16(tmp, ckpt, smi)
+            wide_serve_phase(np.random.default_rng(SEED), dev, noisy)
+            ncsnpp_ckpt, _ = ncsnpp_serve_phase(tmp, np.random.default_rng(SEED), dev, smi)
+            ncsnpp_folder(tmp, ncsnpp_ckpt, smi, extra=(BF16_OVERRIDE,))
+            bf16_phases(dev, smi)
+        emit({"phase": "done", "bf16_only": True, "wall_seconds": time.perf_counter() - t_start})
+        print(smi, flush=True)
+        return
 
     # -- kernels at the main path's shapes ----------------------------------------
     # The 4 s request of the serve phase: 64-frame bucket, B=1.
@@ -2343,6 +3003,9 @@ def main(kernels_only: bool = False, ncsnpp_only: bool = False) -> None:
 
     # -- the LSTM kernels at the shapes of 6l48c200 ----------------------------------
     lstm_kernel_phase(rand, dev, summary, n_frames)
+
+    # -- rows 1, 2, 3 and 7 in their bf16 forms (their own draws) -------------------
+    kernel_bf16_phase(dev, summary)
     if kernels_only:
         emit({"phase": "done", "kernels_only": True,
               "wall_seconds": time.perf_counter() - t_start})
@@ -2398,56 +3061,22 @@ def main(kernels_only: bool = False, ncsnpp_only: bool = False) -> None:
             fail(f"serve with kernels disagrees with the plain route: rel {err}")
         serve_batch_check(fdbm, plain, dev)
 
-        config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
-                              "config_infer_single.yaml")
         totals = dict.fromkeys(ops.launch_counts(), 0)
-        rate_audio = rate_wall = 0.0
-        for i, (seconds, sampler, n_steps) in enumerate(SERVE_REQUESTS):
-            n = int(seconds * cfg.sr)
-            noisy = os.path.join(tmp, f"noisy_{i}.wav")
-            out_file = os.path.join(tmp, f"enhanced_{i}.wav")
-            wav = np.random.default_rng(SEED + i).standard_normal(n).astype(np.float32)
-            write_wav(noisy, 0.1 * wav + 0.3 * np.sin(np.arange(n) * 0.05), cfg.sr)
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()) as cli_out:
-                infer_single.main(["-C", config, f"ckpt={ckpt}", f"noisy_file={noisy}",
-                                   f"output_file={out_file}", f"N={n_steps}",
-                                   f"sampler_type={sampler}"])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = ops.launch_counts()
-            enhanced, sr = read_wav(out_file)
-            ok = (enhanced.shape == (1, n) and sr == cfg.sr
-                  and bool(np.isfinite(enhanced).all())
-                  and min(counts[k] for k in SERVE_KERNELS) > 0
-                  and counts["flat_group_norm"] == counts["frame_attention"])
-            emit({"phase": "serve", "request": i, "sampler": sampler, "N": n_steps,
-                  "audio_seconds": seconds, "samples": int(enhanced.shape[-1]),
-                  "wall_seconds": wall, "audio_seconds_per_second": seconds / wall,
-                  "launches": counts, "finite": bool(np.isfinite(enhanced).all()),
-                  "cli": cli_out.getvalue().strip()})
-            if not ok:
-                fail(f"serve request {i}: shape {enhanced.shape}, sr {sr}, launches {counts}")
-            for name, count in counts.items():
-                totals[name] += count
-            if n_steps == 30:
-                rate_audio += seconds
-                rate_wall += wall
-        emit({"phase": "serve_rate", "N": 30, "audio_seconds": rate_audio,
-              "wall_seconds": rate_wall, "audio_seconds_per_second": rate_audio / rate_wall})
-        emit(profile_request(load_checkpoint(ckpt, device="cuda"), noisy))
+        counts, noisy = serve_phase(tmp, ckpt, smi)
+        for k, v in counts.items():
+            totals[k] += v
 
-        # -- folders: the folder CLI at B=16, pooled and whole; the pc and ode_int samplers
-        folder_rng = np.random.default_rng(SEED + 41)
-        seconds = list(folder_rng.uniform(1.0, 12.0, FOLDER_FILES)) + [FOLDER_LONG_SECONDS]
+        # -- folders: the folder CLI at B=16, pooled and whole, and pooled in bf16;
+        # the pc and ode_int samplers
+        seconds = folder_seconds()
         for name, secs, chunk in (("serve_folder", seconds, "4.096"),
                                   ("serve_folder_whole", seconds[:7] + seconds[-1:], "0")):
             counts = serve_folder(tmp, ckpt, name, secs, chunk, smi,
                                   profile_fdbm=fdbm if chunk != "0" else None)
             for k, v in counts.items():
                 totals[k] += v
+        for k, v in serve_folder_bf16(tmp, ckpt, smi).items():
+            totals[k] += v
         for k, v in samplers_phase(fdbm, plain, dev).items():
             totals[k] += v
         del fdbm, plain
@@ -2486,13 +3115,15 @@ def main(kernels_only: bool = False, ncsnpp_only: bool = False) -> None:
 
         # -- 6l48c200: the generic RNN path through the LSTM kernels -------------
         wide_backbone_phase(rand, dev)
-        wide_serve = wide_serve_phase(rng, dev, noisy)
-        totals["bilstm_fused_forward"] = wide_serve["bilstm_fused_forward"]
-        totals["frame_attention"] += wide_serve["frame_attention"]
+        for k, v in wide_serve_phase(rng, dev, noisy).items():
+            totals[k] += v
         totals.update(wide_train_phase(rng, dev, smi))
 
         # -- NCSN++: ncsnpp_v2 through both CLIs, the trainer, and its 5M twin ----
         ncsnpp_phases(tmp, rng, dev, smi)
+
+        # -- bf16 serving: the backbones, 2-step serves, quality on trained weights
+        bf16_phases(dev, smi)
     emit({"phase": "done", "wall_seconds": time.perf_counter() - t_start})
 
     print(smi, flush=True)
@@ -2535,6 +3166,96 @@ def probe(first: int, seeds: int, out_path: str) -> None:
         torch.cuda.empty_cache()
     with open(out_path, "w") as f:
         json.dump(readings, f)
+
+
+def probe_fp32(out_path: str, repeats: int = 10) -> None:
+    """What the fp32 route computes, for a comparison of two checkouts (run
+    a copy of this script from each checkout's root): the ten kernels'
+    fp32 outputs (and gradients) on fixed seeded inputs, to be compared bit
+    for bit; whether four calls of 5l32c100's forward, of its ``deconv_out``
+    (a transposed convolution) and of its ``conv_in`` on one input repeat
+    their bits; and the samplers phase's ode_int gate (its first
+    ODE_INT_STEPS steps, kernel route against plain route) ``repeats`` times
+    with cuDNN's default algorithms, each beside the kernel route and the
+    plain route against their own previous run, then once with its
+    deterministic ones. Written to ``out_path`` (torch.save); fails on
+    nothing."""
+    from fdbm_tpu_torch.model import FDBM, FDBMConfig
+    from fdbm_tpu_torch.models.tfgridnet import tfgridnet_5l32c100
+    from fdbm_tpu_torch.ops import attention, gridrnn, gridrnn_train, lstm
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    emit({"phase": "device", "nvidia_smi": nvidia_smi()})
+    rng = np.random.default_rng(SEED)
+    r = lambda *shape, sc=1.0: torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * sc,
+                                               device=dev)
+    c, h = 32, 100
+    x = r(2, 70, 9, c, sc=0.5)
+    w = (r(2, 4 * c, 4 * h, sc=.1), r(2, h, 4 * h, sc=.1), r(2, 4 * h, sc=.1),
+         r(2 * h, 4 * c, sc=.1))
+    bits = {}
+    with torch.no_grad():
+        bits["k1"] = gridrnn.grid_rnn_seq1_pair(x, *w)
+        lines = r(70, 40, c, sc=.5)
+        bits["k4"] = gridrnn.grid_bilstm_fold(lines, *w)
+    lr, ws = lines.clone().requires_grad_(True), [t.clone().requires_grad_(True) for t in w]
+    outf, outb = gridrnn_train.grid_fold_train_pair(lr, *ws)
+    cot = r(*outf.shape)
+    bits["k5"] = (outf.detach(), outb.detach())
+    bits["k6"] = torch.autograd.grad((outf * cot).sum() + (outb * cot).sum(), [lr, *ws])
+    q, k, v = r(1, 64, 33, 8), r(1, 64, 33, 8), r(1, 64, 33, 32)
+    norms = tuple((r(4, 1, sc=.3), r(4, wd), r(4, wd)) for wd in (2, 2, 8))
+    with torch.no_grad():
+        bits["k2"] = attention.flat_group_norm(q, *norms[0], width=2)
+        bits["k3"] = attention.frame_attention(q, k, v, 4, 2, norms=norms)
+        xs = r(40, 30, 192)
+        w2 = (r(2, 192, 800, sc=.07), r(2, 200, 800, sc=.07), r(2, 800, sc=.07))
+        bits["k7"] = lstm.bilstm_fused_forward(xs, *w2)
+        bits["k10"] = lstm.lstm_forward(xs, *(t[0] for t in w2))
+    xg, w1 = xs.clone().requires_grad_(True), [t[0].clone().requires_grad_(True) for t in w2]
+    hc = lstm.lstm_core(xg, *w1)
+    cot2 = r(*hc.shape)
+    bits["k8"] = hc.detach()
+    bits["k9"] = torch.autograd.grad((hc * cot2).sum(), [xg, *w1])
+    cpu = lambda a: [cpu(t) for t in a] if isinstance(a, (list, tuple)) else a.detach().cpu()
+
+    torch.manual_seed(SEED)
+    fdbm = FDBM(FDBMConfig(), device="cuda")
+    plain = FDBM(FDBMConfig(), device="cuda")
+    plain.dnn = tfgridnet_5l32c100(use_kernels=False).to(dev).eval()
+    plain.dnn.load_state_dict(fdbm.dnn.state_dict())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    same = lambda fn, a: [torch.equal(fn(a), fn(a)) for _ in range(3)]
+    with torch.no_grad():
+        xc = torch.randn(1, 1, 257, 129, dtype=torch.complex64, device=dev, generator=gen)
+        t = torch.tensor([0.5], device=dev)
+        repeats_equal = {
+            "forward": same(lambda a: fdbm.dnn(a, a, t), xc),
+            "deconv_out": same(fdbm.dnn.deconv_out, torch.randn(1, 32, 129, 257, device=dev,
+                                                                 generator=gen)),
+            "conv_in": same(fdbm.dnn.conv_in, torch.randn(1, 4, 129, 257, device=dev,
+                                                          generator=gen))}
+    draws = samplers_draws(fdbm, dev)
+    ode = dict(sampler_type="ode_int", rtol=1e-2, atol=1e-2, z=draws["z"],
+               max_steps=ODE_INT_STEPS)
+    readings, last = [], None
+    for det in [False] * repeats + [True]:
+        torch.backends.cudnn.deterministic = det
+        got = fdbm.enhance_spec(draws["y"], **ode)
+        want = plain.enhance_spec(draws["y"], **ode)
+        readings.append({"cudnn_deterministic": det, "rel_err": rel_err(got, want),
+                         "kernel_vs_previous": last and rel_err(got, last[0]),
+                         "plain_vs_previous": last and rel_err(want, last[1])})
+        last = (got, want)
+    torch.backends.cudnn.deterministic = False
+    emit({"phase": "probe_fp32", "repeats_equal": repeats_equal, "ode_int_first_steps": readings,
+          "tol": 1e-3, "out": out_path})
+    torch.save({"bits": {name: cpu(a) for name, a in bits.items()},
+                "repeats_equal": repeats_equal, "ode_int_first_steps": readings}, out_path)
 
 
 # Copies of a kernel source with one part of the work switched off
@@ -2837,11 +3558,21 @@ if __name__ == "__main__":
                              "from a parent commit's checkout)")
     parser.add_argument("--ncsnpp-only", action="store_true",
                         help="only run the NCSN++ phases (no kernel is built, no ok line)")
+    parser.add_argument("--bf16-only", action="store_true",
+                        help="only run the bf16 kernel rows and the bf16 serving phases "
+                             "(no ok line)")
+    parser.add_argument("--probe-fp32", metavar="OUT",
+                        help="only write what the fp32 route computes to OUT, for a comparison "
+                             "of two checkouts (see probe_fp32)")
     cli = parser.parse_args()
     if cli.kernels_only:
         main(kernels_only=True)
     elif cli.ncsnpp_only:
         main(ncsnpp_only=True)
+    elif cli.bf16_only:
+        main(bf16_only=True)
+    elif cli.probe_fp32:
+        probe_fp32(cli.probe_fp32)
     elif cli.probe_kernels:
         probe_kernels(cli.probe_kernels)
     elif cli.probe_seeds:

@@ -17,6 +17,16 @@ are padded to a multiple of 64 frames before sampling, ``enhance_batch``).
 Finetuning mode (the "enhanced bridge") trains a pretrained bridge through
 its own unrolled N-step ODE-EI sampler, with a gradient through the last
 backbone call only (``_finetune_unrolled``).
+
+The serving dtype follows ``fdbm_tpu/model.py:162,177-180``:
+``inference_dtype: bfloat16`` serves in bf16, ``""`` inherits
+``compute_dtype``, ``float32`` forces fp32. The backbone reads it in eval
+mode only, the serving route, so every serving call follows it:
+``enhance_batch`` / ``enhance_audio``, predictive mode's one call, and the
+N-1 gradient-free calls of the fine-tuning unroll (the JAX package's
+``model_fn(fast=True)``). Training (train mode) and the parameters stay
+fp32, as Flax keeps its parameters fp32 under ``dtype=bfloat16``; bf16
+training (``compute_dtype`` or ``param_dtype`` bfloat16) is not ported.
 """
 
 from __future__ import annotations
@@ -110,7 +120,8 @@ class FDBMConfig:
     accumulate_grad_batches: int = 1
     # recompute each backbone block in the backward
     remat: bool = False
-    # numerics: the port trains and serves in float32 only
+    # numerics: training in float32 only; serving in float32 or bfloat16
+    # ("" inherits compute_dtype)
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     inference_dtype: str = ""
@@ -121,6 +132,26 @@ class FDBMConfig:
         (logging, data) are ignored."""
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in fields})
+
+
+_SERVE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def serving_dtype(cfg: FDBMConfig) -> torch.dtype:
+    """The dtype of the serving route (``fdbm_tpu/model.py:177-180``):
+    ``inference_dtype`` if set, else ``compute_dtype``. Raises for bf16
+    training and for a dtype that is neither float32 nor bfloat16."""
+    for name in ("param_dtype", "compute_dtype"):
+        if getattr(cfg, name) != "float32":
+            raise NotImplementedError(
+                f"{name}={getattr(cfg, name)!r}: fdbm_tpu_torch trains in float32 only; bf16 "
+                "training is ROADMAP queue 1 item 10 (serving in bf16 is "
+                "inference_dtype=bfloat16)")
+    name = cfg.inference_dtype or cfg.compute_dtype
+    if name not in _SERVE_DTYPES:
+        raise ValueError(f"inference_dtype={cfg.inference_dtype!r}: serving runs in one of "
+                         f"{sorted(_SERVE_DTYPES)} (or '' for compute_dtype)")
+    return _SERVE_DTYPES[name]
 
 
 def _resolve_device(device) -> torch.device:
@@ -141,10 +172,7 @@ class FDBM:
             raise ValueError(
                 f"mode='predictive' requires a *_predictive backbone (got {cfg.backbone!r}), "
                 f"matching the reference config pairing (config_predictive.yaml).")
-        for name in ("param_dtype", "compute_dtype", "inference_dtype"):
-            if getattr(cfg, name) not in ("", "float32"):
-                raise NotImplementedError(
-                    f"{name}={getattr(cfg, name)!r}: fdbm_tpu_torch runs in float32 only")
+        self.serve_dtype = serving_dtype(cfg)
         self.cfg = cfg
         self.device = _resolve_device(device)
         # Hold fp32 as fp32: cuDNN runs fp32 convolutions (conv_in,
@@ -153,7 +181,7 @@ class FDBM:
         # the 30-step sampler amplifies any per-call deviation.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        backbone_kwargs = {"remat": cfg.remat}
+        backbone_kwargs = {"remat": cfg.remat, "serve_dtype": self.serve_dtype}
         if cfg.backbone.startswith("ncsnpp"):
             # The U-Net places its attention by the (even) bin count it reads.
             backbone_kwargs["image_size"] = (cfg.n_fft // 2 + 1) // 2 * 2

@@ -1,9 +1,16 @@
-"""Shared layers: time embedding, PReLU, fp32 LayerNorm, BiLSTM.
+"""Shared layers: time embedding, PReLU, fp32 LayerNorm, BiLSTM, and the
+Dense and convolution layers of the backbones.
 
 Port of ``fdbm_tpu/models/layers.py``. Parameters keep the JAX package's
 names and packing (``W``, ``alpha``, ``w_ih [2, D, 4H]``,
 ``w_hh [2, H, 4H]``, ``bias [2, 4H]``), so converting Flax weights is a
 relabelling (``utils/weights.py``).
+
+Parameters stay fp32 at every dtype, as Flax keeps them under
+``dtype=bfloat16``. :class:`Dense`, :class:`Conv2d` and
+:class:`ConvTranspose2d` compute in their input's dtype with their
+parameters cast to it, Flax's ``nn.Dense(dtype=...)`` (and ``nn.Conv``,
+``nn.ConvTranspose``); on fp32 inputs they are ``torch.nn``'s layers.
 """
 
 from __future__ import annotations
@@ -11,6 +18,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fdbm_tpu_torch.ops.lstm import (bilstm_fused_forward, bilstm_fused_forward_plain,
@@ -30,6 +38,31 @@ class GaussianFourierProjection(nn.Module):
         return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
 class PReLU(nn.Module):
     """PReLU with one slope of shape ``param_shape`` broadcast over x."""
 
@@ -38,14 +71,23 @@ class PReLU(nn.Module):
         self.alpha = nn.Parameter(torch.full(param_shape, init))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, self.alpha * x)
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
 
 
 def layer_norm_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    dim=-1, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over ``dim`` with two-pass statistics in fp32 or wider
-    (mean, then E[(x - mu)^2], biased), eps inside the root."""
+    """LayerNorm over ``dim`` with statistics in fp32 or wider, biased, eps
+    inside the root, the result in x's dtype. The statistics' algorithm
+    follows the input's dtype as in the JAX package
+    (``fdbm_tpu/models/layers.py:88-101``): two passes (mean, then
+    E[(x - mu)^2]) for fp32 and wider, one pass for bf16 (the serving
+    path's activations): the fp32 sums of x and x^2 together, the variance
+    E[x^2] - mu^2 clamped at 0."""
     x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+    if x.dtype == torch.bfloat16:
+        mu = x32.mean(dim=dim, keepdim=True)
+        var = ((x32 * x32).mean(dim=dim, keepdim=True) - mu * mu).clamp(min=0.0)
+        return ((x32 - mu) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
     mu = x32.mean(dim=dim, keepdim=True)
     xc = x32 - mu
     var = (xc * xc).mean(dim=dim, keepdim=True)
@@ -60,9 +102,10 @@ class BiLSTM(nn.Module):
     kernels take, so the port's module takes them so.
 
     Routed by mode, as the JAX package's ``use_pallas`` / ``use_pallas_train``
-    route it: eval mode runs ``ops.lstm.bilstm_fused_forward``, train mode
-    ``ops.lstm.bilstm_train``; ``use_kernels=False`` runs the plain
-    recurrence on any device. Inside the fused kernels' gate the TF-GridNet
+    route it: eval mode runs ``ops.lstm.bilstm_fused_forward`` (kernel 7; a
+    bf16 x takes its bf16 form and gives bf16, ``layers.py:159-165``), train
+    mode ``ops.lstm.bilstm_train``; ``use_kernels=False`` runs the plain
+    recurrence (of the same form) on any device. Inside the fused kernels' gate the TF-GridNet
     blocks hand these parameters to ``ops.gridrnn`` instead."""
 
     def __init__(self, in_features: int, hidden: int, use_kernels: bool = True):

@@ -21,6 +21,16 @@ count is sliced to even on entry and a zero row is appended on exit.
 No Pallas kernel lies on this path in the JAX package (its convolutions,
 norms and attention are XLA ops), so the port runs cuDNN convolutions and
 plain PyTorch ops and launches none of the port's CUDA kernels.
+
+``serve_dtype`` (bf16 under ``inference_dtype: bfloat16``) is the dtype of
+eval mode, the serving route; train mode computes in fp32. In bf16 the net
+casts where the JAX package's ``dtype=bfloat16`` twin does
+(``fdbm_tpu/models/ncsnpp.py``): the input stack and ``conv_in``, the time
+MLP, the blocks' convolutions, ``temb_proj``, the Dense layers on maps, the
+attention's q/k/v/proj (its softmax in fp32, cast back) and the pyramid in
+bf16; every ``GroupNormAct`` with fp32 statistics and a bf16 output; the
+FIR resampling weights in the map's dtype; the output layer in fp32.
+Parameters stay fp32.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fdbm_tpu_torch.models import BackboneRegistry
-from fdbm_tpu_torch.models.layers import GaussianFourierProjection
+from fdbm_tpu_torch.models.layers import Conv2d, Dense, GaussianFourierProjection
 from fdbm_tpu_torch.ops.upfirdn2d import FIR_KERNEL, downsample_2d, upsample_2d
 
 _SQRT2 = math.sqrt(2.0)
@@ -49,15 +59,15 @@ def default_init_(layer: nn.Module, scale: float = 1.0) -> nn.Module:
 
 
 def _conv3x3(in_ch: int, out_ch: int, init_scale: float = 1.0) -> nn.Conv2d:
-    return default_init_(nn.Conv2d(in_ch, out_ch, 3, padding=1), init_scale)
+    return default_init_(Conv2d(in_ch, out_ch, 3, padding=1), init_scale)
 
 
 class NIN(nn.Linear):
     """A Dense layer over the channels of a map ``[B, C, H, W]``: a 1x1
-    convolution with ``nn.Linear``'s weight ``[O, I]``."""
+    convolution with ``nn.Linear``'s weight ``[O, I]``, in the map's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight[:, :, None, None], self.bias)
+        return F.conv2d(x, self.weight[:, :, None, None].to(x.dtype), self.bias.to(x.dtype))
 
 
 def _nin(in_ch: int, out_ch: int, init_scale: float = 1.0) -> NIN:
@@ -138,7 +148,7 @@ class ResnetBlockBigGAN(nn.Module):
         self.gn0 = GroupNormAct(in_ch, act=True)
         self.conv0 = _conv3x3(in_ch, out_ch)
         if temb_dim:
-            self.temb_proj = default_init_(nn.Linear(temb_dim, out_ch))
+            self.temb_proj = default_init_(Dense(temb_dim, out_ch))
         self.gn1 = GroupNormAct(out_ch, act=True)
         self.conv1 = _conv3x3(out_ch, out_ch, init_scale)
         if in_ch != out_ch or up or down:
@@ -180,8 +190,9 @@ class NCSNpp(nn.Module):
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (16,),
                  image_size: int = 256, fourier_scale: float = 16.0, dropout: float = 0.0,
                  skip_rescale: bool = True, init_scale: float = 0.0,
-                 time_conditioned: bool = True):
+                 time_conditioned: bool = True, serve_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.serve_dtype = serve_dtype
         self.levels = len(ch_mult)
         self.num_res_blocks = num_res_blocks
         self.attn_resolutions = tuple(attn_resolutions)
@@ -191,8 +202,8 @@ class NCSNpp(nn.Module):
         temb_dim = 4 * nf if time_conditioned else 0
         if time_conditioned:
             self.time_emb = GaussianFourierProjection(nf, fourier_scale)
-            self.time_fc0 = default_init_(nn.Linear(2 * nf, temb_dim))
-            self.time_fc1 = default_init_(nn.Linear(temb_dim, temb_dim))
+            self.time_fc0 = default_init_(Dense(2 * nf, temb_dim))
+            self.time_fc1 = default_init_(Dense(temb_dim, temb_dim))
 
         def resblock(name, in_ch, out_ch=None, up=False, down=False):
             self.add_module(name, ResnetBlockBigGAN(
@@ -259,8 +270,12 @@ class NCSNpp(nn.Module):
                 t: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x, y: complex ``[B, 1, F, T]``; t: ``[B]`` (x and t unused by a
         predictive twin). Returns complex ``[B, 1, F, T]``."""
+        # A bf16 serving dtype casts the activations in eval mode; otherwise
+        # they keep the input's dtype (fp32, or float64 for a reference route).
+        dt = None if self.training or self.serve_dtype == torch.float32 else self.serve_dtype
         chans = [x.real, x.imag, y.real, y.imag] if self.time_conditioned else [y.real, y.imag]
         inp = torch.stack([ch[:, 0] for ch in chans], dim=1)  # [B, C, F, T]
+        inp = inp if dt is None else inp.to(dt)
         orig_f = inp.shape[2]
         if orig_f % 2 == 1:  # the Nyquist bin (ncsnpp_v2.py:249-250)
             inp = inp[:, :, :orig_f - 1]
@@ -268,7 +283,8 @@ class NCSNpp(nn.Module):
 
         temb = None
         if self.time_conditioned:
-            temb = self.time_fc1(F.silu(self.time_fc0(self.time_emb(torch.log(t)))))
+            temb = self.time_emb(torch.log(t))
+            temb = self.time_fc1(F.silu(self.time_fc0(temb if dt is None else temb.to(dt))))
 
         input_pyramid = inp
         hs = [self.conv_in(inp)]
@@ -303,36 +319,44 @@ class NCSNpp(nn.Module):
 
 # Registered variants (reference names, ncsnpp_v2.py:36,404-453). Each
 # factory takes the ``remat`` that ``FDBM`` passes and ignores it, as the
-# JAX package's factories do, and ``image_size``, the even bin count of the
-# spectrogram the net reads (256 for the configs' n_fft 510 and 512).
+# JAX package's factories do, ``image_size``, the even bin count of the
+# spectrogram the net reads (256 for the configs' n_fft 510 and 512), and
+# ``serve_dtype``, the dtype of eval mode.
 _SMALL = dict(ch_mult=(1, 1, 1, 1), num_res_blocks=1, attn_resolutions=(0,))
 
 
 @BackboneRegistry.register("ncsnpp_v2")
-def ncsnpp_v2(remat: bool = False, image_size: int = 256) -> NCSNpp:
-    return NCSNpp(image_size=image_size)
+def ncsnpp_v2(remat: bool = False, image_size: int = 256,
+              serve_dtype: torch.dtype = torch.float32) -> NCSNpp:
+    return NCSNpp(image_size=image_size, serve_dtype=serve_dtype)
 
 
 @BackboneRegistry.register("ncsnpp_v2_5M")
-def ncsnpp_v2_5m(remat: bool = False, image_size: int = 256) -> NCSNpp:
-    return NCSNpp(nf=96, image_size=image_size, **_SMALL)
+def ncsnpp_v2_5m(remat: bool = False, image_size: int = 256,
+                 serve_dtype: torch.dtype = torch.float32) -> NCSNpp:
+    return NCSNpp(nf=96, image_size=image_size, serve_dtype=serve_dtype, **_SMALL)
 
 
 @BackboneRegistry.register("ncsnpp_v2_16M")
-def ncsnpp_v2_16m(remat: bool = False, image_size: int = 256) -> NCSNpp:
-    return NCSNpp(nf=64, attn_resolutions=(0,), image_size=image_size)
+def ncsnpp_v2_16m(remat: bool = False, image_size: int = 256,
+                  serve_dtype: torch.dtype = torch.float32) -> NCSNpp:
+    return NCSNpp(nf=64, attn_resolutions=(0,), image_size=image_size, serve_dtype=serve_dtype)
 
 
 @BackboneRegistry.register("ncsnpp_v2_37M")
-def ncsnpp_v2_37m(remat: bool = False, image_size: int = 256) -> NCSNpp:
-    return NCSNpp(nf=96, image_size=image_size)
+def ncsnpp_v2_37m(remat: bool = False, image_size: int = 256,
+                  serve_dtype: torch.dtype = torch.float32) -> NCSNpp:
+    return NCSNpp(nf=96, image_size=image_size, serve_dtype=serve_dtype)
 
 
 @BackboneRegistry.register("ncsnpp_v2_predictive")
-def ncsnpp_v2_predictive(remat: bool = False, image_size: int = 256) -> NCSNpp:
-    return NCSNpp(time_conditioned=False, image_size=image_size)
+def ncsnpp_v2_predictive(remat: bool = False, image_size: int = 256,
+                         serve_dtype: torch.dtype = torch.float32) -> NCSNpp:
+    return NCSNpp(time_conditioned=False, image_size=image_size, serve_dtype=serve_dtype)
 
 
 @BackboneRegistry.register("ncsnpp_v2_5M_predictive")
-def ncsnpp_v2_5m_predictive(remat: bool = False, image_size: int = 256) -> NCSNpp:
-    return NCSNpp(nf=96, time_conditioned=False, image_size=image_size, **_SMALL)
+def ncsnpp_v2_5m_predictive(remat: bool = False, image_size: int = 256,
+                            serve_dtype: torch.dtype = torch.float32) -> NCSNpp:
+    return NCSNpp(nf=96, time_conditioned=False, image_size=image_size, serve_dtype=serve_dtype,
+                  **_SMALL)

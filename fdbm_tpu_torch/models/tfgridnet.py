@@ -36,7 +36,23 @@ On CPU tensors the wrappers run their plain versions; with
 which is the reference the card's kernels are held against. ``remat``
 recomputes each block in the backward (``torch.utils.checkpoint``), the
 JAX package's ``nn.remat``. ``conv_in``, the output ConvTranspose and the
-Dense layers stay ``torch.nn``.
+Dense layers are ``torch.nn``'s (``layers.Dense``, ``Conv2d``,
+``ConvTranspose2d`` compute in their input's dtype).
+
+``serve_dtype`` (bf16 under ``inference_dtype: bfloat16``) is the dtype of
+the serving route, read in eval mode only: train mode computes in fp32.
+In bf16 the model casts where the JAX package's ``dtype=bfloat16`` twin
+does (``fdbm_tpu/models/tfgridnet.py``): the input and ``conv_in`` in bf16,
+``gn_in`` with fp32 statistics cast to bf16; the Fourier embedding in fp32,
+the time MLP and block biases in bf16; each RNN path's LayerNorm with fp32
+statistics (single pass), the bf16 canvas through kernel 1's bf16 form (or,
+outside its gate, the bf16 windows through kernel 7's and the deconv as a
+bf16 product), ``outf + outb + bias + residual`` in bf16; the Q/K/V
+projections in bf16 and kernels 2 and 3 on bf16 maps; ``attn_proj``, the
+PReLU and the LayerNorm, then ``deconv_out`` in bf16, and the output cast
+to fp32 before the complex spectrogram. Parameters stay fp32. With
+``use_kernels=False`` the plain route casts the same, so that it stays the
+reference of the kernel route.
 """
 
 from __future__ import annotations
@@ -49,7 +65,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fdbm_tpu_torch.models import BackboneRegistry
-from fdbm_tpu_torch.models.layers import BiLSTM, GaussianFourierProjection, PReLU, layer_norm_f32
+from fdbm_tpu_torch.models.layers import (BiLSTM, Conv2d, ConvTranspose2d, Dense,
+                                          GaussianFourierProjection, PReLU, layer_norm_f32)
 from fdbm_tpu_torch.ops.attention import (flat_group_norm_plain, frame_attention,
                                           frame_attention_plain)
 from fdbm_tpu_torch.ops.gridrnn import (grid_bilstm_fold, grid_rnn_seq1_pair,
@@ -105,8 +122,10 @@ class _RnnPath(nn.Module):
         length = s - (_OLP_KS - 1)
         # Windows [L, N, 4C], tap-major (j slow, c fast) as the fused kernels read them.
         win = torch.cat([lines[j:j + length] for j in range(_OLP_KS)], dim=-1)
-        taps = self.bilstm(win) @ self.deconv_kernel  # [L, N, 4C]
-        # Overlap-add: row r = sum_j taps[r - j, tap j].
+        hidden = self.bilstm(win)
+        taps = hidden @ self.deconv_kernel.to(hidden.dtype)  # [L, N, 4C]
+        # Overlap-add: row r = sum_j taps[r - j, tap j], in taps' dtype and
+        # tap order, as the JAX package's pad-and-sum.
         out = taps.new_zeros(s, n, c)
         for j in range(_OLP_KS):
             out[j:j + length] += taps[..., j * c:(j + 1) * c]
@@ -139,7 +158,7 @@ class _RnnPath(nn.Module):
                 lines = grid_bilstm_fold(lines, *weights)
             folded = lines.reshape(s, b, p, c).transpose(0, 1)
         # Rows outside [3, L-1] of the fused fold are cropped by GridNetBlock.
-        return folded + self.deconv_bias + x
+        return folded + self.deconv_bias.to(folded.dtype) + x
 
 
 class _AllHeadPReLULayerNorm(nn.Module):
@@ -159,7 +178,14 @@ class _AllHeadPReLULayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, q, _ = x.shape
-        out = flat_group_norm_plain(x.reshape(b, t, -1), *self.params(), width=self.e_dim)
+        alpha, gamma, beta = self.params()
+        if x.dtype == torch.bfloat16:
+            # The JAX module applies the PReLU in the activations' dtype, then
+            # normalises in fp32 (fdbm_tpu/models/tfgridnet.py:280-298).
+            xs = x.reshape(b, t, q, -1, self.e_dim)
+            x = torch.where(xs >= 0, xs, alpha.to(x.dtype) * xs).reshape(x.shape)
+            alpha = torch.ones_like(alpha)
+        out = flat_group_norm_plain(x.reshape(b, t, -1), alpha, gamma, beta, width=self.e_dim)
         return out.reshape(b, t, q, -1, self.e_dim)
 
 
@@ -174,13 +200,13 @@ class GridNetBlock(nn.Module):
         self.use_kernels = use_kernels
         self.intra = _RnnPath(c, hidden, use_kernels)
         self.inter = _RnnPath(c, hidden, use_kernels)
-        self.attn_conv_Q = nn.Linear(c, n_head * e)
-        self.attn_conv_K = nn.Linear(c, n_head * e)
-        self.attn_conv_V = nn.Linear(c, c)
+        self.attn_conv_Q = Dense(c, n_head * e)
+        self.attn_conv_K = Dense(c, n_head * e)
+        self.attn_conv_V = Dense(c, c)
         self.attn_norm_Q = _AllHeadPReLULayerNorm(n_head, e)
         self.attn_norm_K = _AllHeadPReLULayerNorm(n_head, e)
         self.attn_norm_V = _AllHeadPReLULayerNorm(n_head, c // n_head)
-        self.attn_proj = nn.Linear(c, c)
+        self.attn_proj = Dense(c, c)
         self.attn_prelu = PReLU(())
         self.attn_ln_gamma = nn.Parameter(torch.ones(c))
         self.attn_ln_beta = nn.Parameter(torch.zeros(c))
@@ -215,40 +241,51 @@ class GridNetBlock(nn.Module):
 class TFGridNet(nn.Module):
     """TF-GridNet: ``(x_t, y, t) -> clean-spec estimate``. With
     ``time_conditioned=False`` (the predictive twins) it has no time
-    embedding and no per-block time bias, and reads only ``y``."""
+    embedding and no per-block time bias, and reads only ``y``.
+    ``serve_dtype`` is the dtype of eval mode, the serving route (fp32 or
+    bf16); train mode computes in fp32."""
 
     def __init__(self, n_layers: int = 6, emb_dim: int = 48, hidden: int = 200,
                  n_head: int = 4, qk_output_channel: int = 2, n_srcs: int = 1,
                  fourier_scale: float = 16.0, time_conditioned: bool = True,
-                 use_kernels: bool = True, remat: bool = False):
+                 use_kernels: bool = True, remat: bool = False,
+                 serve_dtype: torch.dtype = torch.float32):
         super().__init__()
         c = emb_dim
         self.n_srcs = n_srcs
         self.time_conditioned = time_conditioned
         self.remat = remat
-        self.conv_in = nn.Conv2d(4 if time_conditioned else 2, c, 3, padding=1)
+        self.serve_dtype = serve_dtype
+        self.conv_in = Conv2d(4 if time_conditioned else 2, c, 3, padding=1)
         self.gn_in = nn.GroupNorm(1, c, eps=1e-5)
         if time_conditioned:
             self.time_emb = GaussianFourierProjection(c, fourier_scale)
-            self.time_fc1 = nn.Linear(2 * c, 4 * c)
-            self.time_fc2 = nn.Linear(4 * c, 4 * c)
-            self.time_blocks = nn.ModuleList(nn.Linear(4 * c, c) for _ in range(n_layers))
+            self.time_fc1 = Dense(2 * c, 4 * c)
+            self.time_fc2 = Dense(4 * c, 4 * c)
+            self.time_blocks = nn.ModuleList(Dense(4 * c, c) for _ in range(n_layers))
         self.blocks = nn.ModuleList(
             GridNetBlock(c, hidden, n_head, qk_output_channel, use_kernels)
             for _ in range(n_layers))
-        self.deconv_out = nn.ConvTranspose2d(c, 2 * n_srcs, 3, padding=1)
+        self.deconv_out = ConvTranspose2d(c, 2 * n_srcs, 3, padding=1)
 
     def forward(self, x: Optional[torch.Tensor], y: torch.Tensor,
                 t: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x, y: complex ``[B, 1, F, T]``; t: ``[B]`` (both unused by a
         predictive twin). Returns complex ``[B, n_srcs, F, T]``."""
+        # A bf16 serving dtype casts the activations in eval mode; otherwise
+        # they keep the input's dtype (fp32, or float64 for a reference route).
+        dt = None if self.training or self.serve_dtype == torch.float32 else self.serve_dtype
         chans = [x.real, x.imag, y.real, y.imag] if self.time_conditioned else [y.real, y.imag]
         inp = torch.stack([ch[:, 0] for ch in chans], dim=1).transpose(2, 3)  # [B, Cin, T, F]
-        h = self.gn_in(self.conv_in(inp))
+        if dt is None:
+            h = self.gn_in(self.conv_in(inp))
+        else:  # gn_in takes fp32 statistics of conv_in's output, then casts to dt
+            h = self.gn_in(self.conv_in(inp.to(dt)).float()).to(dt)
         h = h.permute(0, 2, 3, 1).contiguous()  # [B, T, Q, C]
 
         if self.time_conditioned:
             temb = self.time_emb(torch.log(t))
+            temb = temb if dt is None else temb.to(dt)
             temb = F.silu(self.time_fc2(F.silu(self.time_fc1(temb))))
         remat = self.remat and self.training and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):

@@ -11,6 +11,16 @@ block, blocks per cluster) comes from :func:`attention_plan`, which also
 sets its limit on the number of frames T: an 8-row score tile of T floats
 per row must fit in a block's shared memory (about 5180 frames at Q=257;
 the serving path cuts files at 30 s, about 1900 frames).
+
+Both wrappers also take bf16 maps (``inference_dtype: bfloat16``) and then
+launch their kernels' bf16 forms, the JAX kernels' bf16 paths
+(``fdbm_tpu/ops/attention.py:199,229,351-353``): the norm reads and writes
+bf16 with fp32 statistics and parameters; the attention reads bf16 q, k, v
+and writes bf16, with fp32 score sums and softmax and P rounded to bf16
+before the value product (fp32 sums). Their plain versions are the same
+functions on bf16 tensors, the operands widened to fp32 and P rounded with
+``.to(torch.bfloat16)``. The two forms count their launches apart
+(``launches``, ``launches_bf16``).
 """
 
 from __future__ import annotations
@@ -27,7 +37,9 @@ from fdbm_tpu_torch.ops import _build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flat_group_norm_segments": [_P, _I, _I, _P],
+    "flat_group_norm_segments_bf16": [_P, _I, _I, _P],
     "frame_attention": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+    "frame_attention_bf16": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
     "frame_attention_smem": [_I] * 6,
     "frame_attention_max_clusters": [_I] * 6,
 }
@@ -39,6 +51,7 @@ NormParams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 NormMap = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]
 _WIDTHS = (1, 2, 4, 8, 16, 32, 64)
 _MAX_MAPS = 3  # csrc/attention.cu: GN_MAX_SEGS
+_IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
 # The attention kernel's layout constants (csrc/attention.cu: AT_*) and the
@@ -195,21 +208,23 @@ def card_attention_plan(batch: int, t_len: int, q_bins: int, n_head: int, e_dim:
 
 def flat_group_norm_plain(x: torch.Tensor, alpha: torch.Tensor, gamma: torch.Tensor,
                           beta: torch.Tensor, width: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`flat_group_norm`."""
+    """Plain PyTorch version of :func:`flat_group_norm`; a bf16 map is
+    widened to fp32 and the result rounded back to bf16."""
     n_head = gamma.shape[0]
     shape = x.shape
-    xs = x.reshape(*shape[:-1], -1, n_head, width)
+    xs = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(*shape[:-1], -1, n_head, width)
     xs = torch.where(xs >= 0, xs, alpha.reshape(n_head, 1) * xs)
     mu = xs.mean(dim=-1, keepdim=True)
     xc = xs - mu
     var = (xc * xc).mean(dim=-1, keepdim=True)
     out = xc * torch.rsqrt(var + _EPS) * gamma + beta
-    return out.reshape(shape)
+    return out.reshape(shape).to(x.dtype)
 
 
-def _check(fn: str, name: str, t: torch.Tensor, device, shape=None) -> None:
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{fn}: {name} must be a contiguous float32 tensor on "
+def _check(fn: str, name: str, t: torch.Tensor, device, shape=None,
+           dtype: torch.dtype = torch.float32) -> None:
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be a contiguous {dtype} tensor on "
                          f"{device} (got {t.dtype} on {t.device}, "
                          f"contiguous={t.is_contiguous()})")
     if t.data_ptr() % 16:
@@ -218,11 +233,12 @@ def _check(fn: str, name: str, t: torch.Tensor, device, shape=None) -> None:
         raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def _check_norm_map(fn: str, x, alpha, gamma, beta, width: int, n_head: int, dev) -> None:
+def _check_norm_map(fn: str, x, alpha, gamma, beta, width: int, n_head: int, dev,
+                    io_dtype: torch.dtype) -> None:
     if width not in _WIDTHS or x.shape[-1] % (n_head * width):
         raise ValueError(f"{fn}: width {width} must be a power of two <= 64 and divide "
                          f"the lanes {x.shape[-1]} in groups of {n_head} heads")
-    _check(fn, "x", x, dev)
+    _check(fn, "x", x, dev, dtype=io_dtype)
     _check(fn, "alpha", alpha, dev, (n_head, 1))
     _check(fn, "gamma", gamma, dev, (n_head, width))
     _check(fn, "beta", beta, dev, (n_head, width))
@@ -239,12 +255,14 @@ def flat_group_norm(x: torch.Tensor, alpha: torch.Tensor, gamma: torch.Tensor,
     affine parameters, as ``_AllHeadPReLULayerNorm`` holds them. ``width``
     must be a power of two up to 64. :func:`flat_group_norms` with one map:
     on a CUDA tensor one launch, which has no backward (this raises if an
-    input requires grad).
+    input requires grad). A bf16 map launches the bf16 form (fp32
+    parameters) and gives a bf16 map.
     """
     return flat_group_norms([(x, alpha, gamma, beta, width)])[0]
 
 
 flat_group_norm.launches = 0
+flat_group_norm.launches_bf16 = 0
 
 
 def flat_group_norms_plain(maps: Sequence[NormMap]) -> List[torch.Tensor]:
@@ -259,9 +277,10 @@ def flat_group_norms(maps: Sequence[NormMap]) -> List[torch.Tensor]:
     and v of one attention call, each ``(x, alpha, gamma, beta, width)``
     with the same number of heads H and its own width; ``x`` may keep its
     own shape (``[B, T, Q, H*width]``), as only its last axis, a multiple
-    of H*width, and its layout matter. The launch counts once on
-    ``flat_group_norm.launches``. On CPU tensors the plain version, one map
-    at a time.
+    of H*width, and its layout matter. The maps are all fp32 or all bf16
+    (the bf16 form); the parameters are fp32. The launch counts once on
+    ``flat_group_norm.launches`` (``launches_bf16`` for bf16 maps). On CPU
+    tensors the plain version, one map at a time.
 
     This wrapper runs before every attention call of the serving path, and
     its host work costs more than the kernel (about 6 us on the H100 for
@@ -276,14 +295,17 @@ def flat_group_norms(maps: Sequence[NormMap]) -> List[torch.Tensor]:
     if not 1 <= len(maps) <= _MAX_MAPS:
         raise ValueError(f"flat_group_norms: 1 to {_MAX_MAPS} maps, got {len(maps)}")
     n_head = maps[0][2].shape[0]
+    io_dtype = x0.dtype
     tensors = [t for m in maps for t in m[:4]]
     _build.refuse_grad("flat_group_norms", *tensors)
+    if io_dtype not in _IO_DTYPES:
+        raise ValueError(f"flat_group_norms: maps must be float32 or bfloat16, got {io_dtype}")
     if any(w not in _WIDTHS or x.shape[-1] % (n_head * w) or a.shape != (n_head, 1)
            or g.shape != (n_head, w) or b.shape != (n_head, w) for x, a, g, b, w in maps) or \
-            any(t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
-                or t.data_ptr() % 16 for t in tensors):
+            any(t.device != dev or t.dtype != (io_dtype if i % 4 == 0 else torch.float32)
+                or not t.is_contiguous() or t.data_ptr() % 16 for i, t in enumerate(tensors)):
         for m in maps:
-            _check_norm_map("flat_group_norms", *m, n_head, dev)
+            _check_norm_map("flat_group_norms", *m, n_head, dev, io_dtype)
     with torch.cuda.device(dev):
         outs = [torch.empty_like(m[0]) for m in maps]
         desc = []
@@ -291,10 +313,15 @@ def flat_group_norms(maps: Sequence[NormMap]) -> List[torch.Tensor]:
             desc += (x.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                      out.data_ptr(), x.numel(), width)
         lib = _build.load("attention", _SIGNATURES, _RESTYPES)
-        code = lib.flat_group_norm_segments((ctypes.c_longlong * len(desc))(*desc), len(maps),
-                                            n_head, torch._C._cuda_getCurrentRawStream(dev.index))
-    _build.check(code, "flat_group_norms")
-    flat_group_norm.launches += 1
+        bf16 = io_dtype == torch.bfloat16
+        entry = lib.flat_group_norm_segments_bf16 if bf16 else lib.flat_group_norm_segments
+        code = entry((ctypes.c_longlong * len(desc))(*desc), len(maps), n_head,
+                     torch._C._cuda_getCurrentRawStream(dev.index))
+    _build.check(code, "flat_group_norms" + ("_bf16" if bf16 else ""))
+    if bf16:
+        flat_group_norm.launches_bf16 += 1
+    else:
+        flat_group_norm.launches += 1
     return outs
 
 
@@ -308,18 +335,23 @@ def _normed(q, k, v, n_head, e_dim, norms, norm_fn):
 def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           n_head: int, e_dim: int,
                           norms: Optional[Sequence[NormParams]] = None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`frame_attention`."""
+    """Plain PyTorch version of :func:`frame_attention`. On bf16 maps it is
+    the plain version of the bf16 form: q, k, v widened to fp32, the scores
+    and softmax in fp32, P rounded to bf16, the value product in fp32 and
+    the result rounded to bf16."""
     if norms is not None:
         q, k, v = _normed(q, k, v, n_head, e_dim, norms, flat_group_norms_plain)
+    io_dtype = v.dtype
+    wide = torch.promote_types(io_dtype, torch.float32)
     b, t_len, q_bins, _ = q.shape
     d_dim = v.shape[-1] // n_head
-    q5 = q.reshape(b, t_len, q_bins, n_head, e_dim)
-    k5 = k.reshape(b, t_len, q_bins, n_head, e_dim)
-    v5 = v.reshape(b, t_len, q_bins, n_head, d_dim)
+    q5 = q.to(wide).reshape(b, t_len, q_bins, n_head, e_dim)
+    k5 = k.to(wide).reshape(b, t_len, q_bins, n_head, e_dim)
+    v5 = v.to(wide).reshape(b, t_len, q_bins, n_head, d_dim)
     scores = torch.einsum("btqhe,buqhe->bhtu", q5, k5) * (1.0 / math.sqrt(e_dim * q_bins))
-    attn = torch.softmax(scores.float(), dim=-1).to(v5.dtype)
+    attn = torch.softmax(scores.float(), dim=-1).to(io_dtype).to(wide)
     out = torch.einsum("bhtu,buqhd->btqhd", attn, v5)
-    return out.reshape(b, t_len, q_bins, n_head * d_dim)
+    return out.reshape(b, t_len, q_bins, n_head * d_dim).to(io_dtype)
 
 
 def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -337,9 +369,11 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns:
       ``[B, T, Q, H*D]``: per head softmax(Q K^T * scale) V, channels
-      merged h-slow, d-fast. One kernel launch (and one for the norms);
-      no ``[B, H, T, T]`` scores exist in device memory. The kernel has no
-      backward: on a CUDA tensor this raises if an input requires grad.
+      merged h-slow, d-fast, in the maps' dtype. One kernel launch (and
+      one for the norms); no ``[B, H, T, T]`` scores exist in device
+      memory. The kernel has no backward: on a CUDA tensor this raises if
+      an input requires grad. bf16 maps launch the bf16 form and count on
+      ``launches_bf16``.
     """
     if q.device.type == "cpu":
         return frame_attention_plain(q, k, v, n_head, e_dim, norms)
@@ -355,19 +389,28 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{n_head} heads of E={e_dim}")
     d_dim = hd // n_head
     dev = q.device
-    _check("frame_attention", "q", q, dev)
-    _check("frame_attention", "k", k, dev, q.shape)
-    _check("frame_attention", "v", v, dev, (b, t_len, q_bins, hd))
+    io_dtype = q.dtype
+    if io_dtype not in _IO_DTYPES:
+        raise ValueError(f"frame_attention: maps must be float32 or bfloat16, got {io_dtype}")
+    _check("frame_attention", "q", q, dev, dtype=io_dtype)
+    _check("frame_attention", "k", k, dev, q.shape, io_dtype)
+    _check("frame_attention", "v", v, dev, (b, t_len, q_bins, hd), io_dtype)
     plan = card_attention_plan(b, t_len, q_bins, n_head, e_dim, d_dim, dev)
+    bf16 = io_dtype == torch.bfloat16
     with torch.cuda.device(dev):
         out = torch.empty_like(v)
         lib = _build.load("attention", _SIGNATURES, _RESTYPES)
-        code = lib.frame_attention(
+        entry = lib.frame_attention_bf16 if bf16 else lib.frame_attention
+        code = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, t_len, q_bins, n_head, e_dim, d_dim, 1.0 / math.sqrt(e_dim * q_bins),
             plan.rows, plan.slices, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, f"frame_attention (plan rows={plan.rows}, slices={plan.slices})")
-    frame_attention.launches += 1
+    _build.check(code, f"frame_attention{'_bf16' if bf16 else ''} (plan rows={plan.rows}, "
+                 f"slices={plan.slices})")
+    if bf16:
+        frame_attention.launches_bf16 += 1
+    else:
+        frame_attention.launches += 1
     return out
 
 
@@ -380,3 +423,4 @@ def frame_attention_smem(t_len: int, q_bins: int, e_dim: int, d_dim: int, rows: 
 
 
 frame_attention.launches = 0
+frame_attention.launches_bf16 = 0

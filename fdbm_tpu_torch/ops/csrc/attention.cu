@@ -53,6 +53,16 @@
 //   (ops/attention.py: attention_plan) and checked here by attn_plan, whose
 //   shared-memory layout the wrapper mirrors; a plan that does not fit is
 //   refused, never cut short.
+//
+// The bf16 forms (inference_dtype=bfloat16; fdbm_tpu/ops/attention.py:199,
+// 229, 351-353) are the same kernels on T = __nv_bfloat16 (bf16_io.cuh):
+// the norm reads and writes bf16 with fp32 statistics and parameters; the
+// attention reads bf16 q, k and v and writes bf16, with fp32 score sums,
+// scale and softmax, and P rounded to bf16 before the value product, whose
+// sums stay fp32 (the TPU kernel's mm_dt = bf16 with fp32 accumulation).
+// cp.async cannot widen, so the bf16 attention stages its tiles with plain
+// vector loads widened to float on the way into shared memory: the shared
+// layout, the plan and the products are the fp32 kernel's.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -60,6 +70,8 @@
 #include <cmath>
 #include <cstdint>
 #include <numeric>
+
+#include "bf16_io.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -71,21 +83,24 @@ constexpr int GN_MAX_SEGS = 3;
 constexpr int GN_DESC = 7;  // x, alpha, gamma, beta, out, elements, width
 constexpr float GN_EPS = 1e-5f;
 
-// One map of a launch: x and out [rows, L] (L a multiple of n_head * width),
-// alpha [H], gamma and beta [H][width]; blocks [block0, block0 + blocks).
+// One map of a launch: x and out [rows, L] (L a multiple of n_head * width)
+// of storage type T, alpha [H], gamma and beta [H][width] fp32; blocks
+// [block0, block0 + blocks).
+template <class T>
 struct NormSeg {
-  const float* x;
+  const T* x;
   const float* alpha;
   const float* gamma;
   const float* beta;
-  float* out;
+  T* out;
   long long n;  // elements, a multiple of width
   int width;
   int block0, blocks;
 };
 
+template <class T>
 struct NormSegs {
-  NormSeg seg[GN_MAX_SEGS];
+  NormSeg<T> seg[GN_MAX_SEGS];
   int count, n_head;
 };
 
@@ -97,8 +112,8 @@ __device__ __forceinline__ float prelu(float v, float a) { return v >= 0.f ? v :
 // stride a multiple of H * W), so its slope, gamma and beta are loaded once.
 // The loop runs while the warp's first float4 is in the map, so every lane
 // of a warp takes part in every shuffle.
-template <int W>
-__device__ __forceinline__ void norm_lanes(const NormSeg& g, int H, long long t,
+template <int W, class T>
+__device__ __forceinline__ void norm_lanes(const NormSeg<T>& g, int H, long long t,
                                            long long stride) {
   constexpr int G = W / 4;
   const long long n4 = g.n / 4;
@@ -106,12 +121,11 @@ __device__ __forceinline__ void norm_lanes(const NormSeg& g, int H, long long t,
   const float a = g.alpha[off / W];
   const float4 gm = *reinterpret_cast<const float4*>(g.gamma + off);
   const float4 bt = *reinterpret_cast<const float4*>(g.beta + off);
-  const float4* x4 = reinterpret_cast<const float4*>(g.x);
-  float4* o4 = reinterpret_cast<float4*>(g.out);
   for (long long i = t; i - (threadIdx.x & 31) < n4; i += stride) {
     const bool ok = i < n4;
-    float4 v = ok ? x4[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-    v = make_float4(prelu(v.x, a), prelu(v.y, a), prelu(v.z, a), prelu(v.w, a));
+    float e[4] = {0.f, 0.f, 0.f, 0.f};
+    if (ok) load_vec<4>(g.x + 4 * i, e);
+    float4 v = make_float4(prelu(e[0], a), prelu(e[1], a), prelu(e[2], a), prelu(e[3], a));
     float s = (v.x + v.y) + (v.z + v.w);
 #pragma unroll
     for (int m = 1; m < G; m <<= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
@@ -124,17 +138,19 @@ __device__ __forceinline__ void norm_lanes(const NormSeg& g, int H, long long t,
 #pragma unroll
     for (int m = 1; m < G; m <<= 1) q += __shfl_xor_sync(0xffffffffu, q, m);
     const float inv = 1.f / sqrtf(q * (1.f / W) + GN_EPS);
-    if (ok)
-      o4[i] = make_float4(v.x * inv * gm.x + bt.x, v.y * inv * gm.y + bt.y,
-                          v.z * inv * gm.z + bt.z, v.w * inv * gm.w + bt.w);
+    if (ok) {
+      const float o[4] = {v.x * inv * gm.x + bt.x, v.y * inv * gm.y + bt.y,
+                          v.z * inv * gm.z + bt.z, v.w * inv * gm.w + bt.w};
+      store_vec<4>(g.out + 4 * i, o);
+    }
   }
 }
 
 // W = 1 or 2: a float4 holds 4 / W whole groups, whose heads are the same
 // at every stride (as above). A map whose size is no multiple of 4 ends in
 // a partial float4, read and written element by element.
-template <int W>
-__device__ __forceinline__ void norm_groups(const NormSeg& g, int H, long long t,
+template <int W, class T>
+__device__ __forceinline__ void norm_groups(const NormSeg<T>& g, int H, long long t,
                                             long long stride) {
   constexpr int NG = 4 / W;
   float a[NG], gm[4], bt[4];
@@ -153,11 +169,10 @@ __device__ __forceinline__ void norm_groups(const NormSeg& g, int H, long long t
     const bool whole = e0 + 4 <= g.n;
     float v[4];
     if (whole) {
-      const float4 u = reinterpret_cast<const float4*>(g.x)[i];
-      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+      load_vec<4>(g.x + e0, v);
     } else {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) v[k] = e0 + k < g.n ? g.x[e0 + k] : 0.f;
+      for (int k = 0; k < 4; ++k) v[k] = e0 + k < g.n ? load_f(g.x + e0 + k) : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < NG; ++j) {
@@ -179,11 +194,11 @@ __device__ __forceinline__ void norm_groups(const NormSeg& g, int H, long long t
       for (int e = 0; e < W; ++e) v[j * W + e] = v[j * W + e] * inv * gm[j * W + e] + bt[j * W + e];
     }
     if (whole) {
-      reinterpret_cast<float4*>(g.out)[i] = make_float4(v[0], v[1], v[2], v[3]);
+      store_vec<4>(g.out + e0, v);
     } else {
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        if (e0 + k < g.n) g.out[e0 + k] = v[k];
+        if (e0 + k < g.n) store_f(g.out + e0 + k, v[k]);
     }
   }
 }
@@ -192,11 +207,12 @@ __device__ __forceinline__ void norm_groups(const NormSeg& g, int H, long long t
 // walk that map by float4s at a stride of the segment's threads. The
 // segments stay in the kernel's parameter space (__grid_constant__), read
 // in place.
+template <class T>
 __global__ void __launch_bounds__(GN_THREADS)
-norm_segments_kernel(const __grid_constant__ NormSegs segs) {
+norm_segments_kernel(const __grid_constant__ NormSegs<T> segs) {
   int s = 0;
   while (s + 1 < segs.count && static_cast<int>(blockIdx.x) >= segs.seg[s + 1].block0) ++s;
-  const NormSeg& g = segs.seg[s];
+  const NormSeg<T>& g = segs.seg[s];
   const long long t = static_cast<long long>(blockIdx.x - g.block0) * GN_THREADS + threadIdx.x;
   const long long stride = static_cast<long long>(g.blocks) * GN_THREADS;
   const int H = segs.n_head;
@@ -213,7 +229,8 @@ norm_segments_kernel(const __grid_constant__ NormSegs segs) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// The card's blocks of norm_segments_kernel at once (SMs x blocks an SM).
+// The card's blocks of norm_segments_kernel<T> at once (SMs x blocks an SM).
+template <class T>
 int norm_resident_blocks() {
   static int cached[64] = {};
   int dev = 0;
@@ -221,8 +238,8 @@ int norm_resident_blocks() {
   if (dev < 64 && cached[dev]) return cached[dev];
   int sms = 0, per_sm = 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, norm_segments_kernel, GN_THREADS,
-                                                    0) != cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, norm_segments_kernel<T>,
+                                                    GN_THREADS, 0) != cudaSuccess)
     return 0;
   if (dev < 64) cached[dev] = sms * per_sm;
   return sms * per_sm;
@@ -312,6 +329,29 @@ __device__ __forceinline__ void copy_lanes(float* dst, const float* src, bool va
   else cp_async<4>(dst, src, valid);
 }
 
+// N elements of src into N floats at dst (zeros when !valid): cp.async for
+// float, a plain load widened to float for bf16 (cp.async cannot widen).
+template <int N>
+__device__ __forceinline__ void stage_vec(float* dst, const float* src, bool valid) {
+  cp_async<4 * N>(dst, src, valid);
+}
+template <int N>
+__device__ __forceinline__ void stage_vec(float* dst, const __nv_bfloat16* src, bool valid) {
+  float v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = 0.f;
+  if (valid) load_vec<N>(src, v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) dst[i] = v[i];
+}
+
+__device__ __forceinline__ void copy_lanes(float* dst, const __nv_bfloat16* src, bool valid,
+                                           int w) {
+  if (w == 4) stage_vec<4>(dst, src, valid);
+  else if (w == 2) stage_vec<2>(dst, src, valid);
+  else stage_vec<1>(dst, src, valid);
+}
+
 __device__ __forceinline__ void unpack(const float4 a, float* o) {
   o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
 }
@@ -334,10 +374,10 @@ __device__ __forceinline__ Cover cover(int ncols, int nt, int tid) {
 // vector (4, 2 or 1 floats) that divides D. Every warp stages a share of
 // each copy: dispatching the copies (a sector of each 128-byte line) is what
 // bounds the loads, and it runs on all four schedulers of the SM.
-template <int VW>
+template <int VW, class TS = float>
 __global__ void __launch_bounds__(AT_MAX_THREADS)
-attn_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-            float* __restrict__ out, int T, int Q, int H, int E, int D, float scale,
+attn_kernel(const TS* __restrict__ q, const TS* __restrict__ k, const TS* __restrict__ v,
+            TS* __restrict__ out, int T, int Q, int H, int E, int D, float scale,
             AttnPlan p) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -360,10 +400,10 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
   const Cover cq = cover(QE, nt, tid);
   if (cq.active)
     for (int kk = cq.c0; kk < QE; kk += cq.cstep) {
-      const float* col = q + b * T * qk_row + (kk / E) * HE + h * E + kk % E;
+      const TS* col = q + b * T * qk_row + (kk / E) * HE + h * E + kk % E;
       for (int r = cq.r0; r < tr; r += cq.rstep) {
         const int t = t0 + r;
-        cp_async<4>(sQ + kk * tr + r, t < T ? col + t * qk_row : q, t < T);
+        stage_vec<1>(sQ + kk * tr + r, t < T ? col + t * qk_row : q, t < T);
       }
     }
   cluster.sync();  // every block of the cluster runs before any remote write
@@ -385,7 +425,7 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
     if (!ck.active) return;
     for (int c = ck.c0; c < per_key; c += ck.cstep) {
       const int kg = kc0 + c * ew;
-      const float* col = k + b * T * qk_row + (kg / E) * HE + h * E + kg % E;
+      const TS* col = k + b * T * qk_row + (kg / E) * HE + h * E + kg % E;
       for (int u = ck.r0; u < ut; u += ck.rstep) {
         const bool ok = ut0 + u < ub;
         copy_lanes(dst + u * AT_KCP + c * ew, ok ? col + (ut0 + u) * qk_row : k, ok, ew);
@@ -484,7 +524,7 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
     if (pi < parts)
       for (int u = pi; u < T; u += parts) {
         float* s = sP + (long long)u * tr + r;
-        *s = expf(*s - m) * inv;
+        *s = round_to<TS>(expf(*s - m) * inv);  // bf16: P rounded before the value product
       }
     __syncthreads();
   }
@@ -506,11 +546,11 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
       float* dst = ring + (ci % p.nvs) * stage_floats;
       for (int c = cv.c0; c < cpr; c += cv.cstep) {
         const int tcl = c / (8 / VW), j = (c % (8 / VW)) * VW, n = col0 + tcl * 8 + j;
-        const float* col = v + b * T * v_row + (n / D) * HD + h * D + n % D;
+        const TS* col = v + b * T * v_row + (n / D) * HD + h * D + n % D;
         float* dcol = dst + ((j >> 2) * tcp + tcl) * 4 + (j & 3);
         for (int uu = cv.r0; uu < p.uk; uu += cv.rstep) {
           const bool ok = u0 + uu < T && n < c_hi;
-          cp_async<VW * 4>(dcol + uu * 2 * tcp * 4, ok ? col + (u0 + uu) * v_row : v, ok);
+          stage_vec<VW>(dcol + uu * 2 * tcp * 4, ok ? col + (u0 + uu) * v_row : v, ok);
         }
       }
     };
@@ -552,45 +592,41 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
       for (int i = 0; i < AT_RM; ++i) {
         const int t = t0 + rgv * AT_RM + i;
         if (t >= T) continue;
-        float* orow = out + (b * T + t) * v_row + h * D;
+        TS* orow = out + (b * T + t) * v_row + h * D;
 #pragma unroll
         for (int j = 0; j < 8; j += VW) {
           const int n = col0 + tcx * 8 + j;
           if (n >= c_hi) continue;
-          float* dst = orow + (n / D) * HD + n % D;
-          if constexpr (VW == 4) {
-            *reinterpret_cast<float4*>(dst) = make_float4(o[i][j], o[i][j + 1], o[i][j + 2],
-                                                          o[i][j + 3]);
-          } else if constexpr (VW == 2) {
-            *reinterpret_cast<float2*>(dst) = make_float2(o[i][j], o[i][j + 1]);
-          } else {
-            *dst = o[i][j];
-          }
+          store_vec<VW>(orow + (n / D) * HD + n % D, &o[i][j]);
         }
       }
     }
   }
 }
 
-using AttnKernel = void (*)(const float*, const float*, const float*, float*, int, int, int,
-                           int, int, float, AttnPlan);
+template <class TS>
+using AttnKernel = void (*)(const TS*, const TS*, const TS*, TS*, int, int, int, int, int, float,
+                            AttnPlan);
 
-AttnKernel attn_kernel_for(int D) {
-  if (D % 4 == 0) return attn_kernel<4>;
-  if (D % 2 == 0) return attn_kernel<2>;
-  return attn_kernel<1>;
+template <class TS>
+AttnKernel<TS> attn_kernel_for(int D) {
+  if (D % 4 == 0) return attn_kernel<4, TS>;
+  if (D % 2 == 0) return attn_kernel<2, TS>;
+  return attn_kernel<1, TS>;
 }
 
 // The launch configuration of a plan, with the kernel's shared memory set.
+template <class TS = float>
 struct AttnLaunch {
-  AttnKernel fn;
+  AttnKernel<TS> fn;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
 };
 
-cudaError_t attn_launch_config(AttnLaunch& L, const AttnPlan& p, int D, dim3 grid,
+template <class TS>
+cudaError_t attn_launch_config(AttnLaunch<TS>& L, const AttnPlan& p, int D, dim3 grid,
                                cudaStream_t stream) {
-  L.fn = attn_kernel_for(D);
+  L.fn = attn_kernel_for<TS>(D);
   cudaError_t err = cudaFuncSetAttribute(L.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(p.bytes));
   if (err != cudaSuccess) return err;
@@ -608,45 +644,45 @@ cudaError_t attn_launch_config(AttnLaunch& L, const AttnPlan& p, int D, dim3 gri
   return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" {
-
 // n_seg maps in one launch, desc [n_seg][7]: x, alpha, gamma, beta and out
 // (device addresses), elements, width. Each map's x and out are [rows, L]
 // with L a multiple of width * n_head, alpha [H], gamma and beta [H, width];
-// width a power of two up to 64; x, out, gamma and beta on 16-byte
-// boundaries. The blocks that fill the card once are split over the maps in
-// proportion to their sizes, each map's count rounded up so that 4 x its
-// threads are a multiple of n_head * width (and no more than one float4 a
-// thread needs).
-int flat_group_norm_segments(const long long* desc, int n_seg, int n_head, void* stream_ptr) {
+// width a power of two up to 64; gamma and beta on 16-byte boundaries, x
+// and out too (8-byte for bf16). The blocks that fill the card once are
+// split over the maps in proportion to their sizes, each map's count rounded
+// up so that 4 x its threads are a multiple of n_head * width (and no more
+// than one float4 a thread needs).
+template <class T>
+int norm_segments(const long long* desc, int n_seg, int n_head, void* stream_ptr) {
   if (n_seg < 1 || n_seg > GN_MAX_SEGS || n_head < 1) return cudaErrorInvalidValue;
-  NormSegs segs = {};
+  NormSegs<T> segs = {};
   segs.count = n_seg;
   segs.n_head = n_head;
   long long total = 0;
   for (int s = 0; s < n_seg; ++s) {
     const long long* d = desc + GN_DESC * s;
-    NormSeg& g = segs.seg[s];
-    g.x = reinterpret_cast<const float*>(d[0]);
+    NormSeg<T>& g = segs.seg[s];
+    g.x = reinterpret_cast<const T*>(d[0]);
     g.alpha = reinterpret_cast<const float*>(d[1]);
     g.gamma = reinterpret_cast<const float*>(d[2]);
     g.beta = reinterpret_cast<const float*>(d[3]);
-    g.out = reinterpret_cast<float*>(d[4]);
+    g.out = reinterpret_cast<T*>(d[4]);
     g.n = d[5];
     g.width = static_cast<int>(d[6]);
     const int w = g.width;
-    if (w < 1 || w > 64 || (w & (w - 1)) || g.n < 1 || g.n % w || !aligned16(g.x) ||
-        !aligned16(g.out) || !aligned16(g.gamma) || !aligned16(g.beta))
+    const bool io_aligned = kIsBf16<T> ? reinterpret_cast<uintptr_t>(g.x) % 8 == 0 &&
+                                             reinterpret_cast<uintptr_t>(g.out) % 8 == 0
+                                       : aligned16(g.x) && aligned16(g.out);
+    if (w < 1 || w > 64 || (w & (w - 1)) || g.n < 1 || g.n % w || !io_aligned ||
+        !aligned16(g.gamma) || !aligned16(g.beta))
       return cudaErrorInvalidValue;
     total += g.n;
   }
-  const int resident = norm_resident_blocks();
+  const int resident = norm_resident_blocks<T>();
   if (resident < 1) return cudaErrorInvalidValue;
   int blocks = 0;
   for (int s = 0; s < n_seg; ++s) {
-    NormSeg& g = segs.seg[s];
+    NormSeg<T>& g = segs.seg[s];
     const long long period = (long long)n_head * g.width;
     const long long unit = period / std::gcd(period, 4LL * GN_THREADS);
     const long long need = ((g.n + 3) / 4 + GN_THREADS - 1) / GN_THREADS;
@@ -658,8 +694,40 @@ int flat_group_norm_segments(const long long* desc, int n_seg, int n_head, void*
     g.blocks = static_cast<int>(b);
     blocks += g.blocks;
   }
-  norm_segments_kernel<<<blocks, GN_THREADS, 0, static_cast<cudaStream_t>(stream_ptr)>>>(segs);
+  norm_segments_kernel<T><<<blocks, GN_THREADS, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      segs);
   return cudaGetLastError();
+}
+
+template <class TS>
+int attention(const TS* q, const TS* k, const TS* v, TS* out, int B, int T, int Q, int H, int E,
+              int D, float scale, int tr, int ns, void* stream_ptr) {
+  AttnPlan p;
+  if (B < 1 || Q < 1 || H < 1 || E < 1 || D < 1 || B > 65535 || H > 65535 ||
+      !attn_plan(T, Q, E, D, tr, ns, p))
+    return cudaErrorInvalidValue;
+  AttnLaunch<TS> L;
+  cudaError_t err = attn_launch_config(L, p, D, dim3(ns * cdiv(T, tr), H, B),
+                                       static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&L.cfg, L.fn, q, k, v, out, T, Q, H, E, D, scale, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// n_seg maps in one launch (see norm_segments), fp32 x and out.
+int flat_group_norm_segments(const long long* desc, int n_seg, int n_head, void* stream_ptr) {
+  return norm_segments<float>(desc, n_seg, n_head, stream_ptr);
+}
+
+// The same with bf16 x and out (the parameters stay fp32).
+int flat_group_norm_segments_bf16(const long long* desc, int n_seg, int n_head,
+                                  void* stream_ptr) {
+  return norm_segments<__nv_bfloat16>(desc, n_seg, n_head, stream_ptr);
 }
 
 // Dynamic shared memory of the attention plan (tr, ns), or -1 if it does not fit.
@@ -674,7 +742,7 @@ long long frame_attention_smem(int T, int Q, int E, int D, int tr, int ns) {
 int frame_attention_max_clusters(int T, int Q, int E, int D, int tr, int ns) {
   AttnPlan p;
   if (!attn_plan(T, Q, E, D, tr, ns, p)) return 0;
-  AttnLaunch L;
+  AttnLaunch<> L;
   cudaError_t err = attn_launch_config(L, p, D, dim3(ns), nullptr);
   if (err != cudaSuccess) return -static_cast<int>(err);
   int n = 0;
@@ -686,17 +754,14 @@ int frame_attention_max_clusters(int T, int Q, int E, int D, int tr, int ns) {
 // block, clusters of ns blocks.
 int frame_attention(const float* q, const float* k, const float* v, float* out, int B, int T,
                     int Q, int H, int E, int D, float scale, int tr, int ns, void* stream_ptr) {
-  AttnPlan p;
-  if (B < 1 || Q < 1 || H < 1 || E < 1 || D < 1 || B > 65535 || H > 65535 ||
-      !attn_plan(T, Q, E, D, tr, ns, p))
-    return cudaErrorInvalidValue;
-  AttnLaunch L;
-  cudaError_t err = attn_launch_config(L, p, D, dim3(ns * cdiv(T, tr), H, B),
-                                       static_cast<cudaStream_t>(stream_ptr));
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&L.cfg, L.fn, q, k, v, out, T, Q, H, E, D, scale, p);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return attention<float>(q, k, v, out, B, T, Q, H, E, D, scale, tr, ns, stream_ptr);
+}
+
+// The bf16 form: q, k, v and out bf16, on the same plan.
+int frame_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                         const __nv_bfloat16* v, __nv_bfloat16* out, int B, int T, int Q, int H,
+                         int E, int D, float scale, int tr, int ns, void* stream_ptr) {
+  return attention<__nv_bfloat16>(q, k, v, out, B, T, Q, H, E, D, scale, tr, ns, stream_ptr);
 }
 
 }  // extern "C"

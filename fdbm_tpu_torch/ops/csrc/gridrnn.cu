@@ -61,9 +61,23 @@
 // clusters of 2 blocks of 16 lines, kernel 5 (ops/gridrnn_train.py:
 // train_fwd_plan) and kernel 4 (ops/gridrnn.py: fused_plan) alike; kernel 4
 // is kernel 1's kernel on those lines, the fold summing both directions.
+//
+// Kernel 1's bf16 form (gridrnn_seq1_pair_bf16; inference_dtype=bfloat16,
+// fdbm_tpu/ops/gridrnn.py:467,514-515,550-553) is the same two kernels on
+// T = __nv_bfloat16 (bf16_io.cuh): the canvas, h and the outputs are bf16 in
+// device memory, w_ih, w_hh and wd are rounded to bf16 as they are staged
+// (the TPU kernel ships them pre-cast), h is rounded to bf16 before it
+// enters the next step's product and the deconv, and the sums, the bias, c
+// and the gates stay fp32, as in the TPU kernel's bf16 path. cp.async cannot
+// widen, so the ring's rows are loaded into registers at the start of a
+// step, off its chain, and stored widened after the cell; the ring, the
+// weights and h stay fp32 in shared memory, so the products are the fp32
+// kernel's on bf16-valued operands. The streams halve, but the recurrence's
+// chain, not the bytes, sets the time.
 #include <cooperative_groups.h>
 
 #include "async_copy.cuh"
+#include "bf16_io.cuh"
 #include "gridrnn_core.cuh"
 
 namespace cg = cooperative_groups;
@@ -223,7 +237,8 @@ __device__ __forceinline__ void lane_reduce_scatter(
 }
 
 // x [B][S][P][C] canvas, w_ih [2][4C][4H], w_hh [2][H][4H], bias [2][4H] ->
-// hout [2][lines][L][H]. With STASH (the training forward, kernel 5) it also
+// hout [2][lines][L][H], x and hout of storage type T (bf16 only without
+// STASH). With STASH (the training forward, kernel 5) it also
 // writes what the reverse sweep of gridrnn_train.cu reads: the activated
 // gates gout [2][lines][L][H][4] (i, f, g, o of a unit as one float4) and the
 // cell states cout [2][lines][L][H]. grid (CS * tiles, 2), clusters of CS
@@ -235,13 +250,14 @@ __device__ __forceinline__ void lane_reduce_scatter(
 // t of direction d is canvas row t (d = 0) or S - 1 - t (d = 1); step s of
 // the direction reads rows s .. s + 3 of that order. Lane ks of group jg
 // owns units jg + u * groups (u < UPL).
-template <int LINES, bool STASH>
+template <int LINES, bool STASH, class T = float>
 __global__ void __launch_bounds__(FR_MAX_THREADS, 1)
-gridrnn_fused_kernel(const float* __restrict__ x, const float* __restrict__ w_ih,
+gridrnn_fused_kernel(const T* __restrict__ x, const float* __restrict__ w_ih,
                      const float* __restrict__ w_hh, const float* __restrict__ bias,
-                     float* __restrict__ hout, float* __restrict__ gout, float* __restrict__ cout,
+                     T* __restrict__ hout, float* __restrict__ gout, float* __restrict__ cout,
                      int S, int P, int C, int H, int n_lines, int uc, int wst, int lbp) {
   extern __shared__ __align__(16) float smem[];
+  static_assert(!(STASH && kIsBf16<T>), "the stashing forward is fp32");
   using F = FusedLanes<LINES>;
   constexpr int UPL = F::UPL, LQ = F::LQ;
   cg::cluster_group cluster = cg::this_cluster();
@@ -262,7 +278,7 @@ gridrnn_fused_kernel(const float* __restrict__ x, const float* __restrict__ w_ih
     const int col = g * H + u0 + j;
     float v = 0.f;
     if (u0 + j < H) v = k < KW ? wi[(long long)k * N + col] : wh[(long long)(k - KW) * N + col];
-    ws[k * wst + 4 * j + g] = v;
+    ws[k * wst + 4 * j + g] = round_to<T>(v);
   }
   for (int e = tid; e < 2 * H * lbp; e += nt) hb[e] = 0.f;
   // The thread's floats of a staged row: (line l, channel c) for e = l * C +
@@ -277,14 +293,34 @@ gridrnn_fused_kernel(const float* __restrict__ x, const float* __restrict__ w_ih
     st_src[i] = st_ok[i] ? ((long long)(line / P) * S * P + line % P) * C + c : 0;
     st_dst[i] = c * lbp + l;
   }
-  // Sequence row t of the tile's lines into ring slot t % FR_RING, c-major.
-  auto stage_row = [&](int t) {
-    const long long roff = (long long)(d == 0 ? t : S - 1 - t) * P * C;
+  // Sequence row t of the tile's lines into ring slot t % FR_RING, c-major:
+  // fp32 by cp.async; bf16 in two halves, fetch_row into registers (st_val)
+  // and put_row widened into the ring, so a step can start its loads early.
+  auto row_offset = [&](int t) { return (long long)(d == 0 ? t : S - 1 - t) * P * C; };
+  float st_val[FR_STAGE];
+  auto fetch_row = [&](int t) {
+    const long long roff = row_offset(t);
+#pragma unroll
+    for (int i = 0; i < FR_STAGE; ++i) st_val[i] = st_ok[i] ? load_f(x + st_src[i] + roff) : 0.f;
+  };
+  auto put_row = [&](int t) {
     float* dst = ring + (t % FR_RING) * C * lbp;
 #pragma unroll
     for (int i = 0; i < FR_STAGE; ++i)
-      if (tid + i * nt < LINES * C)
-        cp_async_to<4>(dst + st_dst[i], st_ok[i] ? x + st_src[i] + roff : x, st_ok[i]);
+      if (tid + i * nt < LINES * C) dst[st_dst[i]] = st_val[i];
+  };
+  auto stage_row = [&](int t) {
+    if constexpr (kIsBf16<T>) {
+      fetch_row(t);
+      put_row(t);
+    } else {
+      const long long roff = row_offset(t);
+      float* dst = ring + (t % FR_RING) * C * lbp;
+#pragma unroll
+      for (int i = 0; i < FR_STAGE; ++i)
+        if (tid + i * nt < LINES * C)
+          cp_async_to<4>(dst + st_dst[i], st_ok[i] ? x + st_src[i] + roff : x, st_ok[i]);
+    }
   };
   for (int t = 0; t < FR_AHEAD && t < S; ++t) stage_row(t);
   cp_async_commit_group();
@@ -343,6 +379,9 @@ gridrnn_fused_kernel(const float* __restrict__ x, const float* __restrict__ w_ih
     const int p = d == 0 ? s : L - 1 - s;
     const float* hcur = hb + (s & 1) * H * lbp;
     float* hnext = hb + ((s + 1) & 1) * H * lbp;
+    // bf16: this step's ring row is loaded now and arrives during the product.
+    if constexpr (kIsBf16<T>)
+      if (s + FR_AHEAD < S) fetch_row(s + FR_AHEAD);
     if (s > 0) cluster_wait();  // every block's h of the last step is in hcur
     fused_sum<LINES>(acc, wh_cols, wst, hcur, lbp, H, ks);
     lane_reduce_scatter<LINES>(acc, ks);
@@ -355,14 +394,15 @@ gridrnn_fused_kernel(const float* __restrict__ x, const float* __restrict__ w_ih
         const float gg = cell_tanh<STASH>(acc[u][q][2] + bv[u][2]);
         const float og = cell_sigmoid<STASH>(acc[u][q][3] + bv[u][3]);
         c_state[u][q] = fg * c_state[u][q] + ig * gg;
-        const float h = og * cell_tanh<STASH>(c_state[u][q]);
+        // bf16: h enters the next product and the deconv rounded, c stays fp32.
+        const float h = round_to<T>(og * cell_tanh<STASH>(c_state[u][q]));
         if (!owner[u]) continue;
         for (int r = 0; r < cs; ++r)
           cluster.map_shared_rank(hnext, r)[units[u] * lbp + lq0 + q] = h;
         const int line = line0 + lq0 + q;
         if (line >= n_lines) continue;
         const long long at = (((long long)d * n_lines + line) * L + p) * H + units[u];
-        hout[at] = h;
+        store_f(hout + at, h);
         if constexpr (STASH) {
           reinterpret_cast<float4*>(gout)[at] = make_float4(ig, fg, gg, og);
           cout[at] = c_state[u][q];
@@ -370,38 +410,56 @@ gridrnn_fused_kernel(const float* __restrict__ x, const float* __restrict__ w_ih
       }
     // Row s + 6 starts its copy; row s + 5 (copied by this thread) is
     // complete before the arrive, so every thread may read it after the
-    // next wait.
-    if (s + FR_AHEAD < S) stage_row(s + FR_AHEAD);
-    cp_async_commit_group();
-    cp_async_wait_groups<1>();
+    // next wait. bf16: row s + 6, loaded at the top of the step, is stored.
+    if constexpr (kIsBf16<T>) {
+      if (s + FR_AHEAD < S) put_row(s + FR_AHEAD);
+    } else {
+      if (s + FR_AHEAD < S) stage_row(s + FR_AHEAD);
+      cp_async_commit_group();
+      cp_async_wait_groups<1>();
+    }
     cluster_arrive();
     if (s + 1 < L) window(s + 1);
   }
   cluster_wait();  // no block leaves while another may still write its h
 }
 
-using FusedKernel = void (*)(const float*, const float*, const float*, const float*, float*,
-                             float*, float*, int, int, int, int, int, int, int, int);
+template <class T>
+using FusedKernel = void (*)(const T*, const float*, const float*, const float*, T*, float*,
+                             float*, int, int, int, int, int, int, int, int);
 
-FusedKernel fused_kernel(int lines, bool stash) {
-  switch (lines) {
-    case 8: return stash ? gridrnn_fused_kernel<8, true> : gridrnn_fused_kernel<8, false>;
-    case 16: return stash ? gridrnn_fused_kernel<16, true> : gridrnn_fused_kernel<16, false>;
-    default: return nullptr;
+template <class T>
+FusedKernel<T> fused_kernel(int lines, bool stash) {
+  if constexpr (kIsBf16<T>) {
+    if (stash) return nullptr;
+    switch (lines) {
+      case 8: return gridrnn_fused_kernel<8, false, T>;
+      case 16: return gridrnn_fused_kernel<16, false, T>;
+      default: return nullptr;
+    }
+  } else {
+    switch (lines) {
+      case 8: return stash ? gridrnn_fused_kernel<8, true> : gridrnn_fused_kernel<8, false>;
+      case 16: return stash ? gridrnn_fused_kernel<16, true> : gridrnn_fused_kernel<16, false>;
+      default: return nullptr;
+    }
   }
 }
 
+template <class T = float>
 struct FusedLaunch {
   FusedPlan plan;
-  FusedKernel fn;
+  FusedKernel<T> fn;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
 };
 
-cudaError_t fused_launch_config(FusedLaunch& F, int C, int H, int cs, int lines, bool stash,
+template <class T>
+cudaError_t fused_launch_config(FusedLaunch<T>& F, int C, int H, int cs, int lines, bool stash,
                                 int tiles, cudaStream_t stream) {
   if (!fused_plan(C, H, cs, lines, F.plan)) return cudaErrorInvalidValue;
-  F.fn = fused_kernel(lines, stash);
+  F.fn = fused_kernel<T>(lines, stash);
+  if (F.fn == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(F.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(F.plan.bytes));
   if (err != cudaSuccess) return err;
@@ -432,7 +490,7 @@ int gridrnn_seq1_pair(const float* x, const float* w_ih, const float* w_hh, cons
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!shape_ok(S, C, H)) return cudaErrorInvalidValue;
   const int n_lines = B * P;
-  FusedLaunch F;
+  FusedLaunch<> F;
   cudaError_t err = fused_launch_config(F, C, H, cs, lines, false, (n_lines + lines - 1) / lines,
                                         stream);
   if (err != cudaSuccess) return err;
@@ -441,8 +499,30 @@ int gridrnn_seq1_pair(const float* x, const float* w_ih, const float* w_hh, cons
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_fold<false, false>(hs, H, wd, (long long)H * KS * C, KS * C, 1, outf, outb, B, S,
-                                   P, C, stream);
+  return launch_fold<false, false, float>(hs, H, wd, (long long)H * KS * C, KS * C, 1, outf, outb,
+                                          B, S, P, C, stream);
+}
+
+// Kernel 1's bf16 form: x, hs, outf and outb bf16, the weights fp32 (rounded
+// to bf16 in the kernels); otherwise as gridrnn_seq1_pair.
+int gridrnn_seq1_pair_bf16(const __nv_bfloat16* x, const float* w_ih, const float* w_hh,
+                           const float* bias, const float* wd, __nv_bfloat16* hs,
+                           __nv_bfloat16* outf, __nv_bfloat16* outb, int B, int S, int P, int C,
+                           int H, int cs, int lines, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (!shape_ok(S, C, H)) return cudaErrorInvalidValue;
+  const int n_lines = B * P;
+  FusedLaunch<__nv_bfloat16> F;
+  cudaError_t err = fused_launch_config(F, C, H, cs, lines, false, (n_lines + lines - 1) / lines,
+                                        stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&F.cfg, F.fn, x, w_ih, w_hh, bias, hs, nullptr, nullptr, S, P, C, H,
+                           n_lines, F.plan.uc, F.plan.wst, F.plan.lbp);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_fold<false, false, __nv_bfloat16>(hs, H, wd, (long long)H * KS * C, KS * C, 1,
+                                                  outf, outb, B, S, P, C, stream);
 }
 
 // Kernel 4, the summed fold on sequence-major lines x [S, lines, C] (the
@@ -455,7 +535,7 @@ int grid_bilstm_fold(const float* x, const float* w_ih, const float* w_hh, const
                      int cs, int lines, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!shape_ok(S, C, H)) return cudaErrorInvalidValue;
-  FusedLaunch F;
+  FusedLaunch<> F;
   cudaError_t err = fused_launch_config(F, C, H, cs, lines, false, (n_lines + lines - 1) / lines,
                                         stream);
   if (err != cudaSuccess) return err;
@@ -464,8 +544,8 @@ int grid_bilstm_fold(const float* x, const float* w_ih, const float* w_hh, const
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_fold<false, true>(hs, H, wd, (long long)H * KS * C, KS * C, 1, out, nullptr, 1, S,
-                                  n_lines, C, stream);
+  return launch_fold<false, true, float>(hs, H, wd, (long long)H * KS * C, KS * C, 1, out,
+                                         nullptr, 1, S, n_lines, C, stream);
 }
 
 // Kernel 5, the training forward on sequence-major lines x [S, lines, C]
@@ -478,7 +558,7 @@ int grid_fold_train_fwd(const float* x, const float* w_ih, const float* w_hh, co
                         void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!shape_ok(S, C, H)) return cudaErrorInvalidValue;
-  FusedLaunch F;
+  FusedLaunch<> F;
   cudaError_t err = fused_launch_config(F, C, H, cs_, lines, true, (n_lines + lines - 1) / lines,
                                         stream);
   if (err != cudaSuccess) return err;
@@ -487,8 +567,8 @@ int grid_fold_train_fwd(const float* x, const float* w_ih, const float* w_hh, co
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_fold<false, false>(hs, H, wd, (long long)H * KS * C, KS * C, 1, outf, outb, 1, S,
-                                   n_lines, C, stream);
+  return launch_fold<false, false, float>(hs, H, wd, (long long)H * KS * C, KS * C, 1, outf, outb,
+                                          1, S, n_lines, C, stream);
 }
 
 // The card's most clusters of the plan (cs, lines) at widths C, H that can
@@ -496,7 +576,7 @@ int grid_fold_train_fwd(const float* x, const float* w_ih, const float* w_hh, co
 // (stash != 0) the training forward's; 0 if the plan does not fit a block,
 // or minus a CUDA error.
 int gridrnn_fused_max_clusters(int C, int H, int cs, int lines, int stash) {
-  FusedLaunch F;
+  FusedLaunch<> F;
   cudaError_t err = fused_launch_config(F, C, H, cs, lines, stash != 0, 1, nullptr);
   if (err == cudaErrorInvalidValue) return 0;
   if (err != cudaSuccess) return -static_cast<int>(err);

@@ -15,6 +15,10 @@
 // (B_K_FAST; a weight's transpose) is launched by no kernel now; it stays
 // because taking it out (with the strides) changed the code nvcc makes of
 // the fold the kernels run (PERF.md, PR 10).
+// T is the storage type of h and of the outputs (bf16_io.cuh): under bf16
+// io the deconv weight is rounded to bf16 as it is staged, the products and
+// the overlap-add sum in fp32, and each output is rounded once, as the JAX
+// kernel's fold does (fdbm_tpu/ops/gridrnn.py:180-195).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,10 +38,10 @@ constexpr int FOLD_BM = 64, FOLD_R = FOLD_BM - (KS - 1);
 constexpr int FOLD_MAX_C = 64;
 constexpr int FOLD_PER_THREAD = (FOLD_R * FOLD_MAX_C + GEMM_THREADS - 1) / GEMM_THREADS;
 
-template <int BN, bool B_K_FAST, bool SUM>
+template <int BN, bool B_K_FAST, bool SUM, class T = float>
 __global__ void __launch_bounds__(GEMM_THREADS)
-fold_kernel(const float* __restrict__ A, int K, const float* __restrict__ Bw, long long b_dir,
-            int b_kst, int b_nst, float* __restrict__ out0, float* __restrict__ out1, int S,
+fold_kernel(const T* __restrict__ A, int K, const float* __restrict__ Bw, long long b_dir,
+            int b_kst, int b_nst, T* __restrict__ out0, T* __restrict__ out1, int S,
             int P, int C, int L, int n_lines) {
   extern __shared__ __align__(16) float smem[];
   const long long line = blockIdx.x;
@@ -52,7 +56,7 @@ fold_kernel(const float* __restrict__ A, int K, const float* __restrict__ Bw, lo
 
   const int d_begin = SUM ? 0 : (int)blockIdx.z, d_end = SUM ? 2 : d_begin + 1;
   for (int d = d_begin; d < d_end; ++d) {
-    const float* a = A + ((long long)d * n_lines + line) * L * K;
+    const T* a = A + ((long long)d * n_lines + line) * L * K;
     auto a_row = [&](int m) -> long long {
       const int q = r0 - (KS - 1) + m;
       return (q >= 0 && q < L) ? (long long)q * K : -1;
@@ -61,7 +65,7 @@ fold_kernel(const float* __restrict__ A, int K, const float* __restrict__ Bw, lo
     auto b_k = [&](int k) -> long long { return d * b_dir + (long long)k * b_kst; };
     auto b_n = [&](int n) -> long long { return n < N ? (long long)n * b_nst : -1; };
     float acc[FOLD_BM / 16][BN / 16];
-    gemm_tile<FOLD_BM, BN, B_K_FAST>(K, a, a_row, a_col, Bw, b_k, b_n, acc, smem);
+    gemm_tile<FOLD_BM, BN, B_K_FAST, T>(K, a, a_row, a_col, Bw, b_k, b_n, acc, smem);
 #pragma unroll
     for (int i = 0; i < FOLD_BM / 16; ++i)
 #pragma unroll
@@ -79,7 +83,7 @@ fold_kernel(const float* __restrict__ A, int K, const float* __restrict__ Bw, lo
         }
       }
     } else {
-      float* out = d == 0 ? out0 : out1;
+      T* out = d == 0 ? out0 : out1;
       for (int e = threadIdx.x; e < FOLD_R * C; e += GEMM_THREADS) {
         const int rl = e / C, c = e % C;
         const int r = r0 + rl;
@@ -87,7 +91,7 @@ fold_kernel(const float* __restrict__ A, int K, const float* __restrict__ Bw, lo
         float v = 0.f;
 #pragma unroll
         for (int j = 0; j < KS; ++j) v += zs[(rl + KS - 1 - j) * LDZ + j * C + c];
-        out[((b * S + r) * P + pc) * C + c] = v;
+        store_f(out + ((b * S + r) * P + pc) * C + c, v);
       }
     }
     __syncthreads();  // zs is the next pass's staging buffer
@@ -97,32 +101,32 @@ fold_kernel(const float* __restrict__ A, int K, const float* __restrict__ Bw, lo
     for (int i = 0; i < FOLD_PER_THREAD; ++i) {
       const int e = threadIdx.x + i * GEMM_THREADS;
       const int r = r0 + e / C;
-      if (e < FOLD_R * C && r < S) out0[((b * S + r) * P + pc) * C + e % C] = sum[i];
+      if (e < FOLD_R * C && r < S) store_f(out0 + ((b * S + r) * P + pc) * C + e % C, sum[i]);
     }
   }
 }
 
-template <int BN, bool B_K_FAST, bool SUM>
-cudaError_t launch_fold_bn(const float* A, int K, const float* Bw, long long b_dir, int b_kst,
-                           int b_nst, float* out0, float* out1, int B, int S, int P, int C,
+template <int BN, bool B_K_FAST, bool SUM, class T>
+cudaError_t launch_fold_bn(const T* A, int K, const float* Bw, long long b_dir, int b_kst,
+                           int b_nst, T* out0, T* out1, int B, int S, int P, int C,
                            cudaStream_t stream) {
   const size_t stage = GemmTile<FOLD_BM, BN>::SMEM_FLOATS;
   const size_t z = (size_t)FOLD_BM * (BN + 1);
   const size_t smem = (stage > z ? stage : z) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fold_kernel<BN, B_K_FAST, SUM>,
+  cudaError_t err = cudaFuncSetAttribute(fold_kernel<BN, B_K_FAST, SUM, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int L = S - (KS - 1);
   const int n_lines = B * P;
   dim3 grid(n_lines, (S + FOLD_R - 1) / FOLD_R, SUM ? 1 : 2);
-  fold_kernel<BN, B_K_FAST, SUM><<<grid, GEMM_THREADS, smem, stream>>>(
+  fold_kernel<BN, B_K_FAST, SUM, T><<<grid, GEMM_THREADS, smem, stream>>>(
       A, K, Bw, b_dir, b_kst, b_nst, out0, out1, S, P, C, L, n_lines);
   return cudaGetLastError();
 }
 
-template <bool B_K_FAST, bool SUM>
-cudaError_t launch_fold(const float* A, int K, const float* Bw, long long b_dir, int b_kst,
-                        int b_nst, float* out0, float* out1, int B, int S, int P, int C,
+template <bool B_K_FAST, bool SUM, class T>
+cudaError_t launch_fold(const T* A, int K, const float* Bw, long long b_dir, int b_kst,
+                        int b_nst, T* out0, T* out1, int B, int S, int P, int C,
                         cudaStream_t stream) {
   if (KS * C <= 128)
     return launch_fold_bn<128, B_K_FAST, SUM>(A, K, Bw, b_dir, b_kst, b_nst, out0, out1, B, S, P,

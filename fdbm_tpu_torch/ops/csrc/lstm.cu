@@ -57,11 +57,20 @@
 //      split over positions into per-block partial sums added in a fixed
 //      order (split_k.cuh). No atomics anywhere: two backward calls give
 //      the same gradients, bit for bit.
+//
+// The bf16 form of bilstm_fused_forward (lstm_forward_bf16; the JAX kernel's
+// bf16 io, fdbm_tpu/ops/lstm.py:500-521,548) is the same two kernels on T =
+// __nv_bfloat16 (bf16_io.cuh): x and the hidden states are bf16 in device
+// memory, w_ih and w_hh are rounded to bf16 as they are staged, h is rounded
+// to bf16 before it enters the next step's product, and the pre-activations
+// (xp, scratch in device memory, as the TPU kernel keeps them in VMEM), the
+// bias, c and the gates stay fp32.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bf16_io.cuh"
 #include "simt_gemm.cuh"
 #include "split_k.cuh"
 #include "tile_gemm.cuh"
@@ -72,11 +81,13 @@ namespace {
 
 // ---- the input projection --------------------------------------------------------
 // out[d][m][n] = sum_k A[m][k] W_d[k][n] + bias[d][n] with A [M][K] row-major
-// (shared by the directions) and W_d = W + d * w_dir, [K][N] row-major.
+// (shared by the directions) and W_d = W + d * w_dir, [K][N] row-major. A of
+// storage type T; under bf16 W is rounded to bf16 as it is staged.
 constexpr int DN_BM = 128, DN_BN = 64;
 
+template <class T = float>
 __global__ void __launch_bounds__(GEMM_THREADS)
-dense_kernel(const float* __restrict__ A, const float* __restrict__ W, long long w_dir,
+dense_kernel(const T* __restrict__ A, const float* __restrict__ W, long long w_dir,
              const float* __restrict__ bias, float* __restrict__ out, long long M, int K,
              int N) {
   __shared__ __align__(16) float smem[GemmTile<DN_BM, DN_BN>::SMEM_FLOATS];
@@ -88,7 +99,7 @@ dense_kernel(const float* __restrict__ A, const float* __restrict__ W, long long
   auto b_k = [&](int k) -> long long { return d * w_dir + (long long)k * N; };
   auto b_n = [&](int n) -> long long { return n0 + n < N ? n0 + n : -1; };
   float acc[DN_BM / 16][DN_BN / 16];
-  gemm_tile<DN_BM, DN_BN, false>(K, A, a_row, a_col, W, b_k, b_n, acc, smem);
+  gemm_tile<DN_BM, DN_BN, false, T>(K, A, a_row, a_col, W, b_k, b_n, acc, smem);
 #pragma unroll
   for (int i = 0; i < DN_BM / 16; ++i) {
     const long long row = m0 + tile_row<DN_BM, DN_BN>(i);
@@ -101,10 +112,11 @@ dense_kernel(const float* __restrict__ A, const float* __restrict__ W, long long
   }
 }
 
-cudaError_t dense(const float* A, const float* W, long long w_dir, const float* bias, float* out,
+template <class T>
+cudaError_t dense(const T* A, const float* W, long long w_dir, const float* bias, float* out,
                   long long M, int K, int N, int dirs, cudaStream_t stream) {
   dim3 grid((unsigned)((M + DN_BM - 1) / DN_BM), (N + DN_BN - 1) / DN_BN, dirs);
-  dense_kernel<<<grid, GEMM_THREADS, 0, stream>>>(A, W, w_dir, bias, out, M, K, N);
+  dense_kernel<T><<<grid, GEMM_THREADS, 0, stream>>>(A, W, w_dir, bias, out, M, K, N);
   return cudaGetLastError();
 }
 
@@ -115,8 +127,10 @@ __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-
 
 // ---- the forward recurrence: a cluster of blocks per tile of lines ------------------
 // xp [dirs][S][B][4H] pre-activations (bias included), w_hh [dirs][H][4H] ->
-// hout [dirs][S][B][H]. With STASH, xp is overwritten with the activated
-// gates (i, f, g, o) of its position and cout [dirs][S][B][H] receives c.
+// hout [dirs][S][B][H] of storage type T (bf16 only without STASH: w_hh and
+// h rounded to bf16 before the product, the outputs bf16). With STASH, xp is
+// overwritten with the activated gates (i, f, g, o) of its position and cout
+// [dirs][S][B][H] receives c.
 //
 // A cluster of CS blocks runs one tile of LINES lines of one direction.
 // Block r owns units [r*UC, (r+1)*UC) (UC = ceil(H / CS)) and their four
@@ -163,12 +177,13 @@ __device__ __forceinline__ void fma_gates(float (&acc)[4], float h, const float4
 }
 
 // grid (CS * tiles, dirs), clusters of CS blocks along x.
-template <int LINES, bool STASH>
+template <int LINES, bool STASH, class T = float>
 __global__ void __launch_bounds__(RC_MAX_THREADS, 1)
-lstm_rec_kernel(float* __restrict__ xp, const float* __restrict__ w_hh, float* __restrict__ hout,
+lstm_rec_kernel(float* __restrict__ xp, const float* __restrict__ w_hh, T* __restrict__ hout,
                 float* __restrict__ cout, int S, int B, int H, int uc, int wst, int lbp,
                 int rev) {
   extern __shared__ __align__(16) float smem[];
+  static_assert(!(STASH && kIsBf16<T>), "the stashing forward is fp32");
   constexpr int L4 = LINES / 4;
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
@@ -184,7 +199,8 @@ lstm_rec_kernel(float* __restrict__ xp, const float* __restrict__ w_hh, float* _
   const float* w = w_hh + (long long)d * H * N;
   for (int e = tid; e < H * 4 * uc; e += nt) {
     const int k = e / (4 * uc), g = (e / uc) % 4, j = e % uc;
-    ws[k * wst + 4 * j + g] = u0 + j < H ? w[(long long)k * N + g * H + u0 + j] : 0.f;
+    ws[k * wst + 4 * j + g] =
+        u0 + j < H ? round_to<T>(w[(long long)k * N + g * H + u0 + j]) : 0.f;
   }
   for (int e = tid; e < H * lbp; e += nt) hb[e] = 0.f;
 
@@ -255,13 +271,13 @@ lstm_rec_kernel(float* __restrict__ xp, const float* __restrict__ w_hh, float* _
       const float gg = tanhf(acc[q][2] + xv[q][2]);
       const float og = sigmoidf_(acc[q][3] + xv[q][3]);
       const float c = fg * c_state[q] + ig * gg;
-      const float h = og * tanhf(c);
+      const float h = round_to<T>(og * tanhf(c));  // bf16: h rounded, c stays fp32
       c_state[q] = c;
       if (!owner) continue;
       for (int r = 0; r < cs; ++r) cluster.map_shared_rank(hnext, r)[unit * lbp + lq0 + q] = h;
       if (line0 + lq0 + q < B) {
         const long long pos = row0 + q;
-        hout[pos * H + unit] = h;
+        store_f(hout + pos * H + unit, h);
         if (STASH) {
           float* gp = xp + pos * N + unit;
           gp[0] = ig;
@@ -276,18 +292,18 @@ lstm_rec_kernel(float* __restrict__ xp, const float* __restrict__ w_hh, float* _
   }
 }
 
-using RecKernel = void (*)(float*, const float*, float*, float*, int, int, int, int, int, int,
-                           int);
+template <class T = float>
+using RecKernel = void (*)(float*, const float*, T*, float*, int, int, int, int, int, int, int);
 
-template <bool STASH>
-RecKernel rec_kernel(int lines) {
+template <bool STASH, class T = float>
+RecKernel<T> rec_kernel(int lines) {
   switch (lines) {
-    case 4: return lstm_rec_kernel<4, STASH>;
-    case 8: return lstm_rec_kernel<8, STASH>;
-    case 12: return lstm_rec_kernel<12, STASH>;
-    case 16: return lstm_rec_kernel<16, STASH>;
-    case 20: return lstm_rec_kernel<20, STASH>;
-    case 24: return lstm_rec_kernel<24, STASH>;
+    case 4: return lstm_rec_kernel<4, STASH, T>;
+    case 8: return lstm_rec_kernel<8, STASH, T>;
+    case 12: return lstm_rec_kernel<12, STASH, T>;
+    case 16: return lstm_rec_kernel<16, STASH, T>;
+    case 20: return lstm_rec_kernel<20, STASH, T>;
+    case 24: return lstm_rec_kernel<24, STASH, T>;
     default: return nullptr;
   }
 }
@@ -295,17 +311,24 @@ RecKernel rec_kernel(int lines) {
 // The launch configuration of (cs, lines) over `tiles` tiles and `dirs`
 // directions, with the kernel's shared memory set; false if the plan does
 // not fit.
+template <class T = float>
 struct RecLaunch {
   RecPlan plan;
-  RecKernel fn;
+  RecKernel<T> fn;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
 };
 
-cudaError_t rec_launch_config(RecLaunch& L, int H, int cs, int lines, bool stash, int tiles,
+template <class T>
+cudaError_t rec_launch_config(RecLaunch<T>& L, int H, int cs, int lines, bool stash, int tiles,
                               int dirs, cudaStream_t stream) {
   if (!rec_plan(H, cs, lines, L.plan)) return cudaErrorInvalidValue;
-  L.fn = stash ? rec_kernel<true>(lines) : rec_kernel<false>(lines);
+  if constexpr (kIsBf16<T>) {
+    if (stash) return cudaErrorInvalidValue;
+    L.fn = rec_kernel<false, T>(lines);
+  } else {
+    L.fn = stash ? rec_kernel<true>(lines) : rec_kernel<false>(lines);
+  }
   cudaError_t err = cudaFuncSetAttribute(L.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L.plan.bytes));
   if (err != cudaSuccess) return err;
@@ -323,10 +346,10 @@ cudaError_t rec_launch_config(RecLaunch& L, int H, int cs, int lines, bool stash
   return cudaSuccess;
 }
 
-template <bool STASH>
-cudaError_t launch_rec(float* xp, const float* w_hh, float* hout, float* cout, int S, int B,
+template <bool STASH, class T = float>
+cudaError_t launch_rec(float* xp, const float* w_hh, T* hout, float* cout, int S, int B,
                        int H, int dirs, int rev, int cs, int lines, cudaStream_t stream) {
-  RecLaunch L;
+  RecLaunch<T> L;
   cudaError_t err = rec_launch_config(L, H, cs, lines, STASH, (B + lines - 1) / lines, dirs,
                                       stream);
   if (err != cudaSuccess) return err;
@@ -791,6 +814,20 @@ int lstm_forward(const float* x, const float* w_ih, const float* w_hh, const flo
   return launch_rec<false>(xp, w_hh, out, nullptr, S, B, H, dirs, rev, cs, lines, stream);
 }
 
+// The bf16 form of lstm_forward: x [S][B][D] and out [dirs][S][B][H] bf16,
+// the weights and bias fp32 (rounded to bf16 in the kernels), xp fp32.
+int lstm_forward_bf16(const __nv_bfloat16* x, const float* w_ih, const float* w_hh,
+                      const float* bias, float* xp, __nv_bfloat16* out, int S, int B, int D,
+                      int H, int dirs, int rev, int cs, int lines, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (!shape_ok(S, B, D, H) || dirs < 1 || dirs > 2) return cudaErrorInvalidValue;
+  const int N = 4 * H;
+  cudaError_t err = dense(x, w_ih, (long long)D * N, bias, xp, (long long)S * B, D, N, dirs,
+                          stream);
+  if (err != cudaSuccess) return err;
+  return launch_rec<false>(xp, w_hh, out, nullptr, S, B, H, dirs, rev, cs, lines, stream);
+}
+
 // lstm_core's forward, one direction: h [S][B][H] and the stashes of its
 // backward, gates [S][B][4H] (activated i, f, g, o) and c [S][B][H].
 int lstm_train_fwd(const float* x, const float* w_ih, const float* w_hh, const float* bias,
@@ -808,7 +845,7 @@ int lstm_train_fwd(const float* x, const float* w_ih, const float* w_hh, const f
 // that can run at once (cudaOccupancyMaxActiveClusters), 0 if the plan does
 // not fit a block, or minus a CUDA error.
 int lstm_rec_max_clusters(int H, int cs, int lines, int stash) {
-  RecLaunch L;
+  RecLaunch<> L;
   cudaError_t err = rec_launch_config(L, H, cs, lines, stash != 0, 1, 1, nullptr);
   if (err == cudaErrorInvalidValue) return 0;
   if (err != cudaSuccess) return -static_cast<int>(err);

@@ -13,8 +13,14 @@
 // columns tx + 16*j, so the A reads of a warp are broadcasts and its B reads
 // hit 16 consecutive banks. All arithmetic is fp32 FMA on the CUDA cores:
 // the port holds its kernels to fp32 parity with the JAX reference, which
-// TF32 tensor cores (10-bit mantissa) would not meet.
+// TF32 tensor cores (10-bit mantissa) would not meet. A may be stored in
+// bf16 (the serving kernels' bf16 io): it is widened to float as it is
+// staged. TR rounds B's elements to its precision as they are staged (a
+// weight pre-cast to bf16, as the JAX kernels ship theirs); float leaves
+// them as they are.
 #pragma once
+
+#include "bf16_io.cuh"
 
 constexpr int GEMM_THREADS = 256;
 constexpr int GEMM_BK = 8;
@@ -31,8 +37,9 @@ struct GemmTile {
 // B_K_FAST picks how the block stages B: k fastest when each column n is a
 // row of the source tensor (the keys of the score product), n fastest when
 // B is row-major in k (weights [K][N], the values).
-template <int BM, int BN, bool B_K_FAST, class ARow, class ACol, class BK_, class BN_>
-__device__ __forceinline__ void gemm_tile(int K, const float* __restrict__ A, const ARow& a_row,
+template <int BM, int BN, bool B_K_FAST, class TR = float, class TA, class ARow, class ACol,
+          class BK_, class BN_>
+__device__ __forceinline__ void gemm_tile(int K, const TA* __restrict__ A, const ARow& a_row,
                                           const ACol& a_col, const float* __restrict__ B,
                                           const BK_& b_k, const BN_& b_n,
                                           float (&acc)[BM / 16][BN / 16], float* smem) {
@@ -66,21 +73,21 @@ __device__ __forceinline__ void gemm_tile(int K, const float* __restrict__ A, co
 #pragma unroll
     for (int r = 0; r < A_REP; ++r) {
       const int m = tid / GEMM_BK + r * (GEMM_THREADS / GEMM_BK);
-      As[ak * T::LDA + m] = (arow[r] >= 0 && acol >= 0) ? A[arow[r] + acol] : 0.f;
+      As[ak * T::LDA + m] = (arow[r] >= 0 && acol >= 0) ? load_f(A + arow[r] + acol) : 0.f;
     }
     if (B_K_FAST) {
       const long long bk = (k0 + ak < K) ? b_k(k0 + ak) : -1;
 #pragma unroll
       for (int r = 0; r < B_REP; ++r) {
         const int n = tid / GEMM_BK + r * (GEMM_THREADS / GEMM_BK);
-        Bs[ak * BN + n] = (bfix[r] >= 0 && bk >= 0) ? B[bk + bfix[r]] : 0.f;
+        Bs[ak * BN + n] = (bfix[r] >= 0 && bk >= 0) ? round_to<TR>(B[bk + bfix[r]]) : 0.f;
       }
     } else {
 #pragma unroll
       for (int r = 0; r < B_REP; ++r) {
         const int k = tid / BN + r * (GEMM_THREADS / BN);
         const long long bk = (k0 + k < K) ? b_k(k0 + k) : -1;
-        Bs[k * BN + tid % BN] = (bn_fast >= 0 && bk >= 0) ? B[bk + bn_fast] : 0.f;
+        Bs[k * BN + tid % BN] = (bn_fast >= 0 && bk >= 0) ? round_to<TR>(B[bk + bn_fast]) : 0.f;
       }
     }
     __syncthreads();

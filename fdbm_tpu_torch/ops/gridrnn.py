@@ -11,6 +11,16 @@ its ``*_plain`` version, the same function in plain PyTorch. The source
 note of ``csrc/gridrnn.cu`` says what bounds the kernels on the H100 and
 how they are laid out. The differentiable twin is ``ops/gridrnn_train.py``.
 
+:func:`grid_rnn_seq1_pair` also takes a bf16 canvas (``inference_dtype:
+bfloat16``): it then launches the kernels' bf16 form, which computes the
+JAX kernel's bf16 path (``fdbm_tpu/ops/gridrnn.py:467,514-515,550-553``):
+bf16 canvas, hidden states and outputs, the weights rounded to bf16, h
+rounded to bf16 before each product, fp32 sums, bias, cell state and
+gates. Its plain version is the same function on a bf16 tensor
+(:func:`grid_rnn_seq1_pair_plain`): the same operands rounded with
+``.to(torch.bfloat16)`` and multiplied in fp32. The two forms count their
+launches apart (``launches``, ``launches_bf16``).
+
 The plain LSTM recurrences, :func:`lstm_plain` (one direction) and
 :func:`bilstm_plain`, live here because the plain version needs them;
 :func:`lstm_plain` is also the plain version of ``ops/lstm.py``'s kernels,
@@ -31,6 +41,7 @@ KS = 4  # unfold width (emb_ks)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"gridrnn_seq1_pair": [_P] * 8 + [_I] * 7 + [_P],
+               "gridrnn_seq1_pair_bf16": [_P] * 8 + [_I] * 7 + [_P],
                "gridrnn_fused_max_clusters": [_I] * 5,
                "gridrnn_fused_smem": [_I] * 4}
 _RESTYPES = {"gridrnn_fused_smem": ctypes.c_longlong}
@@ -179,11 +190,20 @@ def _lstm_cell(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torc
     return torch.sigmoid(o) * torch.tanh(c), c
 
 
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even, as the kernels and
+    ``astype(bfloat16)`` round) and held in fp32: an operand of the bf16
+    forms' plain versions, which multiply in fp32."""
+    return t.to(torch.bfloat16).float()
+
+
 def lstm_plain(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
-               reverse: bool = False) -> torch.Tensor:
+               reverse: bool = False, round_h: bool = False) -> torch.Tensor:
     """One LSTM direction over axis 0 of ``x [S, B, D]`` -> ``[S, B, H]``,
     with ``w_ih [D, 4H]``, ``w_hh [H, 4H]``, ``bias [4H]``; ``reverse`` runs
-    it back to front and keeps the outputs in time order."""
+    it back to front and keeps the outputs in time order. ``round_h`` rounds
+    each h to bf16 before it enters the next product and the outputs (the
+    bf16 forms' recurrence; the cell state stays fp32)."""
     s, b, _ = x.shape
     xp = x @ w_ih + bias
     h = x.new_zeros(b, w_hh.shape[0])
@@ -191,17 +211,20 @@ def lstm_plain(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, bias: to
     ys = [None] * s
     for t in (range(s - 1, -1, -1) if reverse else range(s)):
         h, c = _lstm_cell(xp[t] + h @ w_hh, c)
+        if round_h:
+            h = round_bf16(h)
         ys[t] = h
     return torch.stack(ys)
 
 
 def bilstm_plain(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
-                 bias: torch.Tensor) -> torch.Tensor:
+                 bias: torch.Tensor, round_h: bool = False) -> torch.Tensor:
     """Bidirectional LSTM over axis 1 of ``x [N, S, D]`` -> ``[N, S, 2H]``
     (forward ++ backward), with the JAX packing ``w_ih [2, D, 4H]``,
     ``w_hh [2, H, 4H]``, ``bias [2, 4H]`` (direction 1 runs reversed)."""
     xs = x.transpose(0, 1)
-    outs = [lstm_plain(xs, w_ih[z], w_hh[z], bias[z], reverse=z == 1) for z in (0, 1)]
+    outs = [lstm_plain(xs, w_ih[z], w_hh[z], bias[z], reverse=z == 1, round_h=round_h)
+            for z in (0, 1)]
     return torch.cat(outs, dim=-1).transpose(0, 1)
 
 
@@ -219,17 +242,24 @@ def grid_rnn_seq1_pair_plain(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Te
                              bias: torch.Tensor, wd: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`grid_rnn_seq1_pair`: the unfused
-    unfold -> BiLSTM -> deconv -> fold pipeline, exact on every row."""
+    unfold -> BiLSTM -> deconv -> fold pipeline, exact on every row. On a
+    bf16 canvas it is the plain version of the bf16 form: the canvas widened
+    to fp32, w_ih, w_hh and wd rounded to bf16, h rounded before each
+    product, fp32 products and fold, the outputs rounded to bf16."""
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        x, w_ih, w_hh, wd = x.float(), round_bf16(w_ih), round_bf16(w_hh), round_bf16(wd)
     b, s, p, c = x.shape
     hidden = w_hh.shape[1]
     length = s - (KS - 1)
     lines = x.permute(0, 2, 1, 3).reshape(b * p, s, c)
     win = torch.cat([lines[:, j:j + length] for j in range(KS)], dim=-1)
-    h = bilstm_plain(win, w_ih, w_hh, bias)
+    h = bilstm_plain(win, w_ih, w_hh, bias, round_h=bf16)
     outs = []
     for half, rows in ((h[..., :hidden], wd[:hidden]), (h[..., hidden:], wd[hidden:])):
         folded = _fold(half @ rows, c)
-        outs.append(folded.reshape(b, p, s, c).permute(0, 2, 1, 3).contiguous())
+        out = folded.reshape(b, p, s, c).permute(0, 2, 1, 3).contiguous()
+        outs.append(out.to(torch.bfloat16) if bf16 else out)
     return outs[0], outs[1]
 
 
@@ -241,20 +271,23 @@ def grid_bilstm_fold_plain(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tens
     return (outf + outb)[0]
 
 
-def check_tensor(fn: str, name: str, t: torch.Tensor, shape, device) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+def check_tensor(fn: str, name: str, t: torch.Tensor, shape, device,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``: what the kernels of this module take."""
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{fn}: {name} must be a contiguous float32 tensor on {device} "
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be a contiguous {dtype} tensor on {device} "
                          f"(got {t.dtype} on {t.device}, contiguous={t.is_contiguous()})")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
 def check_rnn_args(fn: str, x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
-                   bias: torch.Tensor, wd: torch.Tensor) -> Tuple[int, int]:
+                   bias: torch.Tensor, wd: torch.Tensor,
+                   x_dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> Tuple[int, int]:
     """Validate the RNN path's arguments on a CUDA device; ``x`` is
-    ``[..., S, P, C]``. Returns ``(C, H)``."""
+    ``[..., S, P, C]`` of one of ``x_dtypes``, the weights fp32. Returns
+    ``(C, H)``."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
     if x.dim() < 3 or w_hh.dim() != 3:
@@ -264,7 +297,9 @@ def check_rnn_args(fn: str, x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Ten
         raise ValueError(f"{fn}: shape S={s}, C={c}, H={hidden} is outside the kernel's "
                          "range (S >= 4, C % 8 == 0, C <= 64, H <= 128)")
     dev = x.device
-    check_tensor(fn, "x", x, x.shape, dev)
+    if x.dtype not in x_dtypes:
+        raise ValueError(f"{fn}: x must be one of {x_dtypes}, got {x.dtype}")
+    check_tensor(fn, "x", x, x.shape, dev, x.dtype)
     check_tensor(fn, "w_ih", w_ih, (2, KS * c, 4 * hidden), dev)
     check_tensor(fn, "w_hh", w_hh, (2, hidden, 4 * hidden), dev)
     check_tensor(fn, "bias", bias, (2, 4 * hidden), dev)
@@ -285,37 +320,47 @@ def grid_rnn_seq1_pair(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
       wd: ``[2H, 4C]`` deconv weight, tap-major columns.
 
     Returns:
-      ``(outf, outb)``, each ``[B, S, P, C]`` without the deconv bias; the
-      model reads rows [3, L-1] (L = S-3), the rows the JAX kernel makes
-      exact. The CUDA kernels need C % 8 == 0, C <= 64 and H <= 128, the
-      gate the model applies before it calls here. They have no backward:
-      on a CUDA tensor this raises if an input requires grad.
+      ``(outf, outb)``, each ``[B, S, P, C]`` in x's dtype (fp32 or bf16)
+      without the deconv bias; the model reads rows [3, L-1] (L = S-3), the
+      rows the JAX kernel makes exact. The CUDA kernels need C % 8 == 0,
+      C <= 64 and H <= 128, the gate the model applies before it calls here.
+      They have no backward: on a CUDA tensor this raises if an input
+      requires grad. A bf16 canvas launches the bf16 form (fp32 weights,
+      rounded in the kernels) and counts on ``launches_bf16``.
     """
     if x.device.type == "cpu":
         return grid_rnn_seq1_pair_plain(x, w_ih, w_hh, bias, wd)
     if x.dim() != 4:
         raise ValueError("grid_rnn_seq1_pair: x must be [B, S, P, C]")
-    c, hidden = check_rnn_args("grid_rnn_seq1_pair", x, w_ih, w_hh, bias, wd)
+    c, hidden = check_rnn_args("grid_rnn_seq1_pair", x, w_ih, w_hh, bias, wd,
+                               (torch.float32, torch.bfloat16))
     _build.refuse_grad("grid_rnn_seq1_pair", x, w_ih, w_hh, bias, wd)
+    bf16 = x.dtype == torch.bfloat16
     b, s, p, _ = x.shape
     length = s - (KS - 1)
     dev = x.device
     cs, tile = fused_plan(b * p, c, hidden, dev)[:2]
     with torch.cuda.device(dev):
-        hs = torch.empty((2, b * p, length, hidden), device=dev, dtype=torch.float32)
+        hs = torch.empty((2, b * p, length, hidden), device=dev, dtype=x.dtype)
         outf = torch.empty_like(x)
         outb = torch.empty_like(x)
         lib = _build.load("gridrnn", _SIGNATURES, _RESTYPES)
-        code = lib.gridrnn_seq1_pair(
+        entry = lib.gridrnn_seq1_pair_bf16 if bf16 else lib.gridrnn_seq1_pair
+        code = entry(
             x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), wd.data_ptr(),
             hs.data_ptr(), outf.data_ptr(), outb.data_ptr(), b, s, p, c, hidden, cs, tile,
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, f"grid_rnn_seq1_pair (plan cs={cs}, lines={tile})")
-    grid_rnn_seq1_pair.launches += 1
+    _build.check(code, f"grid_rnn_seq1_pair{'_bf16' if bf16 else ''} (plan cs={cs}, "
+                 f"lines={tile})")
+    if bf16:
+        grid_rnn_seq1_pair.launches_bf16 += 1
+    else:
+        grid_rnn_seq1_pair.launches += 1
     return outf, outb
 
 
 grid_rnn_seq1_pair.launches = 0
+grid_rnn_seq1_pair.launches_bf16 = 0
 
 
 def grid_bilstm_fold(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,

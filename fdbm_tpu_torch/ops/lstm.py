@@ -22,6 +22,14 @@ order i, f, g, o; fp32 with an fp32 carry. Unlike the TPU kernels nothing
 is padded: there is no lane or chunk layout to fill. A direction with
 ``reverse`` runs back to front, read through indices, and returns its
 hidden states in time order.
+
+:func:`bilstm_fused_forward` also takes bf16 inputs (``inference_dtype:
+bfloat16``) and then launches the kernels' bf16 form, the JAX kernel's bf16
+path (``fdbm_tpu/ops/lstm.py:500-521,548``): bf16 x and hidden states, w_ih
+and w_hh rounded to bf16, h rounded to bf16 before each product, fp32
+pre-activations, bias, cell state and gates. Its plain version is the same
+function on a bf16 tensor. The two forms count their launches apart
+(``launches``, ``launches_bf16``).
 """
 
 from __future__ import annotations
@@ -34,11 +42,12 @@ import torch
 
 from fdbm_tpu_torch.ops import _build
 from fdbm_tpu_torch.ops.gridrnn import (CLUSTERS, SMEM_LIMIT, ClusterPlan, _cdiv, check_tensor,
-                                        lstm_plain, plan_clusters)
+                                        lstm_plain, plan_clusters, round_bf16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "lstm_forward": [_P] * 6 + [_I] * 8 + [_P],
+    "lstm_forward_bf16": [_P] * 6 + [_I] * 8 + [_P],
     "lstm_train_fwd": [_P] * 7 + [_I] * 7 + [_P],
     "lstm_rec_max_clusters": [_I] * 4,
     "lstm_rec_smem": [_I] * 3,
@@ -180,9 +189,15 @@ Stash = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 def bilstm_fused_forward_plain(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
                                bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`bilstm_fused_forward`."""
-    return (lstm_plain(x, w_ih[0], w_hh[0], bias[0]),
-            lstm_plain(x, w_ih[1], w_hh[1], bias[1], reverse=True))
+    """Plain PyTorch version of :func:`bilstm_fused_forward`; on a bf16
+    tensor the plain version of the bf16 form: x widened to fp32, w_ih and
+    w_hh rounded to bf16, h rounded before each product, the outputs bf16."""
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        x, w_ih, w_hh = x.float(), round_bf16(w_ih), round_bf16(w_hh)
+    outs = tuple(lstm_plain(x, w_ih[z], w_hh[z], bias[z], reverse=z == 1, round_h=bf16)
+                 for z in (0, 1))
+    return tuple(o.to(torch.bfloat16) for o in outs) if bf16 else outs
 
 
 def lstm_core_bwd_plain(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
@@ -197,9 +212,12 @@ def lstm_core_bwd_plain(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
 
 
 def _check_args(fn: str, x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
-                bias: torch.Tensor, dirs: Tuple[int, ...]) -> Tuple[int, int, int, int]:
+                bias: torch.Tensor, dirs: Tuple[int, ...],
+                x_dtypes: Tuple[torch.dtype, ...] = (torch.float32,)
+                ) -> Tuple[int, int, int, int]:
     """Validate the arguments on a CUDA device; ``dirs`` is ``(2,)`` for
-    packed directions, ``()`` for one. Returns ``(S, B, D, H)``."""
+    packed directions, ``()`` for one; x of one of ``x_dtypes``, the
+    weights fp32. Returns ``(S, B, D, H)``."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {x.device}")
     if x.dim() != 3 or w_hh.dim() != len(dirs) + 2:
@@ -210,7 +228,9 @@ def _check_args(fn: str, x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor
         raise ValueError(f"{fn}: shape S={s}, B={b}, D={d}, H={hidden} is outside the "
                          f"kernel's range (each >= 1, H <= {MAX_HIDDEN})")
     dev = x.device
-    check_tensor(fn, "x", x, x.shape, dev)
+    if x.dtype not in x_dtypes:
+        raise ValueError(f"{fn}: x must be one of {x_dtypes}, got {x.dtype}")
+    check_tensor(fn, "x", x, x.shape, dev, x.dtype)
     check_tensor(fn, "w_ih", w_ih, (*dirs, d, 4 * hidden), dev)
     check_tensor(fn, "w_hh", w_hh, (*dirs, hidden, 4 * hidden), dev)
     check_tensor(fn, "bias", bias, (*dirs, 4 * hidden), dev)
@@ -222,15 +242,17 @@ def _empty(dev, *shape) -> torch.Tensor:
 
 
 def _forward(fn: str, x, w_ih, w_hh, bias, dirs: int, reverse: bool) -> torch.Tensor:
-    """Launch ``lstm_forward`` on checked arguments: ``[dirs, S, B, H]``."""
+    """Launch ``lstm_forward`` (``lstm_forward_bf16`` for a bf16 x) on
+    checked arguments: ``[dirs, S, B, H]`` in x's dtype."""
     s, b, d, hidden = x.shape + (w_hh.shape[-2],)
     dev = x.device
     cs, tile = recurrence_plan(b, dirs, hidden, device=dev)[:2]
     with torch.cuda.device(dev):
         xp = _empty(dev, dirs, s, b, 4 * hidden)
-        out = _empty(dev, dirs, s, b, hidden)
+        out = torch.empty((dirs, s, b, hidden), device=dev, dtype=x.dtype)
         lib = _build.load("lstm", _SIGNATURES, _RESTYPES)
-        code = lib.lstm_forward(
+        entry = lib.lstm_forward_bf16 if x.dtype == torch.bfloat16 else lib.lstm_forward
+        code = entry(
             x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), xp.data_ptr(),
             out.data_ptr(), s, b, d, hidden, dirs, int(reverse), cs, tile,
             torch.cuda.current_stream(dev).cuda_stream)
@@ -243,25 +265,32 @@ def bilstm_fused_forward(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor
     """Both LSTM directions over ``x [S, B, D]`` (kernel 7).
 
     Args:
-      x: ``[S, B, D]`` fp32; w_ih: ``[2, D, 4H]``; w_hh: ``[2, H, 4H]``;
-        bias: ``[2, 4H]`` (direction 0 forward, 1 backward; gates i, f, g, o).
+      x: ``[S, B, D]`` fp32 or bf16; w_ih: ``[2, D, 4H]``; w_hh:
+        ``[2, H, 4H]``; bias: ``[2, 4H]`` (direction 0 forward, 1 backward;
+        gates i, f, g, o); the weights fp32.
 
     Returns:
-      ``(fwd, bwd)``, each ``[S, B, H]`` in time order; the backward
-      direction starts from a zero state at the last frame. The kernels take
-      H <= 256 and have no backward: on a CUDA tensor this raises if an input
-      requires grad.
+      ``(fwd, bwd)``, each ``[S, B, H]`` in time order and x's dtype; the
+      backward direction starts from a zero state at the last frame. The
+      kernels take H <= 256 and have no backward: on a CUDA tensor this
+      raises if an input requires grad. A bf16 x launches the bf16 form and
+      counts on ``launches_bf16``.
     """
     if x.device.type == "cpu":
         return bilstm_fused_forward_plain(x, w_ih, w_hh, bias)
-    _check_args("bilstm_fused_forward", x, w_ih, w_hh, bias, (2,))
+    _check_args("bilstm_fused_forward", x, w_ih, w_hh, bias, (2,),
+                (torch.float32, torch.bfloat16))
     _build.refuse_grad("bilstm_fused_forward", x, w_ih, w_hh, bias)
     out = _forward("bilstm_fused_forward", x, w_ih, w_hh, bias, 2, False)
-    bilstm_fused_forward.launches += 1
+    if x.dtype == torch.bfloat16:
+        bilstm_fused_forward.launches_bf16 += 1
+    else:
+        bilstm_fused_forward.launches += 1
     return out[0], out[1]
 
 
 bilstm_fused_forward.launches = 0
+bilstm_fused_forward.launches_bf16 = 0
 
 
 def lstm_forward(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,

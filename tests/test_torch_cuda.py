@@ -16,6 +16,16 @@ training step's parameter gradients at 1e-3 norm-relative per leaf (the JAX
 package's own gates for its training kernel, tests/test_gridrnn_train.py).
 The LSTM kernels of ops/lstm.py are held to the same: 1e-4 on hidden
 states, 1e-3 per gradient.
+
+The bf16 forms of kernels 1, 2, 3 and 7 (``inference_dtype: bfloat16``) are
+held to their bf16 plain versions within rel-L2 2e-3, 3e-5, 2.5e-4 and 1e-3
+(the sums' order moves a value across a bf16 rounding boundary now and
+then, one bf16 step of that value, and the recurrences carry it on; the
+limits are chip_smoke.py's), and their distance to a float64 run of the
+plain version within 1.5x the plain bf16 version's plus 1e-3. For kernels
+1, 3 and 7 the up-cast control, the fp32 form on the same bf16 inputs with
+its output rounded to bf16, must miss the limit: a bf16 form that skipped
+the bf16 rounding of the weights, of h or of P would pass as it.
 """
 
 import numpy as np
@@ -205,7 +215,9 @@ def test_small_backbone_kernels_match_plain_route(dev):
                                    "frame_attention": 2, "grid_bilstm_fold": 0,
                                    "grid_fold_train_pair": 0, "grid_fold_train_pair_bwd": 0,
                                    "bilstm_fused_forward": 0, "lstm_core": 0,
-                                   "lstm_core_bwd": 0, "lstm_forward": 0}
+                                   "lstm_core_bwd": 0, "lstm_forward": 0,
+                                   "grid_rnn_seq1_pair_bf16": 0, "flat_group_norm_bf16": 0,
+                                   "frame_attention_bf16": 0, "bilstm_fused_forward_bf16": 0}
     assert _rel(got, want) < 1e-4
 
 
@@ -1077,3 +1089,154 @@ def test_pesq_on_the_card_matches_the_cpu(dev):
     d = deg_t.to(dev).requires_grad_(True)
     pesq_loss.pesq_loss(ref_t.to(dev), d).sum().backward()
     assert torch.isfinite(d.grad).all() and float(d.grad.norm()) > 0
+
+
+# -- the bf16 forms of kernels 1, 2, 3 and 7 ------------------------------------------------
+
+
+BF16_TOLS = {"grid_rnn_seq1_pair": 2e-3, "flat_group_norm": 3e-5, "frame_attention": 2.5e-4,
+             "bilstm_fused_forward": 1e-3}
+
+
+def _bf16_gates(tol, got, plain, f64, upcast=None):
+    """rel-L2 to the bf16 plain version within ``tol``, and no further from
+    float64 than 1.5x the plain version plus 1e-3; ``upcast`` (the fp32
+    form's output on the same inputs) rounded to bf16 misses ``tol``."""
+    got, plain, f64 = (torch.as_tensor(a).double() for a in (got, plain, f64))
+    assert _rel(got, plain) <= tol
+    assert _rel(got, f64) <= 1.5 * _rel(plain, f64) + 1e-3
+    if upcast is not None:
+        assert _rel(upcast.to(torch.bfloat16).double(), plain) > tol
+
+
+def _bf16_counts_moved(name, before):
+    """Only ``name``'s bf16 form launched, once, since ``before``."""
+    after = ops.launch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {f"{name}_bf16": 1}, moved
+
+
+@pytest.mark.parametrize("b,s,p,c,hidden", [
+    (2, 35, 12, 16, 24), (1, 70, 5, 32, 100), (1, 12, 7, 64, 128), (2, 263, 9, 32, 100)])
+def test_grid_rnn_bf16_matches_plain(dev, b, s, p, c, hidden):
+    rng = np.random.default_rng(10)
+    x = _rand(rng, (b, s, p, c), 0.5, dev).to(torch.bfloat16)
+    w = (_rand(rng, (2, 4 * c, 4 * hidden), 0.1, dev),
+         _rand(rng, (2, hidden, 4 * hidden), 0.1, dev),
+         _rand(rng, (2, 4 * hidden), 0.1, dev), _rand(rng, (2 * hidden, 4 * c), 0.1, dev))
+    before = ops.launch_counts()
+    got = gridrnn.grid_rnn_seq1_pair(x, *w)
+    torch.cuda.synchronize()
+    _bf16_counts_moved("grid_rnn_seq1_pair", before)
+    plain = gridrnn.grid_rnn_seq1_pair_plain(x, *w)
+    f64 = gridrnn.grid_rnn_seq1_pair_plain(x.double(), *(a.double() for a in w))
+    upcast = gridrnn.grid_rnn_seq1_pair(x.float(), *w)
+    for g, r, f, u in zip(got, plain, f64, upcast):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
+        _bf16_gates(BF16_TOLS["grid_rnn_seq1_pair"], g, r, f, u)
+
+
+@pytest.mark.parametrize("n_head", [3, 4])
+def test_flat_group_norms_bf16_match_plain(dev, n_head):
+    rng = np.random.default_rng(11)
+    maps = []
+    for (b, t, q_bins), w in (((1, 5, 3), 2), ((2, 37, 11), 8), ((1, 257, 257), 2),):
+        maps.append((_rand(rng, (b, t, q_bins * n_head * w), 1.0, dev).to(torch.bfloat16),
+                     _rand(rng, (n_head, 1), 0.3, dev), _rand(rng, (n_head, w), 1.0, dev),
+                     _rand(rng, (n_head, w), 1.0, dev), w))
+    before = ops.launch_counts()
+    got = attn_ops.flat_group_norms(maps)
+    torch.cuda.synchronize()
+    _bf16_counts_moved("flat_group_norm", before)
+    for g, m in zip(got, maps):
+        assert g.dtype == torch.bfloat16 and g.shape == m[0].shape
+        plain = attn_ops.flat_group_norm_plain(*m[:4], width=m[4])
+        f64 = attn_ops.flat_group_norm_plain(*(a.double() for a in m[:4]), width=m[4])
+        _bf16_gates(BF16_TOLS["flat_group_norm"], g, plain, f64)
+
+
+@pytest.mark.parametrize("b,t,q_bins,n_head,e,c", [
+    (1, 5, 3, 4, 2, 32), (2, 70, 17, 4, 2, 32), (1, 256, 257, 4, 2, 32), (1, 33, 257, 4, 2, 48)])
+def test_frame_attention_bf16_matches_plain(dev, b, t, q_bins, n_head, e, c):
+    rng = np.random.default_rng(12)
+    q, k = (_rand(rng, (b, t, q_bins, n_head * e), 1.0, dev).to(torch.bfloat16)
+            for _ in range(2))
+    v = _rand(rng, (b, t, q_bins, c), 1.0, dev).to(torch.bfloat16)
+    d = c // n_head
+    norms = tuple((_rand(rng, (n_head, 1), 0.3, dev), _rand(rng, (n_head, w), 1.0, dev),
+                   _rand(rng, (n_head, w), 1.0, dev)) for w in (e, e, d))
+    for nm in ((None, norms) if d & (d - 1) == 0 else (None,)):
+        before = ops.launch_counts()
+        got = attn_ops.frame_attention(q, k, v, n_head, e, norms=nm)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        assert after["frame_attention_bf16"] == before["frame_attention_bf16"] + 1
+        assert after["frame_attention"] == before["frame_attention"]
+        assert after["flat_group_norm"] == before["flat_group_norm"]
+        assert got.dtype == torch.bfloat16
+        plain = attn_ops.frame_attention_plain(q, k, v, n_head, e, norms=nm)
+        f64 = attn_ops.frame_attention_plain(
+            q.double(), k.double(), v.double(), n_head, e,
+            norms=nm and tuple(tuple(a.double() for a in p) for p in nm))
+        upcast = attn_ops.frame_attention(q.float(), k.float(), v.float(), n_head, e, norms=nm)
+        _bf16_gates(BF16_TOLS["frame_attention"], got, plain, f64, upcast)
+
+
+@pytest.mark.parametrize("s,b,d,hidden", [(37, 5, 24, 20), (64, 40, 192, 200)])
+def test_bilstm_fused_forward_bf16_matches_plain(dev, s, b, d, hidden):
+    rng = np.random.default_rng(13)
+    x, *w = _lstm_args(rng, s, b, d, hidden, dev, dirs=(2,))
+    x = x.to(torch.bfloat16)
+    before = ops.launch_counts()
+    got = lstm_ops.bilstm_fused_forward(x, *w)
+    torch.cuda.synchronize()
+    _bf16_counts_moved("bilstm_fused_forward", before)
+    plain = lstm_ops.bilstm_fused_forward_plain(x, *w)
+    f64 = lstm_ops.bilstm_fused_forward_plain(x.double(), *(a.double() for a in w))
+    upcast = lstm_ops.bilstm_fused_forward(x.float(), *w)
+    for g, r, f, u in zip(got, plain, f64, upcast):
+        assert g.dtype == torch.bfloat16 and g.shape == (s, b, hidden)
+        _bf16_gates(BF16_TOLS["bilstm_fused_forward"], g, r, f, u)
+
+
+def test_bf16_wrappers_refuse_bf16_weights(dev):
+    """The bf16 forms take fp32 weights (rounded in the kernels) and never
+    fall back: bf16 weights raise."""
+    x = torch.zeros(1, 10, 4, 8, device=dev, dtype=torch.bfloat16)
+    w = (torch.zeros(2, 32, 32, device=dev), torch.zeros(2, 8, 32, device=dev),
+         torch.zeros(2, 32, device=dev), torch.zeros(16, 32, device=dev))
+    with pytest.raises(ValueError):
+        gridrnn.grid_rnn_seq1_pair(x, w[0].bfloat16(), *w[1:])
+    xs = torch.zeros(5, 3, 8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        lstm_ops.bilstm_fused_forward(xs, torch.zeros(2, 8, 32, device=dev, dtype=torch.bfloat16),
+                                      w[1], w[2])
+
+
+def test_small_backbone_bf16_kernels_match_plain_route(dev):
+    """A TF-GridNet served in bf16 (eval mode, ``serve_dtype``) launches
+    only the bf16 forms, and the kernel route agrees with the plain route
+    in bf16 within the bf16 gates (against the float64 network)."""
+    from fdbm_tpu_torch.models.tfgridnet import TFGridNet
+
+    torch.manual_seed(0)
+    kw = dict(n_layers=2, emb_dim=16, hidden=24, qk_output_channel=4)
+    net = TFGridNet(serve_dtype=torch.bfloat16, **kw).to(dev).eval()
+    ref = TFGridNet(use_kernels=False, serve_dtype=torch.bfloat16, **kw).to(dev).eval()
+    f64 = TFGridNet(use_kernels=False, **kw).to(dev).eval()
+    ref.load_state_dict(net.state_dict())
+    f64.load_state_dict(net.state_dict())
+    f64.double()
+    x = torch.randn(2, 1, 33, 20, dtype=torch.complex64, device=dev)
+    y = torch.randn(2, 1, 33, 20, dtype=torch.complex64, device=dev)
+    t = torch.tensor([0.3, 0.8], device=dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = net(x, y, t)
+        counts = ops.launch_counts()
+        want = ref(x, y, t)
+        exact = f64(x.to(torch.complex128), y.to(torch.complex128), t.double())
+    assert {k: v for k, v in counts.items() if v} == {
+        "grid_rnn_seq1_pair_bf16": 4, "flat_group_norm_bf16": 2, "frame_attention_bf16": 2}
+    _bf16_gates(1e-2, torch.view_as_real(got), torch.view_as_real(want),
+                torch.view_as_real(exact))

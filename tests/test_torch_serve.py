@@ -169,7 +169,7 @@ def test_cuda_without_a_card_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FDBM(FDBMConfig())
     with pytest.raises(NotImplementedError):
-        FDBM(FDBMConfig(inference_dtype="bfloat16"), device="cpu")
+        FDBM(FDBMConfig(compute_dtype="bfloat16"), device="cpu")
 
 
 def test_infer_single_cli_on_cpu(tmp_path):
