@@ -24,6 +24,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from fdbm_tpu_torch.parallel.distributed import process_count, process_index
 from fdbm_tpu_torch.utils.audio import read_wav
 
 
@@ -59,14 +60,22 @@ def _paired_files(base_dir: str, subset: str) -> Tuple[List[str], List[str]]:
 
 
 class SpecsDataset:
-    """Paired dataset yielding normalised audio crops (x, y) [target_len]."""
+    """Paired dataset yielding normalised audio crops (x, y) [target_len].
 
-    def __init__(self, cfg: DataConfig, subset: str, shuffle_spec: bool, seed: int = 0):
+    ``shard_by_process=True`` gives each process of the group its
+    ``[index::count]`` slice of the epoch's file list (the same list on
+    every process: the same seed draws it), as DDP's DistributedSampler
+    does; ``effective_global_len`` is the list's length before the slice,
+    from which the processes agree on their batch counts."""
+
+    def __init__(self, cfg: DataConfig, subset: str, shuffle_spec: bool, seed: int = 0,
+                 shard_by_process: bool = False):
         if cfg.format != "default":
             raise NotImplementedError(f"Directory format {cfg.format} unknown!")
         self.cfg = cfg
         self.subset = subset
         self.shuffle_spec = shuffle_spec
+        self.shard_by_process = shard_by_process
         self.clean_files_all, self.noisy_files_all = _paired_files(cfg.base_dir, subset)
         if len(self.clean_files_all) != len(self.noisy_files_all):
             raise ValueError(f"{subset}: {len(self.clean_files_all)} clean vs "
@@ -74,21 +83,34 @@ class SpecsDataset:
         self.rng = np.random.default_rng(seed)
         self.clean_files: List[str] = []
         self.noisy_files: List[str] = []
+        self.global_len = 0
         self.sample_data_per_epoch()
 
     def sample_data_per_epoch(self) -> None:
-        """Draw this epoch's ``num_data_per_epoch`` files (all if None)."""
+        """Draw this epoch's ``num_data_per_epoch`` files (all if None),
+        then keep this process's slice of them."""
         n = self.cfg.num_data_per_epoch
         if n is None:
-            self.clean_files = list(self.clean_files_all)
-            self.noisy_files = list(self.noisy_files_all)
-            return
-        idx = self.rng.choice(len(self.clean_files_all), size=n, replace=False)
-        self.clean_files = [self.clean_files_all[i] for i in idx]
-        self.noisy_files = [self.noisy_files_all[i] for i in idx]
+            clean, noisy = list(self.clean_files_all), list(self.noisy_files_all)
+        else:
+            idx = self.rng.choice(len(self.clean_files_all), size=n, replace=False)
+            clean = [self.clean_files_all[i] for i in idx]
+            noisy = [self.noisy_files_all[i] for i in idx]
+        self.global_len = len(clean)
+        if self.shard_by_process:
+            index, count = process_index(), process_count()
+            clean, noisy = clean[index::count], noisy[index::count]
+        self.clean_files, self.noisy_files = clean, noisy
 
     def __len__(self) -> int:
         n = len(self.clean_files)
+        return max(1, n // 200) if self.cfg.dummy and n else n
+
+    @property
+    def effective_global_len(self) -> int:
+        """The epoch's length before the process slice, with the dummy
+        shrink: what every process counts its batches from."""
+        n = self.global_len
         return max(1, n // 200) if self.cfg.dummy and n else n
 
     def load_item(self, i: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -23,7 +23,9 @@ a batch back only when ``SERVE_DEPTH`` batches are in flight, so the card
 works on queued batches while the host builds the next one. PyTorch compiles
 nothing per shape, so ``prewarm`` is the one-time build of the CUDA kernels.
 Randomness comes from one ``torch.Generator`` on the device.
-:func:`enhance_folder` serves a folder, :func:`enhance_single` one file.
+:func:`enhance_folder` serves a folder (this process's share of it in a
+process group), :func:`enhance_single` one file. With ``devices`` every
+batch is split over several devices (:class:`BucketedEnhancer`).
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ import torch
 
 from fdbm_tpu_torch.model import FDBM, normalisation
 from fdbm_tpu_torch.ops import _build
+from fdbm_tpu_torch.parallel import distributed
+from fdbm_tpu_torch.parallel.mesh import make_parallel_enhance
 from fdbm_tpu_torch.utils.audio import read_wav, resample, write_wav
 
 BUCKET_FRAMES = 64
@@ -142,9 +146,15 @@ class BucketedEnhancer:
 
     def __init__(self, fdbm: FDBM, sampler_type: Optional[str] = None, N: Optional[int] = None,
                  batch_size: int = 8, bucket_frames_multiple: int = BUCKET_FRAMES,
-                 sampler_kwargs: Optional[dict] = None, chunk_seconds: Optional[float] = None):
+                 sampler_kwargs: Optional[dict] = None, chunk_seconds: Optional[float] = None,
+                 devices: Optional[Sequence] = None):
         """``chunk_seconds``: pooled chunk serving (see the module note);
-        None serves whole utterances (up to ``max_seconds``)."""
+        None serves whole utterances (up to ``max_seconds``). ``devices``:
+        batch-split serving, every batch's rows split evenly over these
+        devices, one replica of the model each
+        (``parallel.mesh.make_parallel_enhance``; the JAX package's
+        ``mesh``): ``batch_size`` must divide by their count, and every
+        batch runs at the full batch size."""
         self.fdbm = fdbm
         self.sampler_type = sampler_type
         self.N = N
@@ -152,6 +162,18 @@ class BucketedEnhancer:
         self.bucket_multiple = max(1, bucket_frames_multiple)
         self.sampler_kwargs = sampler_kwargs or {}
         self.chunk_seconds = chunk_seconds
+        self.split = None
+        if devices:
+            if batch_size % len(devices):
+                raise ValueError(f"batch_size {batch_size} must divide by the {len(devices)} "
+                                 "devices of batch-split serving")
+            self.split = make_parallel_enhance(fdbm, devices, sampler_type, N, self._pad_mode(),
+                                               **self.sampler_kwargs)
+
+    def _pad_mode(self) -> str:
+        """NCSN++ serving pads its frames by reflection (reference
+        infer_single.py:64-69, infer_folder.py:83-88)."""
+        return "reflection" if self.fdbm.cfg.backbone.startswith("ncsnpp") else "zero_pad"
 
     # -- plan -----------------------------------------------------------------
 
@@ -167,8 +189,9 @@ class BucketedEnhancer:
 
     def _dispatch_width(self, n_rows: int) -> int:
         """Rows a batch of ``n_rows`` utterances runs at: the batch size, or
-        for the under-filled remainder the covering power of two."""
-        if n_rows >= self.batch_size:
+        for the under-filled remainder the covering power of two (batch-split
+        serving: always the batch size)."""
+        if self.split is not None or n_rows >= self.batch_size:
             return self.batch_size
         return max(1, 1 << (n_rows - 1).bit_length())
 
@@ -277,11 +300,12 @@ class BucketedEnhancer:
             y = torch.from_numpy(batch)
             if dev.type == "cuda":
                 y = y.pin_memory().to(dev, non_blocking=True)
-            # NCSN++ serving pads its frames by reflection (reference
-            # infer_single.py:64-69, infer_folder.py:83-88).
-            pad_mode = "reflection" if cfg.backbone.startswith("ncsnpp") else "zero_pad"
-            enhanced = self.fdbm.enhance_batch(y, generator, sampler_type=self.sampler_type,
-                                               N=self.N, pad_mode=pad_mode, **self.sampler_kwargs)
+            if self.split is not None:
+                enhanced = self.split(y, generator)
+            else:
+                enhanced = self.fdbm.enhance_batch(y, generator, sampler_type=self.sampler_type,
+                                                   N=self.N, pad_mode=self._pad_mode(),
+                                                   **self.sampler_kwargs)
             done = None
             if dev.type == "cuda":
                 host = torch.empty(enhanced.shape, dtype=enhanced.dtype, pin_memory=True)
@@ -352,19 +376,26 @@ def _read(path: str, target_sr: int) -> np.ndarray:
 def enhance_folder(fdbm: FDBM, test_dir: str, enhanced_dir: str,
                    sampler_type: Optional[str] = None, N: Optional[int] = None,
                    batch_size: int = 8, keep_structure: bool = True, target_sr: int = 16000,
-                   seed: int = 0, process_index: int = 0, process_count: int = 1,
-                   sampler_kwargs: Optional[dict] = None, progress: bool = True,
-                   chunk_seconds: Optional[float] = 4.096) -> EnhanceStats:
+                   seed: int = 0, process_index: Optional[int] = None,
+                   process_count: Optional[int] = None, sampler_kwargs: Optional[dict] = None,
+                   progress: bool = True, chunk_seconds: Optional[float] = 4.096,
+                   devices: Optional[Sequence] = None) -> EnhanceStats:
     """Enhance every wav/flac under ``test_dir`` into ``enhanced_dir`` (this
-    process's share of the sorted file list). A file that fails to read, a
-    batch group that fails to enhance, a NaN output and a failed write are
-    each counted in ``failures`` and skipped. ``chunk_seconds``: pooled
-    chunk serving (see the module note); None or 0 serves whole utterances."""
+    process's share of the sorted file list: ``process_index`` and
+    ``process_count``, by default this process's rank and the size of its
+    group, ``parallel.distributed``). A file that fails to read, a batch
+    group that fails to enhance, a NaN output and a failed write are each
+    counted in ``failures`` and skipped. ``chunk_seconds``: pooled chunk
+    serving (see the module note); None or 0 serves whole utterances.
+    ``devices``: batch-split serving (:class:`BucketedEnhancer`)."""
     files = sorted(glob(os.path.join(test_dir, "**", "*.wav"), recursive=True)
                    + glob(os.path.join(test_dir, "**", "*.flac"), recursive=True))
+    process_index = distributed.process_index() if process_index is None else process_index
+    process_count = distributed.process_count() if process_count is None else process_count
     files = shard_files(files, process_index, process_count)
     enhancer = BucketedEnhancer(fdbm, sampler_type=sampler_type, N=N, batch_size=batch_size,
-                                sampler_kwargs=sampler_kwargs, chunk_seconds=chunk_seconds or None)
+                                sampler_kwargs=sampler_kwargs, chunk_seconds=chunk_seconds or None,
+                                devices=devices)
     generator = torch.Generator(device=fdbm.device).manual_seed(seed + process_index)
     stats = EnhanceStats()
     t_start = time.perf_counter()

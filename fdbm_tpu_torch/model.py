@@ -26,11 +26,13 @@ mode only, the serving route, so every serving call follows it:
 N-1 gradient-free calls of the fine-tuning unroll (the JAX package's
 ``model_fn(fast=True)``). Training (train mode) and the parameters stay
 fp32, as Flax keeps its parameters fp32 under ``dtype=bfloat16``; bf16
-training (``compute_dtype`` or ``param_dtype`` bfloat16) is not ported.
+training (``compute_dtype: bfloat16``) is not ported, and ``param_dtype`` is
+read nowhere, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -121,7 +123,8 @@ class FDBMConfig:
     # recompute each backbone block in the backward
     remat: bool = False
     # numerics: training in float32 only; serving in float32 or bfloat16
-    # ("" inherits compute_dtype)
+    # ("" inherits compute_dtype); param_dtype is read nowhere (parameters
+    # stay float32), as in the JAX package
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     inference_dtype: str = ""
@@ -139,14 +142,16 @@ _SERVE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def serving_dtype(cfg: FDBMConfig) -> torch.dtype:
     """The dtype of the serving route (``fdbm_tpu/model.py:177-180``):
-    ``inference_dtype`` if set, else ``compute_dtype``. Raises for bf16
-    training and for a dtype that is neither float32 nor bfloat16."""
-    for name in ("param_dtype", "compute_dtype"):
-        if getattr(cfg, name) != "float32":
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r}: fdbm_tpu_torch trains in float32 only; bf16 "
-                "training is ROADMAP queue 1 item 10 (serving in bf16 is "
-                "inference_dtype=bfloat16)")
+    ``inference_dtype`` if set, else ``compute_dtype``. ``param_dtype`` is
+    accepted and read nowhere, as in the JAX package (``model.py:129``):
+    the parameters, Adam and the EMA stay float32. Raises for bf16 training
+    (``compute_dtype`` other than float32) and for a serving dtype that is
+    neither float32 nor bfloat16."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r}: fdbm_tpu_torch trains in float32 only; "
+            "bf16 training is ROADMAP queue 1 item 2 (serving in bf16 is "
+            "inference_dtype=bfloat16)")
     name = cfg.inference_dtype or cfg.compute_dtype
     if name not in _SERVE_DTYPES:
         raise ValueError(f"inference_dtype={cfg.inference_dtype!r}: serving runs in one of "
@@ -202,6 +207,15 @@ class FDBM:
             loss_type=cfg.loss_type, l1_weight=cfg.l1_weight, pesq_weight=cfg.pesq_weight,
             sample_rate=cfg.sr)
         self.lr_schedule = make_lr_schedule(cfg.scheduler_config, cfg.lr)
+
+    def replica(self, device) -> "FDBM":
+        """This model on ``device``: the same config, a copy of the
+        backbone's weights (one replica a device of batch-split serving)."""
+        twin = copy.copy(self)
+        twin.device = _resolve_device(device)
+        twin.dnn = copy.deepcopy(self.dnn).to(twin.device)
+        twin.window = self.window.to(twin.device)
+        return twin
 
     # -- spec helpers -------------------------------------------------------
 
@@ -382,19 +396,23 @@ class FDBM:
     @torch.no_grad()
     def enhance_batch(self, y_audio: torch.Tensor, generator: Optional[torch.Generator] = None,
                       sampler_type: Optional[str] = None, N: Optional[int] = None,
-                      pad_mode: str = "zero_pad", **kwargs) -> torch.Tensor:
+                      pad_mode: str = "zero_pad", sample_spec: Optional[Callable] = None,
+                      **kwargs) -> torch.Tensor:
         """[B, L] float32 normalised audio in, [B, L] float32 out.
 
         ``pad_mode``: the frame padding of an NCSN++ backbone's spec to a
         multiple of 64 frames (``"zero_pad"`` in validation, ``"reflection"``
         in the serving CLIs; reference infer_single.py:64-69), trimmed by
         the iSTFT. The padding repeats whole complex frames, which is the
-        JAX package's padding of the real and imaginary parts one by one."""
+        JAX package's padding of the real and imaginary parts one by one.
+        ``sample_spec`` replaces :meth:`enhance_spec` between the STFT and
+        the iSTFT, with its arguments (batch-split serving,
+        ``parallel.mesh.make_parallel_enhance``)."""
         length = y_audio.shape[-1]
         y_spec = self.audio_to_spec(y_audio.to(self.device))
         if self.cfg.backbone.startswith("ncsnpp"):
             y_spec = dsp.pad_spec(y_spec, pad_mode)
-        sample = self.enhance_spec(y_spec, generator, sampler_type, N, **kwargs)
+        sample = (sample_spec or self.enhance_spec)(y_spec, generator, sampler_type, N, **kwargs)
         return self.spec_to_audio(sample[:, 0], length=length)
 
     def enhance_audio(self, y: np.ndarray, generator: Optional[torch.Generator] = None,

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -98,6 +98,47 @@ class Bridge:
             return self.pc_sampler(model_fn, y, generator, **kwargs)
         raise ValueError(f"Unknown sampler_type {self.sampler_type}")
 
+    def check_rows_apart(self, corrector_name: str = "ald", **_) -> None:
+        """Raises for the samplers whose steps couple a batch's rows, which
+        therefore cannot be sampled in row slices: ``ode_int`` (one
+        step-size sequence for the batch) and ``pc`` with the ``langevin``
+        corrector (a step size from batch means)."""
+        if self.sampler_type == "ode_int" or (self.sampler_type == "pc"
+                                              and corrector_name == "langevin"):
+            raise ValueError(f"sampler {self.sampler_type!r} (corrector {corrector_name!r}) "
+                             "decides its steps over the whole batch; its rows cannot be "
+                             "sampled apart")
+
+    def draws(self, y: torch.Tensor, generator: Optional[torch.Generator] = None,
+              predictor_name: str = "reverse_diffusion", corrector_name: str = "ald",
+              corrector_steps: int = 1, sampler: Optional[str] = None,
+              **_) -> Dict[str, torch.Tensor]:
+        """Every draw of ``sampler`` (default: the configured one) for
+        ``y``, drawn from ``generator``, as the override the sampler takes
+        (``z`` or ``noise``, with the rows on the axis of ``y``'s rows). The
+        samplers draw through here, so a batch split into row slices, each
+        sampled with its slice of these, samples as the whole batch does on
+        ``generator``."""
+        sampler = sampler or self.sampler_type
+        draw = lambda: complex_normal_like(y, generator)
+        if sampler in ("ode_ei", "ode_int"):
+            return {"z": draw()}
+        if sampler == "sde_ei":
+            return {"noise": torch.stack([draw() for _ in range(self.N + 1)])}
+        if sampler != "pc":
+            raise ValueError(f"Unknown sampler_type {sampler}")
+        per_step = corrector_steps + 1
+        noise = torch.zeros((1 + self.N * per_step, *y.shape), dtype=torch.complex64,
+                            device=y.device)
+        noise[0] = draw()
+        for i in range(self.N):
+            if corrector_name != "none":
+                for j in range(corrector_steps):
+                    noise[1 + i * per_step + j] = draw()
+            if predictor_name == "euler_maruyama":
+                noise[1 + i * per_step + corrector_steps] = draw()
+        return {"noise": noise}
+
     def _steps(self, weights) -> List[List[float]]:
         """Per-step (t_prev, *weights) as Python floats, computed once."""
         times = self.time_grid()
@@ -107,7 +148,8 @@ class Bridge:
     def ode_sampler_ei(self, model_fn: ModelFn, y: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
                        z: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.prior_sampling(y, generator, z=z)
+        z = self.draws(y, generator, sampler="ode_ei")["z"] if z is None else z
+        x = self.prior_sampling(y, z=z)
         for tp, wxt, ws, wy in self._steps(self.path.sampling_param_ode_ei):
             est = model_fn(x, y, torch.full((y.shape[0],), tp, device=y.device))
             x = wxt * x + ws * est + wy * y
@@ -121,11 +163,12 @@ class Bridge:
         the N per-step noises."""
         steps = self._steps(self.path.sampling_param_sde_ei)
         steps[-1][3] = 0.0  # the final step is deterministic
-        x = self.prior_sampling(y, generator, z=None if noise is None else noise[0])
+        if noise is None:
+            noise = self.draws(y, generator, sampler="sde_ei")["noise"]
+        x = self.prior_sampling(y, z=noise[0])
         for i, (tp, wxt, ws, wz) in enumerate(steps):
             est = model_fn(x, y, torch.full((y.shape[0],), tp, device=y.device))
-            z = complex_normal_like(y, generator) if noise is None else noise[i + 1]
-            x = wxt * x + ws * est + wz * z
+            x = wxt * x + ws * est + wz * noise[i + 1]
         return x
 
     def score_fn(self, t: float, x: torch.Tensor, s: torch.Tensor,
@@ -160,14 +203,13 @@ class Bridge:
         times = torch.linspace(self.start_time, self.end_time, self.N, dtype=torch.float32)
         stepsizes = torch.cat([times[:-1] - times[1:], times[-1:]])
         per_step = corrector_steps + 1
-        x = self.prior_sampling(y, generator, z=None if noise is None else noise[0])
+        if noise is None:
+            noise = self.draws(y, generator, predictor_name, corrector_name, corrector_steps,
+                               sampler="pc")["noise"]
+        x = self.prior_sampling(y, z=noise[0])
         x_mean = x
         batch = y.shape[0]
-
-        def draw(step: int, j: int) -> torch.Tensor:
-            if noise is None:
-                return complex_normal_like(y, generator)
-            return noise[1 + step * per_step + j]
+        draw = lambda step, j: noise[1 + step * per_step + j]
 
         for i, (t, stepsize) in enumerate(zip(times.tolist(), stepsizes)):
             t_vec = torch.full((batch,), t, device=y.device)
@@ -205,7 +247,8 @@ class Bridge:
                         z: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Adaptive Dormand-Prince RK45 solve of the probability-flow ODE from
         the prior at start_time to end_time; ``z`` overrides the prior draw."""
-        x0 = self.prior_sampling(y, generator, z=z)
+        z = self.draws(y, generator, sampler="ode_int")["z"] if z is None else z
+        x0 = self.prior_sampling(y, z=z)
         batch = y.shape[0]
 
         def f(t: np.float32, x: torch.Tensor) -> torch.Tensor:
@@ -237,6 +280,14 @@ _DP_B4 = np.array([5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 
                    1 / 40], np.float32)
 
 
+def _error_norm(x: torch.Tensor, x5: torch.Tensor, x4: torch.Tensor, rtol: float,
+                atol: float) -> np.float32:
+    """RMS over the batch of an attempted step's error estimate ``x5 - x4``,
+    scaled by ``atol + rtol * max(|x5|, |x|)``: the step control's norm."""
+    scale = atol + torch.maximum(x5.abs(), x.abs()) * rtol
+    return np.float32(torch.sqrt(torch.mean(((x5 - x4) / scale).abs() ** 2)).item())
+
+
 def _rk45(f, x0: torch.Tensor, t0: float, t1: float, rtol: float, atol: float,
           max_steps: int) -> torch.Tensor:
     """Adaptive RK45 from t0 to t1 (either direction), seven calls of ``f``
@@ -264,8 +315,7 @@ def _rk45(f, x0: torch.Tensor, t0: float, t1: float, rtol: float, atol: float,
         for i in range(7):
             x5 = x5 + float(h * _DP_B5[i]) * ks[i]
             x4 = x4 + float(h * _DP_B4[i]) * ks[i]
-        scale = atol + torch.maximum(x5.abs(), x.abs()) * rtol
-        err_norm = f32(torch.sqrt(torch.mean(((x5 - x4) / scale).abs() ** 2)).item())
+        err_norm = _error_norm(x, x5, x4, rtol, atol)
         if err_norm <= 1.0:
             t, x = f32(t + h), x5
         factor = np.clip(f32(0.9) * (err_norm + f32(1e-12)) ** f32(-0.2), f32(0.2), f32(5.0))

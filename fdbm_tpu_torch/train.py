@@ -1,20 +1,33 @@
 """Training CLI and loop of the port.
 
     python -m fdbm_tpu_torch.train -C configs/config.yaml [key=value ...] \
-        [--device cpu] [--max_steps N] [--max_epochs N] [--seed S] \
-        [--resume RUN_DIR] [--ckpt RUN_OR_CHECKPOINT_DIR]
+        [--device cpu] [-D N] [--max_steps N] [--max_epochs N] [--seed S] \
+        [--resume RUN_DIR] [--ckpt RUN_OR_CHECKPOINT_DIR] \
+        [--profile_steps START END] [--nolog]
 
-Port of ``fdbm_tpu/train.py`` and the root ``train.py`` for one device:
-train steps over ``SpecsDataset`` crops, scalars every
-``log_every_n_steps`` steps to ``<run>/metrics.jsonl``, then per epoch the
-valid loss under the EMA weights (the mean of the batch losses weighted by
-their real items), the evaluation of the first ``num_eval_files`` valid
-files (enhanced whole under the EMA weights, scored by SI-SDR, PESQ and
-ESTOI, the first three written to ``<run>/valid_samples``) and the five
-checkpoint slots. ``--resume`` continues a run directory from its ``last``
-slot; ``--ckpt`` starts a new run from another run's ``last`` slot. Runs on
-the GPU unless ``--device cpu`` is given. Training on several GPUs is not
-ported (ROADMAP queue 1 item 8).
+Port of ``fdbm_tpu/train.py`` and the root ``train.py``: train steps over
+``SpecsDataset`` crops, scalars every ``log_every_n_steps`` steps to
+``<run>/metrics.jsonl``, then per epoch the valid loss under the EMA weights
+(the mean of the batch losses weighted by their real items), the evaluation
+of the first ``num_eval_files`` valid files (enhanced whole under the EMA
+weights, scored by SI-SDR, PESQ and ESTOI, the first three written to
+``<run>/valid_samples``) and the five checkpoint slots. ``--resume``
+continues a run directory from its ``last`` slot; ``--ckpt`` starts a new
+run from another run's ``last`` slot. The model's initial weights come
+from ``--seed``. Runs on the GPU unless ``--device cpu`` is given.
+
+Data parallel (``parallel/``): ``-D N`` starts N processes on this machine
+(process r on ``cuda:r`` over NCCL; with ``--device cpu`` on the CPU over
+gloo); under ``torchrun`` each process is its rank (``cuda:LOCAL_RANK``).
+Each process loads its ``[rank::N]`` share of the files and ``batch_size /
+N`` rows of each global batch; a step averages the gradients over the
+processes (``mesh.data_parallel_train_step``); the evaluation is sharded
+by file and its metrics gathered over ``VALID_METRIC_SCHEMA``. Process 0
+alone writes the run directory: checkpoints, ``metrics.jsonl``, the sample
+wavs, the code snapshot (``<run>/code``: the root ``*.py``/``*.yaml`` and
+``fdbm_tpu_torch/``; ``--nolog`` skips it) and the ``--profile_steps``
+trace (``torch.profiler`` over train steps START..END, counted from 1, a
+Chrome trace under ``<run>/profile``).
 """
 
 from __future__ import annotations
@@ -25,8 +38,9 @@ import dataclasses
 import datetime
 import json
 import os
+import shutil
 import time
-from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,8 +50,66 @@ from fdbm_tpu_torch.config import load_config, parse_cli_overrides
 from fdbm_tpu_torch.data import BatchLoader, DataConfig, SpecsDataset
 from fdbm_tpu_torch.infer import BucketedEnhancer
 from fdbm_tpu_torch.model import FDBM, FDBMConfig, TrainState
+from fdbm_tpu_torch.parallel import distributed
+from fdbm_tpu_torch.parallel.distributed import (VALID_METRIC_SCHEMA, all_gather_host_metrics,
+                                                 process_count, process_index)
+from fdbm_tpu_torch.parallel.mesh import (broadcast_train_state, data_parallel_train_step,
+                                          data_parallel_valid_step, make_mesh)
 from fdbm_tpu_torch.utils import metrics as metrics_lib
 from fdbm_tpu_torch.utils.audio import read_wav, resample, write_wav
+
+
+def snapshot_code(log_dir: str) -> None:
+    """Copy the root ``*.py``/``*.yaml`` files and the port's package into
+    ``<log_dir>/code`` (``fdbm_tpu/train.py:snapshot_code``)."""
+    code_dir = os.path.join(log_dir, "code")
+    os.makedirs(code_dir, exist_ok=True)
+    package = os.path.dirname(os.path.abspath(__file__))
+    repo = os.path.dirname(package)
+    for name in os.listdir(repo):
+        src = os.path.join(repo, name)
+        if name.endswith((".py", ".yaml")) and os.path.isfile(src):
+            shutil.copy2(src, code_dir)
+    shutil.copytree(package, os.path.join(code_dir, os.path.basename(package)),
+                    dirs_exist_ok=True, ignore=shutil.ignore_patterns("__pycache__", "_build"))
+
+
+class ProfileWindow:
+    """``torch.profiler`` over train steps ``start``..``end`` (counted from
+    1: it starts before step ``start`` and stops after step ``end``, as
+    ``fdbm_tpu/train.py`` traces), written as a Chrome trace to
+    ``<log_dir>/profile/steps_<start>-<end>.json``."""
+
+    def __init__(self, steps: Tuple[int, int], log_dir: str, device: torch.device):
+        self.start, self.end = steps
+        self.path = os.path.join(log_dir, "profile", f"steps_{self.start}-{self.end}.json")
+        self.device = device
+        self.prof = None
+
+    def before_step(self, step: int) -> None:
+        """Called with the steps taken so far, before the next."""
+        if step + 1 == self.start:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                             if self.device.type == "cuda" else [])
+            self.prof = profile(activities=acts)
+            self.prof.start()
+
+    def after_step(self, step: int) -> None:
+        if step == self.end:
+            self.stop()
+
+    def stop(self) -> None:
+        """End the window (also where training ends inside it) and write it."""
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
 
 
 class MetricsLogger:
@@ -84,12 +156,15 @@ def evaluate_files(fdbm: FDBM, params: Optional[Dict[str, torch.Tensor]],
     ``BucketedEnhancer`` at the config's sampler, ``4 * sampler_batch``
     files at a time, and score SI-SDR, PESQ (``metrics.pesq_wb`` on the
     model's device) and ESTOI on the common length; a NaN output is
-    skipped. The first three files' outputs go to ``sample_dir`` as
-    ``<name>_epoch<epoch>_enh.wav``, at epoch 0 also their noisy and clean
-    inputs. Returns ``(means, counts)`` per metric, as
-    ``fdbm_tpu/train.py:evaluate_files`` does in one process."""
-    clean_files = valid_set.clean_files_all[:num_eval_files]
-    noisy_files = valid_set.noisy_files_all[:num_eval_files]
+    skipped. In a process group each process takes its ``[rank::count]``
+    share of those files. The first three files' outputs (of process 0's
+    share) go to ``sample_dir`` as ``<name>_epoch<epoch>_enh.wav``, at epoch
+    0 also their noisy and clean inputs. Returns this process's ``(means,
+    counts)`` per metric, as ``fdbm_tpu/train.py:evaluate_files`` does,
+    for ``all_gather_host_metrics``."""
+    index, count = process_index(), process_count()
+    clean_files = valid_set.clean_files_all[:num_eval_files][index::count]
+    noisy_files = valid_set.noisy_files_all[:num_eval_files][index::count]
     if not clean_files:
         return {}, {}
     if generator is None:
@@ -122,7 +197,7 @@ def evaluate_files(fdbm: FDBM, params: Optional[Dict[str, torch.Tensor]],
             e = metrics_lib.estoi(x[:n], x_hat[:n], 16000)
             if np.isfinite(e):
                 vals["estoi"].append(e)
-            if sample_dir and i < 3:
+            if sample_dir and i < 3 and index == 0:
                 base = os.path.splitext(os.path.basename(clean_files[i]))[0]
                 write_wav(os.path.join(sample_dir, f"{base}_epoch{epoch:03d}_enh.wav"), x_hat,
                           16000)
@@ -138,7 +213,10 @@ class Trainer:
                  max_steps: int = 1_000_000, max_epochs: int = 10_000,
                  num_eval_files: int = 20, save_ckpt_interval: int = 20000,
                  log_every_n_steps: int = 10, seed: int = 0,
-                 config_blob: Optional[Dict[str, Any]] = None):
+                 config_blob: Optional[Dict[str, Any]] = None, snapshot: bool = True,
+                 profile_steps: Optional[Tuple[int, int]] = None):
+        """In a process group every process builds one; process 0 alone
+        writes ``log_dir`` (and takes the ``profile_steps`` trace)."""
         self.fdbm = fdbm
         self.data_cfg = data_cfg
         self.log_dir = log_dir
@@ -147,11 +225,19 @@ class Trainer:
         self.num_eval_files = num_eval_files
         self.log_every = log_every_n_steps
         self.seed = seed
-        os.makedirs(log_dir, exist_ok=True)
+        self.rank, self.world = process_index(), process_count()
         self.sample_dir = os.path.join(log_dir, "valid_samples")
-        self.ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"),
-                                      save_interval=save_ckpt_interval, config=config_blob)
-        self.logger = MetricsLogger(log_dir)
+        self.ckpt_dir = os.path.join(log_dir, "checkpoints")
+        self.ckpt = self.logger = self.profile = None
+        if self.rank == 0:
+            os.makedirs(log_dir, exist_ok=True)
+            if snapshot:
+                snapshot_code(log_dir)
+            self.ckpt = CheckpointManager(self.ckpt_dir, save_interval=save_ckpt_interval,
+                                          config=config_blob)
+            self.logger = MetricsLogger(log_dir)
+            if profile_steps:
+                self.profile = ProfileWindow(tuple(profile_steps), log_dir, fdbm.device)
 
     def fit(self, resume: bool = True, resume_from: Optional[str] = None,
             init_weights: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
@@ -171,6 +257,8 @@ class Trainer:
             return self._fit(resume, resume_from, init_weights)
         finally:
             torch.backends.cudnn.benchmark = saved
+            if self.profile is not None:
+                self.profile.stop()
 
     def _fit(self, resume: bool, resume_from: Optional[str],
              init_weights: Optional[Dict[str, torch.Tensor]]) -> TrainState:
@@ -178,26 +266,41 @@ class Trainer:
         if init_weights is not None:
             fdbm.dnn.load_state_dict(init_weights)
         state = TrainState(fdbm.dnn)
+        say = print if self.rank == 0 else (lambda *a: None)
         if resume_from:
             src = CheckpointManager(resume_from)
             if not src.has("last"):
                 raise FileNotFoundError(f"No 'last' checkpoint in {resume_from}")
             src.restore("last", fdbm, state)
-            print(f"resumed from {resume_from} at step {state.step}")
-        elif resume and self.ckpt.has("last"):
-            self.ckpt.restore("last", fdbm, state)
-            print(f"resumed from step {state.step}")
+            say(f"resumed from {resume_from} at step {state.step}")
+        elif resume and os.path.exists(os.path.join(self.ckpt_dir, "last.pt")):
+            CheckpointManager(self.ckpt_dir).restore("last", fdbm, state)
+            say(f"resumed from step {state.step}")
+        # Every process starts from process 0's weights and optimiser state.
+        broadcast_train_state(fdbm, state)
 
-        bs = self.data_cfg.batch_size
-        train_set = SpecsDataset(self.data_cfg, "train", shuffle_spec=True, seed=self.seed)
-        valid_set = SpecsDataset(self.data_cfg, "valid", shuffle_spec=False, seed=self.seed)
+        # Each process loads its [rank::world] share of the files and
+        # batch_size / world rows of each global batch; the batch counts
+        # come from the global file counts, so every process takes as many
+        # collective steps.
+        world = self.world
+        if self.data_cfg.batch_size % world:
+            raise ValueError(f"batch_size {self.data_cfg.batch_size} must divide by the "
+                             f"{world} processes")
+        bs = self.data_cfg.batch_size // world
+        train_set = SpecsDataset(self.data_cfg, "train", shuffle_spec=True, seed=self.seed,
+                                 shard_by_process=world > 1)
+        valid_set = SpecsDataset(self.data_cfg, "valid", shuffle_spec=False, seed=self.seed,
+                                 shard_by_process=world > 1)
         workers = self.data_cfg.num_workers
         train_loader = BatchLoader(train_set, bs, shuffle=True, num_workers=workers,
-                                   drop_last=True, seed=self.seed, num_batches=len(train_set) // bs)
+                                   drop_last=True, seed=self.seed,
+                                   num_batches=train_set.effective_global_len // world // bs)
         # Wrap-padded remainder with a mask, so every valid item counts once.
+        valid_per_process = -(-valid_set.effective_global_len // world)
         valid_loader = BatchLoader(valid_set, bs, shuffle=False, num_workers=workers,
                                    drop_last=False, seed=self.seed, yield_mask=True,
-                                   num_batches=-(-len(valid_set) // bs))
+                                   num_batches=-(-valid_per_process // bs))
         generator = torch.Generator(device=fdbm.device).manual_seed(self.seed)
 
         epoch = 0
@@ -205,8 +308,12 @@ class Trainer:
         while state.step < self.max_steps and epoch < self.max_epochs:
             train_set.sample_data_per_epoch()
             for batch in train_loader:
-                metrics = fdbm.train_step(state, fdbm.to_device(batch), generator)
-                if state.step % self.log_every == 0:
+                if self.profile is not None:
+                    self.profile.before_step(state.step)
+                metrics = data_parallel_train_step(fdbm, state, fdbm.to_device(batch), generator)
+                if self.profile is not None:
+                    self.profile.after_step(state.step)
+                if state.step % self.log_every == 0 and self.logger is not None:
                     now = time.perf_counter()
                     metrics["steps_per_sec"] = self.log_every / (now - t_last)
                     t_last = now
@@ -215,22 +322,40 @@ class Trainer:
                     break
             val_losses, val_counts = [], []
             for batch in valid_loader:
-                val_losses.append(fdbm.valid_step(state, fdbm.to_device(batch), generator))
-                val_counts.append(float(batch[2].sum()))
+                loss = data_parallel_valid_step(fdbm, state, fdbm.to_device(batch), generator)
+                if batch[2].sum() > 0:  # a process's all-padding batch has no loss
+                    val_losses.append(loss)
+                    val_counts.append(float(batch[2].sum()))
             val_metrics: Dict[str, float] = {}
-            if val_losses and sum(val_counts) > 0:
+            counts: Dict[str, int] = {}
+            if val_losses:
                 val_metrics["valid_loss"] = float(np.average(val_losses, weights=val_counts))
+                counts["valid_loss"] = int(sum(val_counts))
             if self.num_eval_files > 0:
-                os.makedirs(self.sample_dir, exist_ok=True)
-                val_metrics.update(evaluate_files(
-                    fdbm, state.ema, valid_set, self.num_eval_files, generator,
-                    sample_dir=self.sample_dir, epoch=epoch)[0])
-            if val_metrics:
-                self.logger.log(state.step, val_metrics)
-            self.ckpt.save(fdbm, state, val_metrics)
+                # The evaluation samples on a generator of its own, seeded by
+                # one draw of the training generator: every process's
+                # training draws stay in step, whatever its share of files.
+                seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                         device=generator.device))
+                eval_gen = torch.Generator(device=fdbm.device).manual_seed(seed + self.rank)
+                if self.rank == 0:
+                    os.makedirs(self.sample_dir, exist_ok=True)
+                means, n = evaluate_files(fdbm, state.ema, valid_set, self.num_eval_files,
+                                          eval_gen, sample_dir=self.sample_dir, epoch=epoch)
+                val_metrics.update(means)
+                counts.update(n)
+            # Every process enters the gather, also with an empty shard.
+            val_metrics = all_gather_host_metrics(val_metrics, counts, VALID_METRIC_SCHEMA)
+            if self.rank == 0:
+                if val_metrics:
+                    self.logger.log(state.step, val_metrics)
+                self.ckpt.save(fdbm, state, val_metrics)
+            distributed.barrier()
             epoch += 1
-        self.ckpt.save(fdbm, state)
-        self.logger.close()
+        if self.rank == 0:
+            self.ckpt.save(fdbm, state)
+            self.logger.close()
+        distributed.barrier()
         return state
 
 
@@ -240,20 +365,69 @@ def build_from_config(cfg: Dict[str, Any], device="cuda"):
     return fdbm, DataConfig(**{k: v for k, v in cfg.items() if k in data_fields})
 
 
-def main(argv: Optional[Sequence[str]] = None) -> str:
-    """Run the CLI; returns the run directory."""
+def launch(worker: Callable[..., Any], devices: Optional[int], device: str, *args: Any):
+    """Run ``worker(*args)`` as ``-D`` and torchrun ask:
+    ``-D N > 1`` spawns N processes (``distributed.spawn``; more than the
+    visible cards raises), under torchrun this process joins its group,
+    otherwise it runs alone. The first of ``args`` is the run directory,
+    which under torchrun is process 0's. A group this call joined is left
+    after ``worker``. Returns what ``worker`` returns (nothing after a
+    spawn)."""
+    if devices is not None and devices > 1:
+        if distributed.under_launcher():
+            raise ValueError(f"-D {devices} starts its own processes; under torchrun give "
+                             "--nproc_per_node instead")
+        if torch.device(device).type == "cuda":
+            make_mesh(devices)
+        distributed.spawn(worker, devices, device, *args)
+        return None
+    with distributed.launched(device):
+        return worker(distributed.broadcast_object(args[0]), *args[1:])
+
+
+def _train(log_dir: str, args: argparse.Namespace, cfg: Dict[str, Any]) -> str:
+    torch.manual_seed(args.seed)
+    fdbm, data_cfg = build_from_config(cfg, distributed.process_device(args.device))
+    trainer = Trainer(fdbm, data_cfg, log_dir, max_steps=args.max_steps,
+                      max_epochs=args.max_epochs,
+                      num_eval_files=int(cfg.get("num_eval_files", 20)),
+                      save_ckpt_interval=int(cfg.get("save_ckpt_interval", 20000)),
+                      seed=args.seed, config_blob=cfg, snapshot=not args.nolog,
+                      profile_steps=args.profile_steps)
+    ckpt = args.ckpt or cfg.get("ckpt")
+    if ckpt and os.path.isdir(os.path.join(ckpt, "checkpoints")):
+        ckpt = os.path.join(ckpt, "checkpoints")
+    state = trainer.fit(resume=bool(args.resume), resume_from=ckpt)
+    if process_index() == 0:
+        print(f"trained to step {state.step} in {log_dir}")
+    return log_dir
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's arguments."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-C", "--config", required=True)
+    ap.add_argument("-D", "--devices", type=int, default=None,
+                    help="data-parallel processes on this machine, one a card (default 1)")
     ap.add_argument("--device", default="cuda", help="torch device to train on")
     ap.add_argument("--ckpt", default=None,
                     help="start from another run's (or checkpoints dir's) 'last' slot")
     ap.add_argument("--resume", default=None, metavar="RUN_DIR",
                     help="continue this run directory from its 'last' slot")
+    ap.add_argument("--profile_steps", type=int, nargs=2, default=None,
+                    metavar=("START", "END"),
+                    help="torch.profiler trace of train steps START..END into <run>/profile")
     ap.add_argument("--max_steps", type=int, default=1_000_000)
     ap.add_argument("--max_epochs", type=int, default=10_000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--nolog", action="store_true", help="no code snapshot in <run>/code")
     ap.add_argument("overrides", nargs="*", help="key=value config overrides")
-    args = ap.parse_intermixed_args(argv)
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> str:
+    """Run the CLI; returns the run directory."""
+    args = build_parser().parse_intermixed_args(argv)
 
     cfg = load_config(args.config, parse_cli_overrides(args.overrides))
     if args.resume:
@@ -264,18 +438,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     else:
         stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
         log_dir = os.path.join(cfg.get("log_dir", "./logs"), f"{cfg.get('version', 'run')}_{stamp}")
-
-    fdbm, data_cfg = build_from_config(cfg, args.device)
-    trainer = Trainer(fdbm, data_cfg, log_dir, max_steps=args.max_steps,
-                      max_epochs=args.max_epochs,
-                      num_eval_files=int(cfg.get("num_eval_files", 20)),
-                      save_ckpt_interval=int(cfg.get("save_ckpt_interval", 20000)),
-                      seed=args.seed, config_blob=cfg)
-    ckpt = args.ckpt or cfg.get("ckpt")
-    if ckpt and os.path.isdir(os.path.join(ckpt, "checkpoints")):
-        ckpt = os.path.join(ckpt, "checkpoints")
-    state = trainer.fit(resume=bool(args.resume), resume_from=ckpt)
-    print(f"trained to step {state.step} in {log_dir}")
+    launch(_train, args.devices, args.device, log_dir, args, cfg)
     return log_dir
 
 

@@ -457,12 +457,14 @@ def test_two_step_serve_bf16_matches_jax(monkeypatch):
 
 def test_bf16_config_resolution():
     """``inference_dtype`` as the JAX package resolves it; bf16 training
-    still raises; parameters stay fp32."""
+    still raises; ``param_dtype`` is read nowhere, as in the JAX package;
+    parameters stay fp32."""
     cfg = pmodel.FDBMConfig
     assert pmodel.serving_dtype(cfg()) == torch.float32
     assert pmodel.serving_dtype(cfg(inference_dtype="bfloat16")) == BF16
     assert pmodel.serving_dtype(cfg(inference_dtype="float32")) == torch.float32
-    for bad in (dict(compute_dtype="bfloat16"), dict(param_dtype="bfloat16"),
+    assert pmodel.serving_dtype(cfg(param_dtype="bfloat16")) == torch.float32
+    for bad in (dict(compute_dtype="bfloat16"),
                 dict(compute_dtype="bfloat16", inference_dtype="float32")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pmodel.FDBM(cfg(**bad), device="cpu")

@@ -1240,3 +1240,99 @@ def test_small_backbone_bf16_kernels_match_plain_route(dev):
         "grid_rnn_seq1_pair_bf16": 4, "flat_group_norm_bf16": 2, "frame_attention_bf16": 2}
     _bf16_gates(1e-2, torch.view_as_real(got), torch.view_as_real(want),
                 torch.view_as_real(exact))
+
+
+GLOO_WORKER = """
+import sys
+import torch
+from fdbm_tpu_torch import model as pmodel, ops
+from fdbm_tpu_torch.models.tfgridnet import TFGridNet
+from fdbm_tpu_torch.parallel import distributed, mesh
+
+rank, store, inp, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+distributed.initialize(f"file://{store}", 2, rank, backend="gloo")
+blob = torch.load(inp, weights_only=True)
+fdbm = pmodel.FDBM(pmodel.FDBMConfig(n_fft=64, hop_length=32), device="cuda:0")
+fdbm.dnn = TFGridNet(**blob["net"]).to("cuda:0")
+fdbm.dnn.load_state_dict(blob["weights"])
+state = pmodel.TrainState(fdbm.dnn)
+local = mesh.shard_batch(tuple(b.cuda() for b in blob["batch"]), rank, 2)
+ops.reset_launch_counts()
+loss, grads = mesh.data_parallel_grads(fdbm, state, local,
+                                       torch.Generator(device="cuda:0").manual_seed(3))
+torch.save({"loss": loss, "grads": {k: v.cpu() for k, v in grads.items()},
+            "launches": ops.launch_counts()}, f"{out}.{rank}.pt")
+distributed.shutdown()
+"""
+
+
+def test_gloo_two_ranks_on_one_card_match_one_rank(dev, tmp_path):
+    """Two processes on cuda:0 joined over gloo, each half of a 4-row batch:
+    the all-reduced loss and gradients (the global batch's draw, sliced by
+    rank) against one process on the whole batch on the same generator,
+    within the training step's gates (loss 1e-5, each gradient norm-rel
+    1e-3 floored at 1e-4 of the global norm); kernels 5-6 on each rank."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from fdbm_tpu_torch import model as pmodel
+    from fdbm_tpu_torch.models.tfgridnet import TFGridNet
+
+    net = dict(n_layers=1, emb_dim=16, hidden=24)
+    torch.manual_seed(0)
+    weights = TFGridNet(**net).state_dict()
+    rng = np.random.default_rng(8)
+    x = (0.1 * rng.standard_normal((4, 15 * 32))).astype(np.float32)
+    batch = (torch.as_tensor(x), torch.as_tensor(x + 0.02 * rng.standard_normal(x.shape)
+                                                  .astype(np.float32)))
+    torch.save({"net": net, "weights": weights, "batch": batch}, tmp_path / "in.pt")
+    (tmp_path / "worker.py").write_text(GLOO_WORKER)
+    repo = str(Path(__file__).resolve().parents[1])
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, str(tmp_path / "worker.py"), str(r),
+                               str(tmp_path / "store"), str(tmp_path / "in.pt"),
+                               str(tmp_path / "out")], env=env) for r in range(2)]
+    try:
+        assert [p.wait(timeout=300) for p in procs] == [0, 0]
+    finally:
+        for p in procs:
+            p.kill()
+    ranks = [torch.load(tmp_path / f"out.{r}.pt", weights_only=True) for r in range(2)]
+    fdbm = pmodel.FDBM(pmodel.FDBMConfig(n_fft=64, hop_length=32), device=dev)
+    fdbm.dnn = TFGridNet(**net).to(dev)
+    fdbm.dnn.load_state_dict(weights)
+    state = pmodel.TrainState(fdbm.dnn)
+    loss = fdbm.loss_fn(tuple(b.to(dev) for b in batch),
+                        torch.Generator(device=dev).manual_seed(3))
+    want = dict(zip(state.params, torch.autograd.grad(loss, list(state.params.values()))))
+    assert ranks[0]["loss"] == ranks[1]["loss"]
+    assert abs(ranks[0]["loss"] - float(loss.detach())) <= 1e-5 * abs(float(loss.detach()))
+    norm = float(torch.sqrt(sum((g * g).sum() for g in want.values())))
+    for name, g in want.items():
+        got = ranks[0]["grads"][name].to(dev)
+        assert torch.equal(ranks[1]["grads"][name].to(dev), got), name
+        assert float((got - g).norm()) / max(float(g.norm()), 1e-4 * norm) < 1e-3, name
+    for r in ranks:
+        assert r["launches"]["grid_fold_train_pair"] == r["launches"][
+            "grid_fold_train_pair_bwd"] == 2  # one block: its intra and inter paths
+
+
+def test_more_devices_than_visible_are_refused(dev, tmp_path):
+    """``-D`` and ``--mesh_devices`` beyond the visible cards raise before
+    anything starts."""
+    from pathlib import Path
+
+    from fdbm_tpu_torch import infer_folder, train
+
+    n = torch.cuda.device_count() + 1
+    configs = Path(__file__).resolve().parents[1] / "configs"
+    with pytest.raises(ValueError, match=f"Requested {n} devices, have {n - 1}"):
+        train.main(["-C", str(configs / "config.yaml"), "-D", str(n),
+                    f"log_dir={tmp_path}"])
+    with pytest.raises(ValueError, match=f"Requested {n} devices, have {n - 1}"):
+        infer_folder.main(["-C", str(configs / "config_infer_folder.yaml"), "--mesh_devices",
+                           str(n), "ckpt=unused"])

@@ -338,11 +338,12 @@ def _finetune(ft, ckpt, *extra):
     return train_finetuning.main(["-C", str(ft), "--device", "cpu", f"ckpt={ckpt}", *extra])
 
 
-def test_finetuning_cli_from_a_port_run(finetune_setup):
+def test_finetuning_cli_from_a_port_run(finetune_setup, monkeypatch):
     """From a port run: the first weights are its EMA weights (not its
     parameters), the config is the source's with the overridable fields of
     the YAML; two fine-tuning steps then validate, evaluate one file
-    (PESQ, SI-SDR), write the best slots and serve their last slot."""
+    (PESQ, SI-SDR), write the best slots and serve their last slot. With
+    ``-D 2`` one step runs on two processes (gloo on the CPU)."""
     base, ft, run = finetune_setup
     src = torch.load(Path(run) / "checkpoints" / "last.pt", map_location="cpu",
                      weights_only=True)
@@ -378,8 +379,11 @@ def test_finetuning_cli_from_a_port_run(finetune_setup):
                                "--device", "cpu", f"ckpt={tuned}", f"noisy_file={noisy}",
                                f"output_file={out}", "N=2"])
     assert x_hat.shape == (1500,) and np.isfinite(x_hat).all()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _finetune(ft, run, "-D", "2")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    two = _finetune(ft, run, "-D", "2", "--max_steps", "1")
+    blob = torch.load(Path(two) / "checkpoints" / "last.pt", map_location="cpu",
+                      weights_only=True)
+    assert blob["train_state"]["step"] == 1 and blob["config"]["mode"] == "finetuning"
 
 
 def test_finetuning_cli_from_a_reference_ckpt(finetune_setup):

@@ -222,5 +222,9 @@ def test_folder_cli_counts_nan_outputs_as_failures(tmp_path, ckpt, monkeypatch):
 
 
 def test_folder_cli_refuses_a_mesh(tmp_path, ckpt):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        _cli(ckpt, tmp_path, tmp_path / "out", "--mesh_devices", "2")
+    """``--mesh_devices`` splits batches over the visible cards: a mesh of
+    more cards than are visible is refused before anything is read."""
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=f"Requested {n} devices, have {n - 1}"):
+        _cli(ckpt, tmp_path, tmp_path / "out", "--device", "cuda", "--mesh_devices", str(n))
+    assert not (tmp_path / "out").exists()
