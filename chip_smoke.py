@@ -16,7 +16,7 @@ NCSN++:
   B=1 and at B=16 (``serve_batch_check``, with one row of the batch against
   the same row served alone), three files through
   ``fdbm_tpu_torch.infer_single``, one profiled request; the folder CLI
-  ``fdbm_tpu_torch.infer_folder`` at --batch_size 16 on 16 files of 1-12 s
+  ``fdbm_tpu_torch.infer_folder`` at --batch_size 16 on 6 files of 1-12 s
   and one of 35 s (``serve_folder``: pooled 4.096 s chunks, 30-step
   sde_ei, with one profiled batch) and on three of them whole
   (``serve_folder_whole``, --chunk_seconds 0); the ``pc`` and ``ode_int``
@@ -86,6 +86,31 @@ NCSN++:
   four held-out files served with ode_ei N=8 in fp32 and bf16
   (``bf16_quality``). ``--bf16-only`` runs the bf16 kernel rows and the
   phases with a bf16 run (their fp32 runs too) alone.
+* bf16 training (``compute_dtype=bfloat16``: kernels 4-6 and 8-9 on fp32
+  casts, the glue in bf16). One step of 5l32c100, of 6l48c200 (both with
+  their q/k projections scaled into the E=2 norms' smooth range,
+  ``smooth_qk_``) and of ncsnpp_v2 on fan-in weights against the same step
+  through the float64 network (``bf16_grad_phase``: TF-GridNet's loss,
+  output, whole gradient and each group of leaves within 1.5x the bf16
+  plain route's distance there + 1e-3, NCSN++'s within absolute bounds
+  (3e-2, groups 5e-2) and above 1e-4; the bf16 step at least 3x farther
+  from float64 than the fp32 step; kernels 5-6 or 8-9 under their fp32
+  names and no bf16 form launched; a zeroed group and the weights rounded
+  to bf16 must miss); one fine-tuning step
+  (``finetune_bf16``: its N-1 calls through the bf16 forms of kernels 1-3,
+  its last through kernels 5-6); the bf16 rates of 5l32c100 and ncsnpp_v2
+  beside their fp32 rates, with the FLOPs a step (``flops_estimate``) and
+  the TFLOP/s they imply (``bf16_train_rates``); and 5l32c100 trained
+  QUALITY_TRAIN_STEPS steps in bf16 and in fp32 on ``bf16_quality``'s data
+  and seed, the bf16-trained model's mean SI-SDR within 1.0 dB of the
+  fp32-trained one's (``bf16_train_quality``; the two trainings run in
+  worker processes started beside the DDP workers, and ``bf16_quality``
+  serves the fp32 one's EMA at QUALITY_STEPS). The
+  training CLI's phase reads its own ``--profile_steps`` trace (the idle
+  share, the loader's wait), the loader's items by path and the
+  TensorBoard state (``run_logging``), and the pooled folder runs with
+  ``FDBM_TPU_SERVE_TRACE=1`` and must print one line a batch.
+  ``--bf16-train-only`` runs these alone.
 * Data parallelism (``fdbm_tpu_torch/parallel``), on the one card:
   ``mesh_serve`` (a 2-step serve of a B=16 batch split over two replicas
   on cuda:0 against the unsplit batch, the folder CLI with
@@ -836,8 +861,10 @@ def wide_serve_phase(rng, dev, noisy: str) -> dict:
 
 
 def wide_train_phase(rng, dev, smi: str) -> dict:
-    """6l48c200 training: one step against the all-plain route, the rate of
-    steady steps, and one valid_step. Returns the launches of the main
+    """6l48c200 training: one step against the all-plain route and float64,
+    one bf16 step against float64 (``bf16_grad_phase``, on draws of its own
+    so that the phases after it keep theirs), the rate of steady steps, and
+    one valid_step. Returns the launches of the main
     path: the steady steps' (kernels 8 and 9) and the validation's
     (kernel 10)."""
     from fdbm_tpu_torch import ops
@@ -846,6 +873,7 @@ def wide_train_phase(rng, dev, smi: str) -> dict:
     per_step = {"lstm_core": 2 * WIDE_PATHS, "lstm_core_bwd": 2 * WIDE_PATHS,
                 "grid_fold_train_pair": 0, "grid_fold_train_pair_bwd": 0}
     train_grad_phase(rng, dev, TFGridNet, per_step, f"train_grad_{WIDE}", float64=True)
+    wide_bf16_grad_phase(dev, per_step)
     fdbm, state, batch, counts = train_rate_phase(rng, dev, smi, TFGridNet, f"train_rate_{WIDE}")
     steps = counts["lstm_core"] // per_step["lstm_core"]
     ops.reset_launch_counts()
@@ -861,6 +889,15 @@ def wide_train_phase(rng, dev, smi: str) -> dict:
             "lstm_forward": valid["lstm_forward"]}
 
 
+def wide_bf16_grad_phase(dev, per_step: dict) -> None:
+    """6l48c200's bf16 step against float64 (``bf16_grad_phase``), on draws
+    of its own so that the phases after it keep theirs."""
+    from fdbm_tpu_torch.models.tfgridnet import TFGridNet
+
+    bf16_grad_phase(np.random.default_rng(SEED + 17), dev, TFGridNet,
+                    f"train_grad_bf16_{WIDE}", per_step, init=smooth_qk_)
+
+
 def synthetic_batch(rng, dev):
     """(x, y) audio [2, 255 * 256]: the crops of one training batch."""
     n = (TRAIN_FRAMES - 1) * 256
@@ -871,10 +908,13 @@ def synthetic_batch(rng, dev):
 
 def fdbm_with(backbone, dev, cfg=None, **kw):
     """An FDBM of ``cfg`` (the default config) whose backbone is
-    ``backbone(**kw)``."""
+    ``backbone(**kw)``, at the config's training and serving dtypes unless
+    ``kw`` names them."""
     from fdbm_tpu_torch.model import FDBM, FDBMConfig
 
     fdbm = FDBM(cfg or FDBMConfig(), device="cuda")
+    kw.setdefault("train_dtype", fdbm.train_dtype)
+    kw.setdefault("serve_dtype", fdbm.serve_dtype)
     fdbm.dnn = backbone(**kw).to(dev).eval()
     return fdbm
 
@@ -1194,10 +1234,13 @@ def train_cli_phase(tmp: str, smi: str, backbone: str = ""):
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
+    profile = [] if backbone else ["--profile_steps", str(PROFILE_STEPS[0]),
+                                   str(PROFILE_STEPS[1])]
+    first_steps, steps = TRAIN_STEPS, TRAIN_STEPS + RESUME_STEPS
     with counting_batches() as batches, contextlib.redirect_stdout(io.StringIO()) as cli_out:
-        run = train.main(args + ["--max_steps", str(TRAIN_STEPS)])
+        run = train.main(args + ["--max_steps", str(first_steps)] + profile)
         first = ops.launch_counts()
-        train.main(args + ["--max_steps", str(TRAIN_STEPS + RESUME_STEPS), "--resume", run])
+        train.main(args + ["--max_steps", str(steps), "--resume", run])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1207,7 +1250,6 @@ def train_cli_phase(tmp: str, smi: str, backbone: str = ""):
     scores = [[r.get(k) for k in ("pesq", "si_sdr", "estoi")] for r in records if "valid_loss" in r]
     ckpts = os.path.join(run, "checkpoints")
     last = torch.load(os.path.join(ckpts, "last.pt"), map_location="cpu", weights_only=True)
-    steps = TRAIN_STEPS + RESUME_STEPS
     valid_batches = 2 * len(valid)  # 3 valid files at batch 2 per validation
     calls = FOLDER_N_TRAIN * len(batches)  # the evaluations' sampler calls (sde_ei, N=5)
     expected = {"grid_fold_train_pair": RNN_PATHS * steps,
@@ -1243,8 +1285,11 @@ def train_cli_phase(tmp: str, smi: str, backbone: str = ""):
         served_ok = min(serve_counts[k] for k in SERVE_KERNELS) > 0 and \
             serve_counts["flat_group_norm"] == serve_counts["frame_attention"]
     ok = ok and served.shape == (1, n) and bool(np.isfinite(served).all()) and served_ok
+    logging = None if backbone else cli_logging(run, cli_out.getvalue())
+    ok = ok and (backbone or logging["ok"])
     emit({"phase": f"train_{backbone}" if backbone else "train", "backbone": backbone or None,
-          "steps": steps, "resumed_at": TRAIN_STEPS, "batch": TRAIN_BATCH,
+          "run_logging": logging,
+          "steps": steps, "resumed_at": first_steps, "batch": TRAIN_BATCH,
           "frames": TRAIN_FRAMES, "train_files": 6, "valid_files": 3,
           "train_loss": train_loss, "valid_loss": valid, "pesq_si_sdr_estoi": scores,
           "eval_batches": len(batches), "last_step": last["train_state"]["step"],
@@ -1259,12 +1304,86 @@ def train_cli_phase(tmp: str, smi: str, backbone: str = ""):
     return counts, run
 
 
-def train_rate_phase(rng, dev, smi: str, backbone, phase: str = "train_rate", cfg=None):
+# The steady step's milliseconds by rate phase, for the bf16 phases' ratios.
+STEP_MS = {}
+
+
+# The training CLI's --profile_steps window (steps counted from 1): the first
+# two steps of the second epoch (3 steps an epoch), so that no validation
+# falls inside it.
+PROFILE_STEPS = (4, 5)
+
+
+def cli_logging(run: str, out: str) -> dict:
+    """What the training CLI's own run logging shows: from its
+    --profile_steps Chrome trace the steps' wall (each ``train_step`` span
+    from its launch on the host to its end on the card), the card's busy
+    time in them (its kernels) and idle share, and the host's wait for the
+    loader (``data.wait`` spans) against the steps' wall; from its output the loader's items by
+    path (native decoder or ``read_wav``) and seconds; whether TensorBoard
+    event files lie beside ``metrics.jsonl`` (where ``torch.utils.tensorboard``
+    imports)."""
+    import glob
+    import re
+
+    path = os.path.join(run, "profile", "steps_%d-%d.json" % PROFILE_STEPS)
+    events = [e for e in json.load(open(path))["traceEvents"] if e.get("ph") == "X"]
+    spans = lambda cat: [e for e in events if e.get("cat") == cat and e["name"] == "train_step"]
+    steps, device_steps = spans("user_annotation"), spans("gpu_user_annotation")
+    # Each step from its launch on the host to its end on the card.
+    windows = [(h["ts"], max(h["ts"] + h["dur"], d["ts"] + d["dur"]))
+               for h, d in zip(sorted(steps, key=lambda e: e["ts"]),
+                               sorted(device_steps, key=lambda e: e["ts"]))]
+    start = min(w[0] for w in windows)
+    wall = sum(b - a for a, b in windows)
+    busy = sum(max(0, min(e["ts"] + e["dur"], b) - max(e["ts"], a))
+               for e in events if e.get("cat") == "kernel" for a, b in windows)
+    wait = [e["dur"] for e in events if e["name"] == "data.wait"]
+    cats = {}
+    for e in events:
+        c = cats.setdefault(e.get("cat"), [0, math.inf, -math.inf])
+        c[0] += 1
+        c[1] = min(c[1], (e["ts"] - start) / 1e3)
+        c[2] = max(c[2], (e["ts"] + e["dur"] - start) / 1e3)
+    loaded = re.search(r"\[data\] train items: native (\d+), read_wav (\d+), "
+                       r"load seconds ([0-9.]+)", out)
+    native, read, load_s = (int(loaded[1]), int(loaded[2]), float(loaded[3])) if loaded \
+        else (0, 0, 0.0)
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        tensorboard = True
+    except ImportError:
+        tensorboard = False
+    tb_files = glob.glob(os.path.join(run, "events.out.tfevents.*"))
+    record = {"trace_steps": list(PROFILE_STEPS), "trace_mb": os.path.getsize(path) / 1e6,
+              "step_span_ms": [e["dur"] / 1e3 for e in steps],
+              "device_step_span_ms": [e["dur"] / 1e3 for e in device_steps],
+              "categories_n_first_last_ms": cats,
+              "steps_ms": wall / 1e3, "device_busy_ms": busy / 1e3,
+              "device_idle_share": 1 - busy / wall if wall else None,
+              "loader_waits": len(wait), "loader_wait_ms": sum(wait) / 1e3,
+              "loader_wait_share": sum(wait) / (wall + sum(wait)) if wall else None,
+              "items_native": native, "items_read_wav": read,
+              "native_share": native / (native + read) if native + read else None,
+              "loader_seconds": load_s, "tensorboard_imports": tensorboard,
+              "tensorboard_event_files": len(tb_files)}
+    # The window opens after step START's batch is fetched: it holds the
+    # fetches of the steps after it.
+    record["ok"] = (busy > 0 and len(steps) == len(device_steps) == 2
+                    and len(wait) >= PROFILE_STEPS[1] - PROFILE_STEPS[0]
+                    and native > 0 and bool(tb_files) == tensorboard)
+    return record
+
+
+def train_rate_phase(rng, dev, smi: str, backbone, phase: str = "train_rate", cfg=None,
+                     flops=None):
     """Train audio-s/s over steady steps of the full-width model at B=2 and
     256 frames (8.16 audio-s per step), the step time, peak memory, and the
     device idle share and top kernels of one profiled step; ``cfg`` (e.g.
-    fine-tuning mode) replaces the default config. Returns the model, its
-    train state, the batch and the launches of the steady steps."""
+    fine-tuning mode, or bf16 training) replaces the default config;
+    ``flops`` (``flops_estimate`` of one step) gives the TFLOP/s the step
+    time implies. Returns the model, its train state, the batch and the
+    launches of the steady steps."""
     from torch.profiler import ProfilerActivity, profile
 
     from fdbm_tpu_torch import ops
@@ -1297,8 +1416,11 @@ def train_rate_phase(rng, dev, smi: str, backbone, phase: str = "train_rate", cf
     kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:14]
-    emit({"phase": phase, "mode": fdbm.cfg.mode, "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
+    STEP_MS[phase] = step_s * 1e3
+    emit({"phase": phase, "mode": fdbm.cfg.mode, "compute_dtype": fdbm.cfg.compute_dtype,
+          "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
           "audio_seconds_per_step": audio_per_step, "steps": steps, "step_ms": step_s * 1e3,
+          "flops_per_step": flops, "tflops_per_second": flops and flops / step_s / 1e12,
           "launches": counts,
           "train_audio_seconds_per_second": audio_per_step / step_s,
           "peak_memory_gb": peak / 1e9, "profiled_step_wall_ms": wall_ms,
@@ -1627,10 +1749,11 @@ def complex_like(rng, like: torch.Tensor) -> torch.Tensor:
 # The folder CLI's batch: 16 rows of one pooled 4.096 s chunk (257 frames).
 FOLDER_BATCH = 16
 CHUNK_SAMPLES = 65536
-# 16 files of 1-12 s and one of 35 s: 33 pooled chunks, two full B=16
-# batches and a row (40 files, then 30, before the bf16 folder and the
-# data-parallel phases joined the run: fewer files keep it with a fresh build
-# under 600 s; a smaller folder reads a lower rate).
+# 16 files of 1-12 s and one of 35 s: more than two full B=16 batches of
+# pooled chunks, so that batches overlap in the serving pipeline (40 files,
+# then 30, before the bf16 folder and the data-parallel phases joined the
+# run: fewer files keep it with a fresh build under 650 s; a smaller folder
+# reads a lower rate).
 FOLDER_FILES, FOLDER_LONG_SECONDS = 16, 35.0
 FOLDER_N = 30
 # ode_int's attempted steps held against the plain route (samplers_phase).
@@ -1827,13 +1950,15 @@ SERVE_CALL_LAUNCHES = {"grid_rnn_seq1_pair": 2 * RNN_BLOCKS, "flat_group_norm": 
 
 def serve_folder(tmp: str, ckpt: str, name: str, seconds, chunk_seconds: str, smi: str,
                  profile_fdbm=None, per_call: dict = SERVE_CALL_LAUNCHES,
-                 profile_kwargs: dict = None, extra=()) -> dict:
+                 profile_kwargs: dict = None, extra=(), trace: bool = False) -> dict:
     """The folder CLI (``fdbm_tpu_torch.infer_folder.main``) on a folder of
     the given lengths, 30-step sde_ei at --batch_size 16: every file written
     at its input length and finite, no failures, and per enhanced batch one
     backbone call a step, each launching ``per_call`` (5l32c100: 10 RNN
     paths, 5 norms, 5 attentions). ``extra`` are more config overrides
-    (``inference_dtype=bfloat16``). Returns the launches."""
+    (``inference_dtype=bfloat16``). With ``trace`` the run sets
+    ``FDBM_TPU_SERVE_TRACE=1`` and must print one ``[serve]`` line a batch.
+    Returns the launches."""
     from fdbm_tpu_torch import infer_folder, ops
     from fdbm_tpu_torch.utils.audio import read_wav
 
@@ -1843,12 +1968,18 @@ def serve_folder(tmp: str, ckpt: str, name: str, seconds, chunk_seconds: str, sm
                           "config_infer_folder.yaml")
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    with counting_batches() as batches, contextlib.redirect_stdout(io.StringIO()) as out:
-        stats = infer_folder.main(["-C", config, f"ckpt={ckpt}", f"test_dir={src}",
-                                   f"enhanced_dir={dst}", f"N={FOLDER_N}", "sampler_type=sde_ei",
-                                   "--batch_size", str(FOLDER_BATCH),
-                                   "--chunk_seconds", chunk_seconds, *extra])
+    if trace:
+        os.environ["FDBM_TPU_SERVE_TRACE"] = "1"
+    try:
+        with counting_batches() as batches, contextlib.redirect_stdout(io.StringIO()) as out:
+            stats = infer_folder.main(["-C", config, f"ckpt={ckpt}", f"test_dir={src}",
+                                       f"enhanced_dir={dst}", f"N={FOLDER_N}",
+                                       "sampler_type=sde_ei", "--batch_size", str(FOLDER_BATCH),
+                                       "--chunk_seconds", chunk_seconds, *extra])
+    finally:
+        os.environ.pop("FDBM_TPU_SERVE_TRACE", None)
     torch.cuda.synchronize()
+    trace_lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("[serve]")]
     counts = ops.launch_counts()
     calls = FOLDER_N * len(batches)
     expected = {k: v * calls for k, v in per_call.items()}
@@ -1872,14 +2003,18 @@ def serve_folder(tmp: str, ckpt: str, name: str, seconds, chunk_seconds: str, sm
               "steady_audio_sec_per_sec": stats.steady_throughput,
               "batches": len(batches), "batch_shapes": sorted(set(batches)),
               "launches": counts, "expected_launches": expected,
+              "serve_trace_lines": len(trace_lines) if trace else None,
+              "serve_trace_last": trace_lines[-1:],
               "cli": out.getvalue().strip().splitlines()[-1:], "nvidia_smi": smi}
     if profile_fdbm is not None:
         record["profiled_batch"] = profile_batch(profile_fdbm, **(profile_kwargs or {}))
     emit(record)
     if bad or stats.failures or stats.files != len(lengths) or \
-            any(counts[k] != v for k, v in expected.items()):
+            any(counts[k] != v for k, v in expected.items()) or \
+            (trace and len(trace_lines) != len(batches)):
         fail(f"{name}: files {stats.files}/{len(lengths)}, failures {stats.failures}, "
-             f"bad outputs {bad[:5]}, launches {counts} (expected {expected})")
+             f"bad outputs {bad[:5]}, launches {counts} (expected {expected}), serve trace "
+             f"lines {len(trace_lines)} for {len(batches)} batches")
     return counts
 
 
@@ -2252,11 +2387,11 @@ def start_worker(args) -> subprocess.Popen:
     return proc
 
 
-def wait_workers(procs, t0: float, name: str) -> None:
-    """Waits for ``procs`` until WORKER_TIMEOUT seconds after ``t0``; a
+def wait_workers(procs, t0: float, name: str, timeout: float = WORKER_TIMEOUT) -> None:
+    """Waits for ``procs`` until ``timeout`` seconds after ``t0``; a
     failure or a timeout fails the phase, and none of them outlives it."""
     try:
-        rcs = [p.wait(timeout=max(1.0, t0 + WORKER_TIMEOUT - time.perf_counter()))
+        rcs = [p.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
                for p in procs]
     except subprocess.TimeoutExpired:
         rcs = ["timeout"]
@@ -2889,9 +3024,22 @@ BF16_CALL_LAUNCHES = {"grid_rnn_seq1_pair_bf16": 2 * RNN_BLOCKS,
 BF16_OVERRIDE = "inference_dtype=bfloat16"
 # bf16_quality: 5l32c100 trained on the card on speech-like pairs, then four
 # held-out files served with ode_ei at N=8 in fp32 and in bf16.
-QUALITY_STEPS, QUALITY_LR, QUALITY_N = 200, 5e-4, 8
+QUALITY_STEPS, QUALITY_LR, QUALITY_BATCH, QUALITY_N = 200, 5e-4, TRAIN_BATCH, 8
 QUALITY_TRAIN_FILES, QUALITY_TEST_FILES, QUALITY_SECONDS = 8, 4, 3.0
 QUALITY_AGREEMENT_DB, QUALITY_DELTA_DB = 15.0, 0.5
+# bf16_train_quality: the same training continued to QUALITY_TRAIN_STEPS in
+# fp32 and in bf16, the bf16-trained model's mean SI-SDR within
+# QUALITY_TRAIN_DELTA_DB of the fp32-trained model's. --probe-quality read
+# the two trainings part by 4.4 and 2.2 dB at 200 and 400 steps and come
+# within 0.65 dB at every reading from 600 to 1800 steps (1000: 0.03 dB),
+# while both stay near or below their noisy input's -0.03 dB (1000: -1.66 and
+# -1.63; 1800: +0.28 and -0.16; PERF.md §6).
+QUALITY_TRAIN_STEPS, QUALITY_TRAIN_DELTA_DB = 1000, 1.0
+# The quality trainings' worker processes must end this many seconds after
+# they start.
+QUALITY_WORKER_TIMEOUT = 1100
+# --probe-quality reads the EMA every this many steps.
+QUALITY_PROBE_EVERY = 200
 
 
 def as_real64(t: torch.Tensor) -> torch.Tensor:
@@ -3176,7 +3324,7 @@ def serve_check_bf16_phase(dev) -> None:
         fdbm = fdbm_with(make, dev, cfg, serve_dtype=torch.bfloat16)
         plain = fdbm_with(make, dev, cfg, use_kernels=False, serve_dtype=torch.bfloat16)
         plain.dnn.load_state_dict(fdbm.dnn.state_dict())
-        f64 = fdbm_with(make, dev, cfg, use_kernels=False)
+        f64 = fdbm_with(make, dev, cfg, use_kernels=False, serve_dtype=torch.float32)
         f64.dnn.load_state_dict(fdbm.dnn.state_dict())
         f64.dnn = Float64Backbone(f64.dnn).eval()
         audio = torch.as_tensor(rng.standard_normal((rows, 16000)).astype(np.float32) * 0.3,
@@ -3210,78 +3358,193 @@ def quality_pairs(count: int, seconds: float, seed: int):
     return pairs
 
 
-@cudnn_deterministic()
-def bf16_quality_phase(dev, smi: str) -> None:
-    """bf16 serving on trained weights. Random weights cannot judge it (a
-    random 30-step sampler is chaotic: 0.4 dB SI-SDR between fp32 and bf16
-    in the JAX package's records), so 5l32c100 is trained on the card first
-    (QUALITY_STEPS steps of ``FDBM.train_step`` at B=2 x 256 frames on
-    speech-like pairs at 0 dB SNR, lr QUALITY_LR), then its EMA weights
-    serve QUALITY_TEST_FILES held-out files with ode_ei at N=QUALITY_N in
-    fp32 and in bf16. Gates: the mean SI-SDR of the bf16 outputs against the
-    fp32 outputs (agreement) at least QUALITY_AGREEMENT_DB, and the mean
-    enhanced-vs-clean SI-SDR of bf16 within QUALITY_DELTA_DB of fp32's. The
-    same agreement on the untrained weights is printed as a control. The
-    phase runs on cuDNN's deterministic algorithms, so every run trains and
-    judges the same model: on the default ones the training differed from
-    run to run, and so did the agreement, which one model in five read
-    under the gate (PERF.md §6)."""
-    from fdbm_tpu_torch import ops
+def quality_fit(dev, compute_dtype: str, steps: int = QUALITY_STEPS, lr: float = QUALITY_LR,
+                batch_size: int = QUALITY_BATCH, every: int = 0, on_checkpoint=None):
+    """5l32c100 trained ``steps`` steps at ``compute_dtype`` from seed SEED
+    on QUALITY_TRAIN_FILES speech-like pairs, ``batch_size`` crops of 256
+    frames a step (the same crops and draws at either dtype), on cuDNN's
+    deterministic algorithms. Returns the EMA and
+    the untrained weights, the losses and the training's seconds; every
+    ``every`` steps ``on_checkpoint(step, ema, losses)`` reads the EMA."""
     from fdbm_tpu_torch.model import FDBM, FDBMConfig, TrainState
-    from fdbm_tpu_torch.utils.metrics import si_sdr
 
     crop = (TRAIN_FRAMES - 1) * 256
     train = quality_pairs(QUALITY_TRAIN_FILES, 5.0, SEED + 100)
-    test = quality_pairs(QUALITY_TEST_FILES, QUALITY_SECONDS, SEED + 200)
     rng = np.random.default_rng(SEED + 93)
-    cfg = FDBMConfig(lr=QUALITY_LR)
     torch.manual_seed(SEED)
-    fdbm = FDBM(cfg, device=dev)
-    untrained = {k: v.detach().clone() for k, v in fdbm.dnn.state_dict().items()}
-    state = TrainState(fdbm.dnn)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    losses = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(QUALITY_STEPS):
-        picks = rng.integers(0, len(train), TRAIN_BATCH)
-        starts = rng.integers(0, len(train[0][0]) - crop, TRAIN_BATCH)
-        batch = tuple(torch.as_tensor(np.stack([train[p][j][s:s + crop]
-                                                for p, s in zip(picks, starts)]), device=dev)
-                      for j in (0, 1))
-        losses.append(fdbm.train_step(state, batch, gen)["train_loss"])
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    with cudnn_deterministic():
+        fdbm = FDBM(FDBMConfig(lr=lr, compute_dtype=compute_dtype), device=dev)
+        untrained = {k: v.detach().clone() for k, v in fdbm.dnn.state_dict().items()}
+        state = TrainState(fdbm.dnn)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        losses, seconds = [], 0.0
+        for step in range(1, steps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            picks = rng.integers(0, len(train), batch_size)
+            starts = rng.integers(0, len(train[0][0]) - crop, batch_size)
+            batch = tuple(torch.as_tensor(np.stack([train[p][j][s:s + crop]
+                                                    for p, s in zip(picks, starts)]), device=dev)
+                          for j in (0, 1))
+            losses.append(fdbm.train_step(state, batch, gen)["train_loss"])
+            torch.cuda.synchronize()
+            seconds += time.perf_counter() - t0
+            if every and step % every == 0:
+                on_checkpoint(step, state.ema, losses)
+    return state.ema, untrained, losses, seconds
 
-    def serve_all(weights):
-        outs = {}
-        for dtype in ("float32", "bfloat16"):
-            model = FDBM(dataclasses.replace(cfg, inference_dtype=dtype), device=dev)
+
+def quality_serve(weights, dev, dtypes=("float32", "bfloat16")) -> dict:
+    """``weights`` (5l32c100) serving the QUALITY_TEST_FILES held-out files
+    with ode_ei at N=QUALITY_N at each of ``dtypes`` (the serving dtype),
+    on cuDNN's deterministic algorithms: the outputs, their SI-SDR against
+    the clean files, the noisy files' and the launches."""
+    from fdbm_tpu_torch import ops
+    from fdbm_tpu_torch.model import FDBM, FDBMConfig
+    from fdbm_tpu_torch.utils.metrics import si_sdr
+
+    test = quality_pairs(QUALITY_TEST_FILES, QUALITY_SECONDS, SEED + 200)
+    outs = {"noisy_si_sdr": [si_sdr(clean, noisy) for clean, noisy in test]}
+    with cudnn_deterministic():
+        for dtype in dtypes:
+            model = FDBM(FDBMConfig(inference_dtype=dtype), device=dev)
             model.dnn.load_state_dict(weights)
             ops.reset_launch_counts()
             outs[dtype] = [model.enhance_audio(noisy, torch.Generator(device=dev).manual_seed(SEED),
                                                sampler_type="ode_ei", N=QUALITY_N)
                            for _, noisy in test]
             outs[dtype + "_launches"] = ops.launch_counts()
-        return outs
+            outs[dtype + "_si_sdr"] = [si_sdr(clean, out)
+                                       for (clean, _), out in zip(test, outs[dtype])]
+    return outs
 
-    trained = serve_all(state.ema)
-    control = serve_all(untrained)
-    agree = [si_sdr(a, b) for a, b in zip(trained["float32"], trained["bfloat16"])]
-    quality = {dtype: [si_sdr(clean, out) for (clean, _), out in zip(test, trained[dtype])]
-               for dtype in ("float32", "bfloat16")}
-    noisy_db = [si_sdr(clean, noisy) for clean, noisy in test]
+
+def quality_models(dev, compute_dtype: str) -> dict:
+    """``quality_fit`` for QUALITY_TRAIN_STEPS steps: the EMA at
+    QUALITY_STEPS (``bf16_quality``'s model) and at the end
+    (``bf16_train_quality``'s), the untrained weights, the losses and the
+    seconds."""
+    cpu = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}
+    early = {}
+    ema, untrained, losses, seconds = quality_fit(
+        dev, compute_dtype, QUALITY_TRAIN_STEPS, every=QUALITY_STEPS,
+        on_checkpoint=lambda step, ema, _: early or early.update(cpu(ema)))
+    return {"ema": cpu(ema), "ema_early": early, "untrained": cpu(untrained),
+            "losses": losses, "seconds": seconds}
+
+
+def quality_worker(compute_dtype: str, out_path: str) -> None:
+    """``quality_models`` in a process of its own, written to ``out_path``."""
+    torch.save(quality_models(torch.device("cuda"), compute_dtype), out_path)
+
+
+def quality_probe_worker(compute_dtype: str, spec: str, steps: str, out_path: str) -> None:
+    """``quality_fit`` at ``spec`` (``LR`` or ``LR,BATCH``) for ``steps``
+    steps, its EMA served in fp32 and in bf16 every QUALITY_PROBE_EVERY
+    steps; the readings to ``out_path`` (JSON)."""
+    lr, batch_size = (spec.split(",") + [str(QUALITY_BATCH)])[:2]
+    dev = torch.device("cuda")
+    rows = []
+
+    def read(step, ema, losses):
+        served = quality_serve({k: v.detach().clone() for k, v in ema.items()}, dev)
+        rows.append({"step": step, "loss_last_50": float(np.mean(losses[-50:])),
+                     **{f"si_sdr_mean_{d}_db": float(np.mean(served[d + "_si_sdr"]))
+                        for d in ("float32", "bfloat16")},
+                     "si_sdr_noisy_mean_db": float(np.mean(served["noisy_si_sdr"]))})
+        print(json.dumps({"compute_dtype": compute_dtype, "lr": float(lr),
+                          "batch": int(batch_size), **rows[-1]}), file=sys.stderr, flush=True)
+
+    *_, seconds = quality_fit(dev, compute_dtype, int(steps), float(lr), int(batch_size),
+                              QUALITY_PROBE_EVERY, read)
+    with open(out_path, "w") as f:
+        json.dump({"compute_dtype": compute_dtype, "lr": float(lr), "batch": int(batch_size),
+                   "train_seconds": seconds, "rows": rows}, f)
+
+
+def probe_quality(out_path: str, steps: int, specs) -> None:
+    """``bf16_quality``'s training at each of ``specs`` (``LR`` or
+    ``LR,BATCH``) in fp32 and in bf16,
+    each in a worker process of its own (all at once on the card), for
+    ``steps`` steps: the mean SI-SDR of the EMA served in fp32 and in bf16
+    every QUALITY_PROBE_EVERY steps, beside the noisy input's; the readings
+    the training's steps and rate are chosen from, written to ``out_path``."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_probe_")
+    me = os.path.abspath(__file__)
+    runs = {(d, spec): os.path.join(tmp, f"{d}_{spec}.json")
+            for d in ("float32", "bfloat16") for spec in specs}
+    procs = [start_worker([me, "--quality-probe-worker", d, spec, str(steps), path])
+             for (d, spec), path in runs.items()]
+    wait_workers(procs, t0, "probe_quality", 3000)
+    out = {"steps": steps, "every": QUALITY_PROBE_EVERY, "nvidia_smi": nvidia_smi(),
+           "wall_seconds": time.perf_counter() - t0,
+           "runs": [json.load(open(path)) for path in runs.values()]}
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+    emit({"phase": "probe_quality", **out})
+
+
+def start_quality_workers(tmp: str) -> dict:
+    """Starts ``bf16_quality``'s two trainings (fp32 and bf16), each in a
+    process of its own, to run beside the phases up to theirs."""
+    me = os.path.abspath(__file__)
+    paths = {d: os.path.join(tmp, f"quality_{d}.pt") for d in ("float32", "bfloat16")}
+    return {"t0": time.perf_counter(), "paths": paths,
+            "procs": {d: start_worker([me, "--quality-worker", d, path])
+                      for d, path in paths.items()}}
+
+
+def quality_result(workers: dict, compute_dtype: str) -> dict:
+    """The ``quality_models`` of ``compute_dtype``'s worker (waited for)."""
+    wait_workers([workers["procs"][compute_dtype]], workers["t0"],
+                 f"bf16_quality ({compute_dtype} training)", QUALITY_WORKER_TIMEOUT)
+    return torch.load(workers["paths"][compute_dtype], map_location="cuda", weights_only=True)
+
+
+@cudnn_deterministic()
+def bf16_quality_phase(dev, smi: str, workers: dict = None) -> None:
+    """bf16 serving and bf16 training on trained weights. Random weights
+    cannot judge them (a random 30-step sampler is chaotic: 0.4 dB SI-SDR
+    between fp32 and bf16 in the JAX package's records), so 5l32c100 is
+    trained on the card first (``quality_fit``: ``FDBM.train_step`` at B=2
+    x 256 frames on speech-like pairs at 0 dB SNR, lr QUALITY_LR) and served
+    on QUALITY_TEST_FILES held-out files with ode_ei at N=QUALITY_N
+    (``quality_serve``). ``bf16_quality``: the EMA at QUALITY_STEPS served
+    in fp32 and in bf16, the mean SI-SDR of the bf16 outputs against the
+    fp32 outputs (agreement) at least QUALITY_AGREEMENT_DB, and the mean
+    enhanced-vs-clean SI-SDR of bf16 within QUALITY_DELTA_DB of fp32's; the
+    same agreement on the untrained weights is printed as a control.
+    ``bf16_train_quality``: the same training continued to
+    QUALITY_TRAIN_STEPS at ``compute_dtype: float32`` and ``bfloat16``,
+    each served at its serving dtype (bf16 inherited), the bf16-trained
+    model's mean SI-SDR within QUALITY_TRAIN_DELTA_DB of the fp32-trained
+    model's; the noisy input's is printed beside them. The trainings run on
+    cuDNN's deterministic algorithms, so every run trains and judges the
+    same models: on the default ones the training differed from run to run
+    (PERF.md §6). ``workers`` (``start_quality_workers``) have trained both
+    models beside the earlier phases; without them they train here."""
+    from fdbm_tpu_torch.utils.metrics import si_sdr
+
+    fit = {dtype: quality_models(dev, dtype) if workers is None else
+           quality_result(workers, dtype) for dtype in ("float32", "bfloat16")}
     mean = lambda v: float(np.mean(v))
+    losses = fit["float32"]["losses"]
+    trained = quality_serve(fit["float32"]["ema_early"], dev)
+    control = quality_serve(fit["float32"]["untrained"], dev)
+    agree = [si_sdr(a, b) for a, b in zip(trained["float32"], trained["bfloat16"])]
+    quality = {dtype: trained[dtype + "_si_sdr"] for dtype in ("float32", "bfloat16")}
+    noisy_db = trained["noisy_si_sdr"]
     delta = mean(quality["bfloat16"]) - mean(quality["float32"])
     calls = QUALITY_N * QUALITY_TEST_FILES
     expected = {k: v * calls for k, v in BF16_CALL_LAUNCHES.items()}
     ok = (mean(agree) >= QUALITY_AGREEMENT_DB and abs(delta) <= QUALITY_DELTA_DB
           and all(np.isfinite(losses)) and only_bf16(trained["bfloat16_launches"], expected))
     emit({"phase": "bf16_quality", "backbone": RNN_MODEL, "steps": QUALITY_STEPS,
-          "lr": QUALITY_LR, "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
-          "train_seconds": train_s, "loss_first_10": mean(losses[:10]),
-          "loss_last_10": mean(losses[-10:]), "sampler": "ode_ei", "N": QUALITY_N,
-          "test_files": QUALITY_TEST_FILES, "test_seconds": QUALITY_SECONDS,
+          "lr": QUALITY_LR, "batch": QUALITY_BATCH, "frames": TRAIN_FRAMES,
+          "loss_first_10": mean(losses[:10]),
+          "loss_last_10": mean(losses[QUALITY_STEPS - 10:QUALITY_STEPS]), "sampler": "ode_ei",
+          "N": QUALITY_N, "test_files": QUALITY_TEST_FILES, "test_seconds": QUALITY_SECONDS,
           "agreement_db": agree, "agreement_mean_db": mean(agree),
           "agreement_gate_db": QUALITY_AGREEMENT_DB,
           "si_sdr_noisy_db": noisy_db, "si_sdr_fp32_db": quality["float32"],
@@ -3296,15 +3559,353 @@ def bf16_quality_phase(dev, smi: str) -> None:
              f"SI-SDR fp32 {quality['float32']} bf16 {quality['bfloat16']} (delta {delta}), "
              f"launches {trained['bfloat16_launches']} (expected {expected})")
 
+    served = {dtype: quality_serve(fit[dtype]["ema"], dev, (dtype,))[dtype + "_si_sdr"]
+              for dtype in ("float32", "bfloat16")}
+    losses16 = fit["bfloat16"]["losses"]
+    delta16 = mean(served["bfloat16"]) - mean(served["float32"])
+    above = {dtype: mean(v) > mean(noisy_db) for dtype, v in served.items()}
+    ok = abs(delta16) <= QUALITY_TRAIN_DELTA_DB and all(np.isfinite(losses16))
+    emit({"phase": "bf16_train_quality", "backbone": RNN_MODEL, "steps": QUALITY_TRAIN_STEPS,
+          "lr": QUALITY_LR, "batch": QUALITY_BATCH, "compute_dtype": "bfloat16",
+          "train_seconds": {d: fit[d]["seconds"] for d in fit},
+          "loss_last_50": {d: mean(fit[d]["losses"][-50:]) for d in fit},
+          "si_sdr_bf16_trained_served_bf16_db": served["bfloat16"],
+          "si_sdr_fp32_trained_served_fp32_db": served["float32"],
+          "si_sdr_mean_bf16_trained_db": mean(served["bfloat16"]),
+          "si_sdr_mean_fp32_trained_db": mean(served["float32"]),
+          "si_sdr_mean_noisy_db": mean(noisy_db), "above_noisy": above,
+          "delta_db": delta16, "delta_gate_db": QUALITY_TRAIN_DELTA_DB, "nvidia_smi": smi})
+    if not ok:
+        fail(f"bf16_train_quality: bf16-trained SI-SDR {served['bfloat16']} against the "
+             f"fp32-trained {served['float32']} (delta {delta16}, gate +-"
+             f"{QUALITY_TRAIN_DELTA_DB} dB), losses finite {all(np.isfinite(losses16))}")
 
-def bf16_phases(dev, smi: str) -> None:
+
+# -- bf16 training: compute_dtype=bfloat16 ------------------------------------------------
+
+# A bf16 training step (kernels 4-6 and 8-9 on fp32 casts, the glue in bf16)
+# against the same step through the float64 network, on the same batch,
+# (t, z) and weights, by loss, backbone output, whole gradient and group of
+# leaves (``bf16_group``, its gradients concatenated, floored at 1e-4 of the
+# float64 gradient's norm). TF-GridNet: each, the worst over BF16_DRAWS
+# draws, within BF16_F64_K x the bf16 plain route's worst there plus
+# BF16_F64_ABS. NCSN++ has one route (no
+# kernel on its path), so it is held to absolute bounds: the loss, the
+# output and the whole gradient within NCSNPP_TRAIN_BF16_TOL, each group
+# within NCSNPP_TRAIN_BF16_GROUP_TOL (the readings: 2.2e-4-1.7e-3, 8.3e-3,
+# 1.6e-2 and groups 3.9e-3-2.8e-2 over three runs), the output and the whole
+# gradient above 1e-4. Both: the bf16 step's whole gradient at least
+# BF16_TRAIN_RATIO times farther from float64 than the fp32 step's (bf16
+# ran); the kernels launched under their fp32 names and no bf16 form; and
+# two controls that must miss: every group's gradient zeroed in turn must
+# miss that group's limit, and the kernel route on the weights rounded to
+# bf16 (a bf16 training that dropped its fp32 master weights) must miss a
+# limit.
+BF16_TRAIN_RATIO = 3.0
+# TF-GridNet's steps are taken on this many draws of batch and (t, z), and
+# each route's distance to float64 is its worst over them.
+BF16_DRAWS = 2
+NCSNPP_TRAIN_BF16_TOL, NCSNPP_TRAIN_BF16_GROUP_TOL = 3e-2, 5e-2
+# TF-GridNet's steps run on weights whose q/k projections (attn_conv_Q and
+# attn_conv_K, weights and biases) are scaled by QK_SMOOTH. At the default
+# init the E=2 lane norms see lanes of about 1, and the norm of two lanes has
+# a derivative of up to 1/(2 sqrt(eps)) = 158 where they tie within
+# sqrt(eps) = 3.2e-3; bf16 rounds a lane by 4e-3, so at the few near-tie
+# positions, which carry the gradients, a bf16 route's derivative is a new
+# draw: two bf16 routes that differ only by the fp32 kernels' last bits read
+# 5l32c100's groups 0.04-0.48 from float64 and 6l48c200's up to 1.8, where a
+# zeroed group reads 1.0 (PERF.md §6). Scaled, the lanes' differences sit
+# inside the norm's smooth range and bf16 moves them by about 1e-4 of it.
+QK_SMOOTH = 0.02
+
+
+def smooth_qk_(net: torch.nn.Module) -> torch.nn.Module:
+    """``net``'s q/k projections scaled by QK_SMOOTH (see above)."""
+    with torch.no_grad():
+        for block in net.blocks:
+            for layer in (block.attn_conv_Q, block.attn_conv_K):
+                for p in layer.parameters():
+                    p.mul_(QK_SMOOTH)
+    return net
+
+
+def bf16_group(name: str) -> str:
+    """``leaf_group`` for a TF-GridNet block's leaves, the block (or layer)
+    for the other leaves of a backbone, ``stem`` for a top-level leaf."""
+    if name.startswith("blocks."):
+        return leaf_group(name)
+    parts = name.split(".")
+    return parts[0] if len(parts) > 2 else "stem"
+
+
+def step_grads(fdbm, batch, t, z, outputs: dict = None, name: str = ""):
+    """The loss and the parameter gradients (float64 copies) of one
+    training step on ``batch`` and the draw ``(t, z)``; the backbone's
+    output (complex64) goes to ``outputs[name]`` where ``outputs`` is
+    given."""
+    params = {n: p for n, p in fdbm.dnn.named_parameters() if p.requires_grad}
+    hook = None if outputs is None else fdbm.dnn.register_forward_hook(
+        lambda m, args, out: outputs.update({name: out.detach().to(torch.complex64)}))
+    loss = fdbm.loss_fn(batch, prior=(t, z))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    if hook is not None:
+        hook.remove()
+    return float(loss.detach()), {n: g.double() for n, g in zip(params, grads)}
+
+
+def bf16_limits(dist: dict, groups: dict, kernels: bool) -> dict:
+    """The limit of each quantity of ``dist["kernel"]`` (see above)."""
+    if kernels:
+        return {q: BF16_F64_K * v + BF16_F64_ABS for q, v in dist["plain"].items()}
+    return {q: NCSNPP_TRAIN_BF16_GROUP_TOL if q in groups else NCSNPP_TRAIN_BF16_TOL
+            for q in dist["kernel"]}
+
+
+def bf16_gates(phase: str, dist: dict, groups: dict, zeroed: dict, grads: dict, loss: float,
+               counts: dict, expected: dict, kernels: bool, record: dict) -> None:
+    """Emit a bf16 step's record and hold it to the gates above: ``dist``
+    are the routes' (kernel, plain, fp32, bf16_weights) distances to
+    float64 by quantity, ``zeroed`` each group's distance with its gradient
+    zeroed, ``grads`` and ``loss`` the kernel route's."""
+    limits = bf16_limits(dist, groups, kernels)
+    missed = lambda route: sorted(q for q in limits if not dist[route][q] <= limits[q])
+    ran = kernels or all(dist["kernel"][q] > 1e-4 for q in ("output", "whole"))
+    ratio = dist["kernel"]["whole"] / dist["fp32"]["whole"]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values()) and math.isfinite(loss)
+    bf16_launched = {k: v for k, v in counts.items() if k.endswith("_bf16") and v}
+    worst = max(((q, dist["kernel"][q] / v) for q, v in limits.items()), key=lambda a: a[1])
+    zeroed_passed = sorted(q for q, v in zeroed.items() if v <= limits[q])
+    controls = {"bf16_weights_missed": missed("bf16_weights"), "zeroed_group": zeroed,
+                "zeroed_group_passed": zeroed_passed}
+    emit({"phase": phase, "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES, **record,
+          "groups": len(groups), "distance_to_float64": dist, "limits": limits,
+          "worst_over_limit": worst, "missed": missed("kernel"), "controls": controls,
+          "bf16_over_fp32_whole": ratio, "ratio_gate": BF16_TRAIN_RATIO, "launches": counts,
+          "expected_launches": expected})
+    if missed("kernel") or not ran or not ratio >= BF16_TRAIN_RATIO or not finite \
+            or bf16_launched or any(counts[k] != v for k, v in expected.items()):
+        fail(f"{phase}: missed {missed('kernel')} ({worst}), above 1e-4 {ran}, bf16/fp32 "
+             f"{ratio} (>= {BF16_TRAIN_RATIO}), finite {finite}, launches {counts} "
+             f"(expected {expected})")
+    if not controls["bf16_weights_missed"] or zeroed_passed:
+        fail(f"{phase}: a control met the gate: {controls}")
+
+
+def bf16_grad_phase(rng, dev, backbone, phase: str, expected: dict, kernels: bool = True,
+                    init=None, seed: int = SEED, kernel_flops=None):
+    """Full-width bf16 training steps (B=2, 256 frames) through the kernel
+    route, the bf16 plain route (where the backbone has a kernel route;
+    NCSN++ has none, so its one route is both), the fp32 kernel route and
+    the float64 plain network (``Float64Backbone``), on the same weights
+    (``init`` sets them), held to the gates above; on TF-GridNet on
+    BF16_DRAWS draws of batch and (t, z), each route's distances the worst
+    over the draws (one draw's groups scatter by up to 1.7x between two
+    bf16 routes, PERF.md §6), on NCSN++ on one. The kernel route on the
+    weights rounded to bf16 (a control) runs on the first draw; ``expected``
+    are the kernel route's launches there. Returns the FLOPs of the kernel
+    route's step: ``flops_estimate`` of it (its products and convolutions
+    on PyTorch ops) plus ``kernel_flops``, the products of the CUDA kernels
+    it launched, which are opaque to the counter, from their shapes. The
+    plain route's count is the same sum (1,750,987,617,280 for 5l32c100,
+    PERF.md §6) at several times the cost: its recurrences are many small
+    ops."""
+    from fdbm_tpu_torch import ops
+    from fdbm_tpu_torch.model import FDBMConfig
+    from fdbm_tpu_torch.utils.profiling import flops_estimate
+
+    cfg = FDBMConfig(compute_dtype="bfloat16")
+    torch.manual_seed(seed)
+    kernel = fdbm_with(backbone, dev, cfg)
+    if init is not None:
+        init(kernel.dnn)
+    weights = kernel.dnn.state_dict()
+    # remat keeps the plain and float64 TF-GridNet routes' memory in bounds
+    # (recomputing a block's forward repeats its bits).
+    plain_kw = {"use_kernels": False, "remat": True} if kernels else {}
+    routes = {"kernel": kernel,
+              "plain": fdbm_with(backbone, dev, cfg, **plain_kw) if kernels else None,
+              "fp32": fdbm_with(backbone, dev),
+              "bf16_weights": fdbm_with(backbone, dev, cfg),
+              "f64": fdbm_with(backbone, dev, **plain_kw)}
+    for name, f in routes.items():
+        if name != "kernel" and f is not None:
+            f.dnn.load_state_dict(weights)
+    with torch.no_grad():
+        for p in routes["bf16_weights"].dnn.parameters():
+            p.copy_(p.bfloat16().float())
+    routes["f64"].dnn = Float64Backbone(routes["f64"].dnn)
+    shape = (TRAIN_BATCH, 1, cfg.n_fft // 2 + 1, TRAIN_FRAMES)
+    t = torch.tensor([0.3, 0.8], device=dev)
+    seconds, draws = {}, []
+    flops = counts = None
+    for draw in range(BF16_DRAWS if kernels else 1):
+        batch = synthetic_batch(rng, dev)
+        z = torch.complex(*(torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                                            / math.sqrt(2), device=dev) for _ in range(2)))
+        outputs, results = {}, {}
+        for name, fdbm in routes.items():
+            if fdbm is None or (draw and name == "bf16_weights"):
+                continue
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            if name == "kernel" and not draw:
+                ops.reset_launch_counts()
+                out = []
+                flops = flops_estimate(lambda: out.append(step_grads(fdbm, batch, t, z, outputs,
+                                                                     name)))
+                results[name], counts = out[0], ops.launch_counts()
+            else:
+                results[name] = step_grads(fdbm, batch, t, z, outputs, name)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - start
+            torch.cuda.empty_cache()
+        if not kernels:
+            results["plain"], outputs["plain"] = results["kernel"], outputs["kernel"]
+        loss64, g64 = results.pop("f64")
+        g64 = {n.removeprefix("net."): g for n, g in g64.items()}
+        norm64 = math.sqrt(sum(float((g * g).sum()) for g in g64.values()))
+        groups = {}
+        for n in g64:
+            groups.setdefault(bf16_group(n), []).append(n)
+        cat = lambda g, names: torch.cat([g[n].reshape(-1) for n in names])
+        dist = {r: {"loss": abs(l - loss64) / abs(loss64),
+                    "output": rel_err(outputs[r], outputs["f64"]),
+                    **{grp: grad_rel(cat(g, names), cat(g64, names), 1e-4 * norm64)
+                       for grp, names in groups.items()},
+                    "whole": grad_rel(cat(g, list(g64)), cat(g64, list(g64)))}
+                for r, (l, g) in results.items()}
+        if not draw:
+            zeroed = {grp: grad_rel(torch.zeros_like(cat(g64, names)), cat(g64, names),
+                                    1e-4 * norm64) for grp, names in groups.items()}
+            first = {"loss": results["kernel"][0], "grads": results["kernel"][1],
+                     "loss_float64": loss64}
+        draws.append(dist)
+        del results, outputs, g64
+    del kernel, routes
+    torch.cuda.empty_cache()
+    worst = {r: {q: max(d[r][q] for d in draws if r in d) for q in draws[0][r]}
+             for r in draws[0]}
+    bf16_gates(phase, worst, groups, zeroed, first["grads"], first["loss"], counts, expected,
+               kernels, {"kernel_route": kernels, "init": getattr(init, "__name__", None),
+                         "draws": len(draws), "loss": first["loss"],
+                         "loss_float64": first["loss_float64"],
+                         "distance_by_draw": draws if len(draws) > 1 else None,
+                         "seconds_by_route": seconds,
+                         "flops_per_step": flops + (kernel_flops or 0)})
+    return flops + (kernel_flops or 0)
+
+
+def finetune_bf16_phase(rng, dev) -> dict:
+    """One fine-tuning step of 5l32c100 at ``compute_dtype: bfloat16`` (B=2,
+    256 frames, N=5 ``ode_ei``): its N-1 gradient-free calls serve in bf16
+    (kernels 1-3 in their bf16 forms), its last call trains in bf16 with
+    kernels 5-6 on fp32 lines; the loss and every gradient finite. Returns
+    the launches."""
+    from fdbm_tpu_torch import losses, ops
+    from fdbm_tpu_torch.models.tfgridnet import tfgridnet_5l32c100
+
+    torch.manual_seed(SEED)
+    fdbm = fdbm_with(tfgridnet_5l32c100, dev,
+                     dataclasses.replace(finetune_cfg(), compute_dtype="bfloat16"))
+    x, y = (fdbm.audio_to_spec(a) for a in synthetic_batch(rng, dev))
+    z = complex_like(rng, y)
+    params = [p for p in fdbm.dnn.parameters() if p.requires_grad]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = losses.compute_loss(fdbm.loss_cfg, fdbm._finetune_unrolled(y, z=z), x)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    calls = FT_N - 1
+    expected = {**dict.fromkeys(counts, 0),
+                "grid_rnn_seq1_pair_bf16": RNN_PATHS * calls,
+                "flat_group_norm_bf16": RNN_BLOCKS * calls,
+                "frame_attention_bf16": RNN_BLOCKS * calls,
+                "grid_fold_train_pair": RNN_PATHS, "grid_fold_train_pair_bwd": RNN_PATHS}
+    finite = math.isfinite(float(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+    emit({"phase": "finetune_bf16", "N": FT_N, "batch": TRAIN_BATCH, "frames": TRAIN_FRAMES,
+          "serve_dtype": str(fdbm.serve_dtype), "train_dtype": str(fdbm.train_dtype),
+          "loss": float(loss), "finite": finite, "seconds": wall, "launches": counts,
+          "expected_launches": expected})
+    if not finite or counts != expected:
+        fail(f"finetune_bf16: loss {float(loss)}, finite {finite}, launches {counts} "
+             f"(expected {expected})")
+    return counts
+
+
+def bf16_train_phases(rng, dev, smi: str) -> dict:
+    """bf16 training: the steps against float64 (5l32c100, ncsnpp_v2 on
+    fan-in weights; 6l48c200's runs in ``wide_train_phase``, on its float64
+    network), one fine-tuning step, and the rates of 5l32c100's and
+    ncsnpp_v2's bf16 steps with the FLOPs a step. Returns the launches of
+    the 5l32c100 steady steps and the fine-tuning step."""
+    from fdbm_tpu_torch.models.ncsnpp import ncsnpp_v2
+    from fdbm_tpu_torch.models.tfgridnet import tfgridnet_5l32c100
+    from fdbm_tpu_torch.model import FDBMConfig
+
+    t0 = time.perf_counter()
+    seconds, totals = {}, {}
+
+    def timed(name, fn, *args, **kwargs):
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    cfg = FDBMConfig(compute_dtype="bfloat16")
+    per_step = {"grid_fold_train_pair": RNN_PATHS, "grid_fold_train_pair_bwd": RNN_PATHS}
+    # Kernels 5-6 of a step: each block's intra path (263 bins a line, 2 x 262
+    # lines) and inter path (262 frames a line, 2 x 263 lines), forward and backward.
+    q_pad, t_pad = cfg.n_fft // 2 + 1 + 6, TRAIN_FRAMES + 6
+    paths = (rnn_flops(TRAIN_BATCH * t_pad, q_pad - 3, 32, 100),
+             rnn_flops(TRAIN_BATCH * q_pad, t_pad - 3, 32, 100))
+    rnn = RNN_BLOCKS * sum(f["forward"] + f["backward"] for f in paths)
+    flops = {}
+    flops[RNN_MODEL] = timed("train_grad_bf16", bf16_grad_phase, rng, dev, tfgridnet_5l32c100,
+                             "train_grad_bf16", per_step, init=smooth_qk_, kernel_flops=rnn)
+    # The fp32 rate again next to the bf16 one: the first ran beside the
+    # quality trainings (start_quality_workers).
+    timed("train_rate_fp32", train_rate_phase, rng, dev, smi, tfgridnet_5l32c100,
+          "train_rate_fp32", None, flops[RNN_MODEL])
+    *_, counts = timed("train_rate_bf16", train_rate_phase, rng, dev, smi, tfgridnet_5l32c100,
+                       "train_rate_bf16", cfg, flops[RNN_MODEL])
+    totals.update(counts)
+    for k, v in timed("finetune_bf16", finetune_bf16_phase, rng, dev).items():
+        totals[k] = totals.get(k, 0) + v
+    nothing = dict.fromkeys(totals, 0)
+    with cudnn_benchmark():  # as the trainer runs
+        flops[NCSNPP] = timed("ncsnpp_train_grad_bf16", bf16_grad_phase, rng, dev, ncsnpp_v2,
+                              "ncsnpp_train_grad_bf16", nothing, kernels=False,
+                              init=fan_in_weights_)
+        timed("ncsnpp_train_rate_bf16", train_rate_phase, rng, dev, smi, ncsnpp_v2,
+              "ncsnpp_train_rate_bf16", cfg, flops[NCSNPP])
+    # The fp32 and bf16 steps of each model (ncsnpp_v2's fp32 rate ran earlier
+    # in this run).
+    pairs = {RNN_MODEL: ("train_rate_fp32", "train_rate_bf16"),
+             NCSNPP: ("ncsnpp_train_rate", "ncsnpp_train_rate_bf16")}
+    emit({"phase": "bf16_train_rates", "flops_per_step": flops,
+          "step_ms": {m: [STEP_MS.get(p) for p in ps] for m, ps in pairs.items()},
+          "tflops_per_second_fp32_bf16": {
+              m: [flops[m] / STEP_MS[p] / 1e9 if p in STEP_MS else None for p in ps]
+              for m, ps in pairs.items()},
+          "bf16_over_fp32_step": {m: STEP_MS[b] / STEP_MS[f] if f in STEP_MS else None
+                                  for m, (f, b) in pairs.items()},
+          "seconds_by_phase": seconds, "wall_seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    return totals
+
+
+def bf16_phases(dev, smi: str, quality_workers: dict = None) -> None:
     """The bf16 phases that have no fp32 run beside them: the backbones, the
-    2-step serves and the quality on trained weights."""
+    2-step serves and the quality on trained weights (trained by
+    ``quality_workers`` where given)."""
     t0 = time.perf_counter()
     seconds_by_phase = {}
     for name, fn, args in (("backbone_bf16", backbone_bf16_phase, (dev,)),
                            ("serve_check_bf16", serve_check_bf16_phase, (dev,)),
-                           ("bf16_quality", bf16_quality_phase, (dev, smi))):
+                           ("bf16_quality", bf16_quality_phase, (dev, smi, quality_workers))):
         start = time.perf_counter()
         fn(*args)
         seconds_by_phase[name] = time.perf_counter() - start
@@ -3313,13 +3914,15 @@ def bf16_phases(dev, smi: str) -> None:
 
 
 def main(kernels_only: bool = False, ncsnpp_only: bool = False, bf16_only: bool = False,
-         parallel_only: int = 0) -> None:
+         parallel_only: int = 0, bf16_train_only: bool = False) -> None:
     """The smoke run; ``kernels_only`` stops after the kernel rows,
     ``ncsnpp_only`` runs only the NCSN++ phases (no kernel is built),
     ``bf16_only`` only the bf16 kernel rows and the phases with a bf16 run
     (beside their fp32 runs), ``parallel_only`` (R) only ``samplers`` R
     times on one model, each reading printed, and the data-parallel
-    phases."""
+    phases, ``bf16_train_only`` only the bf16 training phases (beside the
+    fp32 rates), the quality on trained weights, the training CLI with its
+    run logging and the pooled folder with its serving trace."""
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
     from fdbm_tpu_torch import ops
@@ -3365,6 +3968,27 @@ def main(kernels_only: bool = False, ncsnpp_only: bool = False, bf16_only: bool 
             ncsnpp_folder(tmp, ncsnpp_ckpt, smi, extra=(BF16_OVERRIDE,))
             bf16_phases(dev, smi)
         emit({"phase": "done", "bf16_only": True, "wall_seconds": time.perf_counter() - t_start})
+        print(smi, flush=True)
+        return
+
+    if bf16_train_only:
+        from fdbm_tpu_torch.models.ncsnpp import ncsnpp_v2
+
+        rng = np.random.default_rng(SEED)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            quality = start_quality_workers(tmp)
+            train_rate_phase(rng, dev, smi, tfgridnet_5l32c100)
+            with cudnn_benchmark():
+                train_rate_phase(rng, dev, smi, ncsnpp_v2, "ncsnpp_train_rate")
+            bf16_train_phases(rng, dev, smi)
+            wide_bf16_grad_phase(dev, {"lstm_core": 2 * WIDE_PATHS,
+                                       "lstm_core_bwd": 2 * WIDE_PATHS})
+            _, run = train_cli_phase(tmp, smi)
+            serve_folder(tmp, os.path.join(run, "checkpoints", "last.pt"), "serve_folder",
+                         folder_seconds(), "4.096", smi, trace=True)
+            bf16_quality_phase(dev, smi, quality)
+        emit({"phase": "done", "bf16_train_only": True,
+              "wall_seconds": time.perf_counter() - t_start})
         print(smi, flush=True)
         return
 
@@ -3600,12 +4224,14 @@ def main(kernels_only: bool = False, ncsnpp_only: bool = False, bf16_only: bool 
         for name, secs, chunk in (("serve_folder", seconds, "4.096"),
                                   ("serve_folder_whole", seconds[:2] + seconds[-1:], "0")):
             counts = serve_folder(tmp, ckpt, name, secs, chunk, smi,
-                                  profile_fdbm=fdbm if chunk != "0" else None)
+                                  profile_fdbm=fdbm if chunk != "0" else None,
+                                  trace=chunk != "0")
             for k, v in counts.items():
                 totals[k] += v
         for k, v in serve_folder_bf16(tmp, ckpt, smi).items():
             totals[k] += v
         workers = start_ddp_workers(tmp)  # they run beside the phases up to theirs
+        quality = start_quality_workers(tmp)
         for k, v in samplers_phase(fdbm, plain, dev).items():
             totals[k] += v
         for k, v in mesh_serve_phase(tmp, ckpt, fdbm, dev, smi).items():
@@ -3658,8 +4284,13 @@ def main(kernels_only: bool = False, ncsnpp_only: bool = False, bf16_only: bool 
         # -- NCSN++: ncsnpp_v2 through both CLIs, the trainer, and its 5M twin ----
         ncsnpp_phases(tmp, rng, dev, smi)
 
+        # -- bf16 training: the steps against float64, fine-tuning, the rates -------
+        ops.reset_launch_counts()
+        for k, v in bf16_train_phases(rng, dev, smi).items():
+            totals[k] += v
+
         # -- bf16 serving: the backbones, 2-step serves, quality on trained weights
-        bf16_phases(dev, smi)
+        bf16_phases(dev, smi, quality)
     emit({"phase": "done", "wall_seconds": time.perf_counter() - t_start})
 
     print(smi, flush=True)
@@ -4160,6 +4791,10 @@ if __name__ == "__main__":
     parser.add_argument("--bf16-only", action="store_true",
                         help="only run the bf16 kernel rows and the bf16 serving phases "
                              "(no ok line)")
+    parser.add_argument("--bf16-train-only", action="store_true",
+                        help="only run the bf16 training phases beside the fp32 rates, the "
+                             "quality on trained weights, the training CLI's run logging and "
+                             "the folder's serving trace (no ok line)")
     parser.add_argument("--probe-fp32", metavar="OUT",
                         help="only write what the fp32 route computes to OUT, for a comparison "
                              "of two checkouts (see probe_fp32)")
@@ -4168,11 +4803,27 @@ if __name__ == "__main__":
                         "each reading printed, and the data-parallel phases (no ok line)")
     parser.add_argument("--ddp-nccl-worker", nargs=2, metavar=("OUT", "TMP"),
                         help=argparse.SUPPRESS)
+    parser.add_argument("--probe-quality", nargs="+", metavar=("OUT", "STEPS"),
+                        help="only train bf16_quality's model in fp32 and in bf16 for STEPS "
+                             "steps at each LR or LR,BATCH that follows (see probe_quality), "
+                             "written to OUT (JSON)")
+    parser.add_argument("--quality-worker", nargs=2, metavar=("DTYPE", "OUT"),
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--quality-probe-worker", nargs=4,
+                        metavar=("DTYPE", "LR[,BATCH]", "STEPS", "OUT"),
+                        help=argparse.SUPPRESS)
     parser.add_argument("--ddp-two-ranks-worker", nargs=3, metavar=("RANK", "STORE", "OUT"),
                         help=argparse.SUPPRESS)
     cli = parser.parse_args()
     if cli.ddp_nccl_worker:
         ddp_nccl_worker(*cli.ddp_nccl_worker)
+    elif cli.quality_worker:
+        quality_worker(*cli.quality_worker)
+    elif cli.quality_probe_worker:
+        quality_probe_worker(*cli.quality_probe_worker)
+    elif cli.probe_quality:
+        out, steps, *specs = cli.probe_quality
+        probe_quality(out, int(steps), specs or [str(QUALITY_LR)])
     elif cli.ddp_two_ranks_worker:
         rank, store, out = cli.ddp_two_ranks_worker
         ddp_two_ranks_worker(int(rank), store, out)
@@ -4184,6 +4835,8 @@ if __name__ == "__main__":
         main(ncsnpp_only=True)
     elif cli.bf16_only:
         main(bf16_only=True)
+    elif cli.bf16_train_only:
+        main(bf16_train_only=True)
     elif cli.probe_fp32:
         probe_fp32(cli.probe_fp32)
     elif cli.probe_kernels:

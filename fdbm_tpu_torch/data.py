@@ -1,12 +1,15 @@
 """Host-side data pipeline: paired clean/noisy wavs -> batched audio crops.
 
-Port of ``fdbm_tpu/data.py`` without its native loader: ``SpecsDataset``
-reads a pair of wavs through ``utils/audio.py``, crops (a random start from
-the dataset's numpy generator in training, the centre otherwise) or pads to
-``(num_frames - 1) * hop_length`` samples, and normalises both by the
-config's factor; ``BatchLoader`` prefetches batches on a thread, drops the
-last partial batch in training and wrap-pads it with a 0/1 mask in
-validation. The STFT runs in the train step, on the device.
+Port of ``fdbm_tpu/data.py``: ``SpecsDataset`` decodes, crops (a random
+start from the dataset's numpy generator in training, the centre otherwise)
+or pads to ``(num_frames - 1) * hop_length`` samples, and normalises a pair
+of wavs in one call of the native loader (``native/wavio.cc``, GIL-free
+C++), and reads a file whose format that decoder does not take through
+``utils/audio.py``, drawing its crop start as the JAX package's loader does
+on each path, so that both packages give the same batches. ``BatchLoader``
+prefetches batches on a thread, drops the last partial batch in training and
+wrap-pads it with a 0/1 mask in validation. The STFT runs in the train step,
+on the device.
 
 Directory layout (format 'default'): {base_dir}/{subset}/clean|noisy/**/*.wav
 with subset in train/valid/test.
@@ -17,13 +20,16 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from glob import glob
 from os.path import join
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+from torch.profiler import record_function
 
+from fdbm_tpu_torch.native import wavio
 from fdbm_tpu_torch.parallel.distributed import process_count, process_index
 from fdbm_tpu_torch.utils.audio import read_wav
 
@@ -81,6 +87,10 @@ class SpecsDataset:
             raise ValueError(f"{subset}: {len(self.clean_files_all)} clean vs "
                              f"{len(self.noisy_files_all)} noisy files")
         self.rng = np.random.default_rng(seed)
+        # Items loaded by each path, and the loader's seconds on them (all
+        # threads' sum).
+        self.loaded = {"native": 0, "read_wav": 0, "seconds": 0.0}
+        self._loaded_lock = threading.Lock()
         self.clean_files: List[str] = []
         self.noisy_files: List[str] = []
         self.global_len = 0
@@ -114,7 +124,35 @@ class SpecsDataset:
         return max(1, n // 200) if self.cfg.dummy and n else n
 
     def load_item(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        t0 = time.perf_counter()
         target_len = self.cfg.target_len
+        item = self._load_item_native(i, target_len)
+        path = "native" if item is not None else "read_wav"
+        if item is None:
+            item = self._load_item_read_wav(i, target_len)
+        with self._loaded_lock:
+            self.loaded[path] += 1
+            self.loaded["seconds"] += time.perf_counter() - t0
+        return item
+
+    def _load_item_native(self, i: int, target_len: int
+                          ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """The item through ``wavio.load_crop_pair_native``, None where the
+        decoder does not take a file. The crop start is drawn only where the
+        clean file is longer than ``target_len``, as the JAX package's
+        native path draws it (``fdbm_tpu/data.py:163-190``)."""
+        info = wavio.wav_info(self.clean_files[i])
+        if info is None:
+            return None
+        current_len = info[2]
+        if current_len > target_len and self.shuffle_spec:
+            start = int(self.rng.uniform(0, current_len - target_len))
+        else:
+            start = -1  # the centre, or padding
+        return wavio.load_crop_pair_native(self.clean_files[i], self.noisy_files[i],
+                                           target_len, start, self.cfg.normalize)
+
+    def _load_item_read_wav(self, i: int, target_len: int) -> Tuple[np.ndarray, np.ndarray]:
         x, _ = read_wav(self.clean_files[i])
         y, _ = read_wav(self.noisy_files[i])
         x, y = x[0], y[0]
@@ -221,7 +259,9 @@ class BatchLoader:
         th.start()
         try:
             while True:
-                item = q.get()
+                # The consumer's wait for the loader, a span of a profiler trace.
+                with record_function("data.wait"):
+                    item = q.get()
                 if item is None:
                     return
                 if isinstance(item, Exception):

@@ -19,8 +19,12 @@ utterances in batches:
 
 The sweep is a pipeline: a batch's sampler is enqueued on the current
 stream and its output copied to pinned host memory behind it; the host reads
-a batch back only when ``SERVE_DEPTH`` batches are in flight, so the card
-works on queued batches while the host builds the next one. PyTorch compiles
+a batch back only when ``FDBM_TPU_SERVE_DEPTH`` batches (default 3) are in
+flight, so the card works on queued batches while the host builds the next
+one. ``FDBM_TPU_SERVE_TRACE=1`` prints one line a batch, the JAX package's
+``[serve] blen=... n=... gap=... build+h2d=... retire=...`` (seconds: the
+host's gap since the last line, building and enqueueing the batch, and
+reading back the oldest). PyTorch compiles
 nothing per shape, so ``prewarm`` is the one-time build of the CUDA kernels.
 Randomness comes from one ``torch.Generator`` on the device.
 :func:`enhance_folder` serves a folder (this process's share of it in a
@@ -56,8 +60,8 @@ SINGLE_CLIP_SCALE = 0.5
 FOLDER_CLIP_SCALE = 0.95
 # Cross-fade between the chunks of a long file, in STFT frames.
 OVERLAP_FRAMES = 16
-# Batches in flight before the oldest is read back (the JAX package's
-# default depth).
+# Batches in flight before the oldest is read back, unless
+# FDBM_TPU_SERVE_DEPTH says otherwise (the JAX package's default depth).
 SERVE_DEPTH = 3
 
 
@@ -328,11 +332,21 @@ class BucketedEnhancer:
                     x = x / peak * clip_scale
                 out[i] = x.astype(np.float32)
 
+        depth = max(1, int(os.environ.get("FDBM_TPU_SERVE_DEPTH", SERVE_DEPTH)))
+        trace = os.environ.get("FDBM_TPU_SERVE_TRACE") == "1"
         in_flight: deque = deque()
+        t_prev = time.perf_counter()
         for blen, rows in self.plan([len(a) for a in audios]):
+            t0 = time.perf_counter()
             in_flight.append(dispatch(blen, rows))
-            if len(in_flight) >= SERVE_DEPTH:
+            t1 = t2 = time.perf_counter()
+            if len(in_flight) >= depth:
                 retire(in_flight.popleft())
+                t2 = time.perf_counter()
+            if trace:
+                print(f"[serve] blen={blen} n={len(rows)} gap={t0 - t_prev:.2f} "
+                      f"build+h2d={t1 - t0:.2f} retire={t2 - t1:.2f}", flush=True)
+            t_prev = t2
         while in_flight:
             retire(in_flight.popleft())
         return out  # type: ignore[return-value]

@@ -18,16 +18,19 @@ Finetuning mode (the "enhanced bridge") trains a pretrained bridge through
 its own unrolled N-step ODE-EI sampler, with a gradient through the last
 backbone call only (``_finetune_unrolled``).
 
-The serving dtype follows ``fdbm_tpu/model.py:162,177-180``:
-``inference_dtype: bfloat16`` serves in bf16, ``""`` inherits
-``compute_dtype``, ``float32`` forces fp32. The backbone reads it in eval
-mode only, the serving route, so every serving call follows it:
+The dtypes follow ``fdbm_tpu/model.py:162,177-180``: ``compute_dtype``
+(float32 or bfloat16) is the dtype of the training route, the backbone's
+train mode; the serving dtype is ``inference_dtype`` (``bfloat16`` or
+``float32``), or ``compute_dtype`` where it is ``""``. The backbone reads the
+serving dtype in eval mode, so every serving call follows it:
 ``enhance_batch`` / ``enhance_audio``, predictive mode's one call, and the
 N-1 gradient-free calls of the fine-tuning unroll (the JAX package's
-``model_fn(fast=True)``). Training (train mode) and the parameters stay
-fp32, as Flax keeps its parameters fp32 under ``dtype=bfloat16``; bf16
-training (``compute_dtype: bfloat16``) is not ported, and ``param_dtype`` is
-read nowhere, as in the JAX package.
+``model_fn(fast=True)``), whose last call trains at the compute dtype. In
+bf16 the backbones cast where the JAX package's ``dtype=bfloat16`` modules
+do, and the recurrences of the training route stay fp32. The parameters,
+Adam, the EMA and the checkpoints stay fp32, as Flax keeps its parameters
+fp32 under ``dtype=bfloat16``; ``param_dtype`` is read nowhere, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -122,9 +125,9 @@ class FDBMConfig:
     accumulate_grad_batches: int = 1
     # recompute each backbone block in the backward
     remat: bool = False
-    # numerics: training in float32 only; serving in float32 or bfloat16
-    # ("" inherits compute_dtype); param_dtype is read nowhere (parameters
-    # stay float32), as in the JAX package
+    # numerics: training (compute_dtype) and serving (inference_dtype, ""
+    # inherits compute_dtype) in float32 or bfloat16; param_dtype is read
+    # nowhere (parameters stay float32), as in the JAX package
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     inference_dtype: str = ""
@@ -137,26 +140,30 @@ class FDBMConfig:
         return cls(**{k: v for k, v in d.items() if k in fields})
 
 
-_SERVE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def training_dtype(cfg: FDBMConfig) -> torch.dtype:
+    """The dtype of the training route: ``compute_dtype``, float32 or
+    bfloat16 (``fdbm_tpu/model.py:162``)."""
+    if cfg.compute_dtype not in _DTYPES:
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: training runs in one of "
+                         f"{sorted(_DTYPES)}")
+    return _DTYPES[cfg.compute_dtype]
 
 
 def serving_dtype(cfg: FDBMConfig) -> torch.dtype:
     """The dtype of the serving route (``fdbm_tpu/model.py:177-180``):
     ``inference_dtype`` if set, else ``compute_dtype``. ``param_dtype`` is
     accepted and read nowhere, as in the JAX package (``model.py:129``):
-    the parameters, Adam and the EMA stay float32. Raises for bf16 training
-    (``compute_dtype`` other than float32) and for a serving dtype that is
-    neither float32 nor bfloat16."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: fdbm_tpu_torch trains in float32 only; "
-            "bf16 training is ROADMAP queue 1 item 2 (serving in bf16 is "
-            "inference_dtype=bfloat16)")
+    the parameters, Adam and the EMA stay float32. Raises for a dtype that
+    is neither float32 nor bfloat16, in either field."""
+    training_dtype(cfg)
     name = cfg.inference_dtype or cfg.compute_dtype
-    if name not in _SERVE_DTYPES:
+    if name not in _DTYPES:
         raise ValueError(f"inference_dtype={cfg.inference_dtype!r}: serving runs in one of "
-                         f"{sorted(_SERVE_DTYPES)} (or '' for compute_dtype)")
-    return _SERVE_DTYPES[name]
+                         f"{sorted(_DTYPES)} (or '' for compute_dtype)")
+    return _DTYPES[name]
 
 
 def _resolve_device(device) -> torch.device:
@@ -177,6 +184,7 @@ class FDBM:
             raise ValueError(
                 f"mode='predictive' requires a *_predictive backbone (got {cfg.backbone!r}), "
                 f"matching the reference config pairing (config_predictive.yaml).")
+        self.train_dtype = training_dtype(cfg)
         self.serve_dtype = serving_dtype(cfg)
         self.cfg = cfg
         self.device = _resolve_device(device)
@@ -186,7 +194,8 @@ class FDBM:
         # the 30-step sampler amplifies any per-call deviation.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        backbone_kwargs = {"remat": cfg.remat, "serve_dtype": self.serve_dtype}
+        backbone_kwargs = {"remat": cfg.remat, "train_dtype": self.train_dtype,
+                           "serve_dtype": self.serve_dtype}
         if cfg.backbone.startswith("ncsnpp"):
             # The U-Net places its attention by the (even) bin count it reads.
             backbone_kwargs["image_size"] = (cfg.n_fft // 2 + 1) // 2 * 2
@@ -264,11 +273,11 @@ class FDBM:
         """The bridge's N-step ODE-EI sampler from its prior (``z`` replaces
         the draw) with a gradient through the last backbone call only, as
         ``fdbm_tpu/model.py:_finetune_unrolled`` stops it on steps 1..N-1.
-        Those steps run on the serving route (eval mode) without autograd;
-        the last runs on the training route (train mode), with autograd
-        where it is enabled. ``params`` (the EMA weights of the valid loss)
-        replaces the backbone's own on every step. The backbone's mode is
-        restored after."""
+        Those steps run on the serving route (eval mode, the serving dtype)
+        without autograd; the last runs on the training route (train mode,
+        the compute dtype), with autograd where it is enabled. ``params``
+        (the EMA weights of the valid loss) replaces the backbone's own on
+        every step. The backbone's mode is restored after."""
         bridge = self.bridge
         steps = bridge._steps(bridge.path.sampling_param_ode_ei)
         call = self.dnn if params is None else \

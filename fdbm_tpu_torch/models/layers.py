@@ -10,7 +10,9 @@ Parameters stay fp32 at every dtype, as Flax keeps them under
 ``dtype=bfloat16``. :class:`Dense`, :class:`Conv2d` and
 :class:`ConvTranspose2d` compute in their input's dtype with their
 parameters cast to it, Flax's ``nn.Dense(dtype=...)`` (and ``nn.Conv``,
-``nn.ConvTranspose``); on fp32 inputs they are ``torch.nn``'s layers.
+``nn.ConvTranspose``); on fp32 inputs they are ``torch.nn``'s layers. The
+cast is a differentiable op, so in bf16 training the gradients land on the
+fp32 parameters.
 """
 
 from __future__ import annotations
@@ -94,6 +96,14 @@ def layer_norm_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (xc * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
+def recurrence_input(x: torch.Tensor) -> torch.Tensor:
+    """``x`` widened to fp32 (a float64 reference route stays float64): the
+    training recurrences (kernels 4-6 and 8-9) run in fp32 at either
+    compute dtype, their outputs cast back to the activations' dtype, as the
+    JAX package's ``layers.py:155-157`` and ``tfgridnet.py:171-174`` do."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class BiLSTM(nn.Module):
     """Bidirectional single-layer LSTM over axis 0 of sequence-major
     ``[S, N, D]`` -> ``[S, N, 2H]`` (forward ++ backward), gates i, f, g, o,
@@ -104,7 +114,9 @@ class BiLSTM(nn.Module):
     Routed by mode, as the JAX package's ``use_pallas`` / ``use_pallas_train``
     route it: eval mode runs ``ops.lstm.bilstm_fused_forward`` (kernel 7; a
     bf16 x takes its bf16 form and gives bf16, ``layers.py:159-165``), train
-    mode ``ops.lstm.bilstm_train``; ``use_kernels=False`` runs the plain
+    mode ``ops.lstm.bilstm_train`` on x cast to fp32 (or wider), its output
+    cast back to x's dtype (``layers.py:155-157``: bf16 training keeps the
+    training recurrence in fp32); ``use_kernels=False`` runs the plain
     recurrence (of the same form) on any device. Inside the fused kernels' gate the TF-GridNet
     blocks hand these parameters to ``ops.gridrnn`` instead."""
 
@@ -119,7 +131,12 @@ class BiLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weights = (self.w_ih, self.w_hh, self.bias)
-        if self.use_kernels and self.training:
-            return bilstm_train(x, *weights)
+        if self.training:
+            wide = recurrence_input(x)
+            if self.use_kernels:
+                out = bilstm_train(wide, *weights)
+            else:
+                out = torch.cat(bilstm_fused_forward_plain(wide.contiguous(), *weights), dim=-1)
+            return out.to(x.dtype)
         both = bilstm_fused_forward if self.use_kernels else bilstm_fused_forward_plain
         return torch.cat(both(x.contiguous(), *weights), dim=-1)

@@ -23,8 +23,10 @@ norms and attention are XLA ops), so the port runs cuDNN convolutions and
 plain PyTorch ops and launches none of the port's CUDA kernels.
 
 ``serve_dtype`` (bf16 under ``inference_dtype: bfloat16``) is the dtype of
-eval mode, the serving route; train mode computes in fp32. In bf16 the net
-casts where the JAX package's ``dtype=bfloat16`` twin does
+eval mode, the serving route, and ``train_dtype`` (bf16 under
+``compute_dtype: bfloat16``) that of train mode; the JAX package runs one
+module on both routes, so the two modes cast alike. In bf16 the net casts
+where the JAX package's ``dtype=bfloat16`` module does
 (``fdbm_tpu/models/ncsnpp.py``): the input stack and ``conv_in``, the time
 MLP, the blocks' convolutions, ``temb_proj``, the Dense layers on maps, the
 attention's q/k/v/proj (its softmax in fp32, cast back) and the pyramid in
@@ -190,8 +192,10 @@ class NCSNpp(nn.Module):
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (16,),
                  image_size: int = 256, fourier_scale: float = 16.0, dropout: float = 0.0,
                  skip_rescale: bool = True, init_scale: float = 0.0,
-                 time_conditioned: bool = True, serve_dtype: torch.dtype = torch.float32):
+                 time_conditioned: bool = True, train_dtype: torch.dtype = torch.float32,
+                 serve_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.train_dtype = train_dtype
         self.serve_dtype = serve_dtype
         self.levels = len(ch_mult)
         self.num_res_blocks = num_res_blocks
@@ -270,9 +274,10 @@ class NCSNpp(nn.Module):
                 t: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x, y: complex ``[B, 1, F, T]``; t: ``[B]`` (x and t unused by a
         predictive twin). Returns complex ``[B, 1, F, T]``."""
-        # A bf16 serving dtype casts the activations in eval mode; otherwise
+        # A bf16 dtype of the mode's route casts the activations; otherwise
         # they keep the input's dtype (fp32, or float64 for a reference route).
-        dt = None if self.training or self.serve_dtype == torch.float32 else self.serve_dtype
+        dt = self.train_dtype if self.training else self.serve_dtype
+        dt = None if dt == torch.float32 else dt
         chans = [x.real, x.imag, y.real, y.imag] if self.time_conditioned else [y.real, y.imag]
         inp = torch.stack([ch[:, 0] for ch in chans], dim=1)  # [B, C, F, T]
         inp = inp if dt is None else inp.to(dt)
@@ -321,42 +326,42 @@ class NCSNpp(nn.Module):
 # factory takes the ``remat`` that ``FDBM`` passes and ignores it, as the
 # JAX package's factories do, ``image_size``, the even bin count of the
 # spectrogram the net reads (256 for the configs' n_fft 510 and 512), and
-# ``serve_dtype``, the dtype of eval mode.
+# ``train_dtype`` and ``serve_dtype``, the dtypes of train and eval mode.
 _SMALL = dict(ch_mult=(1, 1, 1, 1), num_res_blocks=1, attn_resolutions=(0,))
 
 
 @BackboneRegistry.register("ncsnpp_v2")
 def ncsnpp_v2(remat: bool = False, image_size: int = 256,
-              serve_dtype: torch.dtype = torch.float32) -> NCSNpp:
-    return NCSNpp(image_size=image_size, serve_dtype=serve_dtype)
+              **dtypes: torch.dtype) -> NCSNpp:
+    return NCSNpp(image_size=image_size, **dtypes)
 
 
 @BackboneRegistry.register("ncsnpp_v2_5M")
 def ncsnpp_v2_5m(remat: bool = False, image_size: int = 256,
-                 serve_dtype: torch.dtype = torch.float32) -> NCSNpp:
-    return NCSNpp(nf=96, image_size=image_size, serve_dtype=serve_dtype, **_SMALL)
+                 **dtypes: torch.dtype) -> NCSNpp:
+    return NCSNpp(nf=96, image_size=image_size, **dtypes, **_SMALL)
 
 
 @BackboneRegistry.register("ncsnpp_v2_16M")
 def ncsnpp_v2_16m(remat: bool = False, image_size: int = 256,
-                  serve_dtype: torch.dtype = torch.float32) -> NCSNpp:
-    return NCSNpp(nf=64, attn_resolutions=(0,), image_size=image_size, serve_dtype=serve_dtype)
+                  **dtypes: torch.dtype) -> NCSNpp:
+    return NCSNpp(nf=64, attn_resolutions=(0,), image_size=image_size, **dtypes)
 
 
 @BackboneRegistry.register("ncsnpp_v2_37M")
 def ncsnpp_v2_37m(remat: bool = False, image_size: int = 256,
-                  serve_dtype: torch.dtype = torch.float32) -> NCSNpp:
-    return NCSNpp(nf=96, image_size=image_size, serve_dtype=serve_dtype)
+                  **dtypes: torch.dtype) -> NCSNpp:
+    return NCSNpp(nf=96, image_size=image_size, **dtypes)
 
 
 @BackboneRegistry.register("ncsnpp_v2_predictive")
 def ncsnpp_v2_predictive(remat: bool = False, image_size: int = 256,
-                         serve_dtype: torch.dtype = torch.float32) -> NCSNpp:
-    return NCSNpp(time_conditioned=False, image_size=image_size, serve_dtype=serve_dtype)
+                         **dtypes: torch.dtype) -> NCSNpp:
+    return NCSNpp(time_conditioned=False, image_size=image_size, **dtypes)
 
 
 @BackboneRegistry.register("ncsnpp_v2_5M_predictive")
 def ncsnpp_v2_5m_predictive(remat: bool = False, image_size: int = 256,
-                            serve_dtype: torch.dtype = torch.float32) -> NCSNpp:
-    return NCSNpp(nf=96, time_conditioned=False, image_size=image_size, serve_dtype=serve_dtype,
+                            **dtypes: torch.dtype) -> NCSNpp:
+    return NCSNpp(nf=96, time_conditioned=False, image_size=image_size, **dtypes,
                   **_SMALL)

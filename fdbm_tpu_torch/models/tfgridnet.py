@@ -18,8 +18,9 @@ Two kernel routes share one parameter set, chosen by the module's mode:
   (``tfgridnet.py:148-172``): each RNN path turns its canvas into
   sequence-major lines and calls ``ops.gridrnn_train.grid_fold_train_pair``
   (kernels with a backward), or ``ops.gridrnn.grid_bilstm_fold`` when no
-  gradient is needed; the attention is the plain PyTorch version under
-  autograd, as the JAX package trains it on plain XLA ops.
+  gradient is needed, on fp32 lines at either compute dtype; the attention
+  runs on plain PyTorch ops under autograd, as the JAX package trains it on
+  plain XLA ops.
 
 Outside the fused RNN-path kernels' gate (C % 8 == 0, C <= 64, H <= 128;
 the class defaults C=48, H=200 are outside it) each RNN path takes the JAX
@@ -40,19 +41,25 @@ Dense layers are ``torch.nn``'s (``layers.Dense``, ``Conv2d``,
 ``ConvTranspose2d`` compute in their input's dtype).
 
 ``serve_dtype`` (bf16 under ``inference_dtype: bfloat16``) is the dtype of
-the serving route, read in eval mode only: train mode computes in fp32.
-In bf16 the model casts where the JAX package's ``dtype=bfloat16`` twin
-does (``fdbm_tpu/models/tfgridnet.py``): the input and ``conv_in`` in bf16,
+the serving route (eval mode) and ``train_dtype`` (bf16 under
+``compute_dtype: bfloat16``) that of the training route (train mode). In
+bf16 the model casts where the JAX package's ``dtype=bfloat16`` modules do
+(``fdbm_tpu/models/tfgridnet.py``): the input and ``conv_in`` in bf16,
 ``gn_in`` with fp32 statistics cast to bf16; the Fourier embedding in fp32,
 the time MLP and block biases in bf16; each RNN path's LayerNorm with fp32
-statistics (single pass), the bf16 canvas through kernel 1's bf16 form (or,
-outside its gate, the bf16 windows through kernel 7's and the deconv as a
-bf16 product), ``outf + outb + bias + residual`` in bf16; the Q/K/V
-projections in bf16 and kernels 2 and 3 on bf16 maps; ``attn_proj``, the
-PReLU and the LayerNorm, then ``deconv_out`` in bf16, and the output cast
-to fp32 before the complex spectrogram. Parameters stay fp32. With
-``use_kernels=False`` the plain route casts the same, so that it stays the
-reference of the kernel route.
+statistics (single pass), then on the serving route the bf16 canvas
+through kernel 1's bf16 form (or, outside its gate, the bf16 windows
+through kernel 7's and the deconv as a bf16 product), on the training route
+the lines cast to fp32 through kernels 5-6 (or 4) and the fold cast back
+(outside the gate the ``BiLSTM`` runs kernels 8-9 on fp32 and the deconv is
+a bf16 product), ``outf + outb + bias + residual`` in bf16; the Q/K/V
+projections in bf16, then on the serving route kernels 2 and 3 on bf16
+maps, on the training route the norms (fp32 statistics) and both products
+in bf16 with the softmax in fp32; ``attn_proj``, the PReLU and the
+LayerNorm, then ``deconv_out`` in bf16, and the output cast to fp32 before
+the complex spectrogram. Parameters stay fp32. With ``use_kernels=False``
+the plain route casts the same, so that it stays the reference of the
+kernel route.
 """
 
 from __future__ import annotations
@@ -66,7 +73,8 @@ from torch.utils.checkpoint import checkpoint
 
 from fdbm_tpu_torch.models import BackboneRegistry
 from fdbm_tpu_torch.models.layers import (BiLSTM, Conv2d, ConvTranspose2d, Dense,
-                                          GaussianFourierProjection, PReLU, layer_norm_f32)
+                                          GaussianFourierProjection, PReLU, layer_norm_f32,
+                                          recurrence_input)
 from fdbm_tpu_torch.ops.attention import (flat_group_norm_plain, frame_attention,
                                           frame_attention_plain)
 from fdbm_tpu_torch.ops.gridrnn import (grid_bilstm_fold, grid_rnn_seq1_pair,
@@ -144,21 +152,24 @@ class _RnnPath(nn.Module):
             folded = outf + outb
         else:
             # Sequence-major lines [S, B*P, C], as the JAX training route
-            # hands them to grid_fold_train_pair.
+            # hands them to grid_fold_train_pair: in fp32 (or wider) under
+            # bf16 training too, the fold cast back below.
             lines = h.transpose(0, 1).reshape(s, b * p, c).contiguous()
             if not fused:
                 lines = self._generic(lines)
-            elif not kernel:
-                outf, outb = grid_fold_train_pair_plain(lines, *weights)
-                lines = outf + outb
-            elif torch.is_grad_enabled():
-                outf, outb = grid_fold_train_pair(lines, *weights)
-                lines = outf + outb
             else:
-                lines = grid_bilstm_fold(lines, *weights)
+                lines = recurrence_input(lines)
+                if not kernel:
+                    outf, outb = grid_fold_train_pair_plain(lines, *weights)
+                    lines = outf + outb
+                elif torch.is_grad_enabled():
+                    outf, outb = grid_fold_train_pair(lines, *weights)
+                    lines = outf + outb
+                else:
+                    lines = grid_bilstm_fold(lines, *weights)
             folded = lines.reshape(s, b, p, c).transpose(0, 1)
         # Rows outside [3, L-1] of the fused fold are cropped by GridNetBlock.
-        return folded + self.deconv_bias.to(folded.dtype) + x
+        return (folded + self.deconv_bias.to(folded.dtype)).to(x.dtype) + x
 
 
 class _AllHeadPReLULayerNorm(nn.Module):
@@ -225,8 +236,11 @@ class GridNetBlock(nn.Module):
         norm_mods = (self.attn_norm_Q, self.attn_norm_K, self.attn_norm_V)
         q, k, v = self.attn_conv_Q(inter), self.attn_conv_K(inter), self.attn_conv_V(inter)
         norms = tuple(m.params() for m in norm_mods)
-        if not self.use_kernels or self.training:
+        if self.training:
             # The training route trains the attention on plain ops, as JAX does.
+            q, k, v = (m(a).reshape(a.shape) for m, a in zip(norm_mods, (q, k, v)))
+            out = frame_attention_plain(q, k, v, self.n_head, self.e_dim, widen=False)
+        elif not self.use_kernels:
             out = frame_attention_plain(q, k, v, self.n_head, self.e_dim, norms=norms)
         elif _fused_norms_ok(self.e_dim, x.shape[-1] // self.n_head):
             out = frame_attention(q, k, v, self.n_head, self.e_dim, norms=norms)
@@ -242,19 +256,22 @@ class TFGridNet(nn.Module):
     """TF-GridNet: ``(x_t, y, t) -> clean-spec estimate``. With
     ``time_conditioned=False`` (the predictive twins) it has no time
     embedding and no per-block time bias, and reads only ``y``.
-    ``serve_dtype`` is the dtype of eval mode, the serving route (fp32 or
-    bf16); train mode computes in fp32."""
+    ``serve_dtype`` is the dtype of eval mode, the serving route, and
+    ``train_dtype`` that of train mode, the training route (each fp32 or
+    bf16)."""
 
     def __init__(self, n_layers: int = 6, emb_dim: int = 48, hidden: int = 200,
                  n_head: int = 4, qk_output_channel: int = 2, n_srcs: int = 1,
                  fourier_scale: float = 16.0, time_conditioned: bool = True,
                  use_kernels: bool = True, remat: bool = False,
+                 train_dtype: torch.dtype = torch.float32,
                  serve_dtype: torch.dtype = torch.float32):
         super().__init__()
         c = emb_dim
         self.n_srcs = n_srcs
         self.time_conditioned = time_conditioned
         self.remat = remat
+        self.train_dtype = train_dtype
         self.serve_dtype = serve_dtype
         self.conv_in = Conv2d(4 if time_conditioned else 2, c, 3, padding=1)
         self.gn_in = nn.GroupNorm(1, c, eps=1e-5)
@@ -272,9 +289,10 @@ class TFGridNet(nn.Module):
                 t: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x, y: complex ``[B, 1, F, T]``; t: ``[B]`` (both unused by a
         predictive twin). Returns complex ``[B, n_srcs, F, T]``."""
-        # A bf16 serving dtype casts the activations in eval mode; otherwise
+        # A bf16 dtype of the mode's route casts the activations; otherwise
         # they keep the input's dtype (fp32, or float64 for a reference route).
-        dt = None if self.training or self.serve_dtype == torch.float32 else self.serve_dtype
+        dt = self.train_dtype if self.training else self.serve_dtype
+        dt = None if dt == torch.float32 else dt
         chans = [x.real, x.imag, y.real, y.imag] if self.time_conditioned else [y.real, y.imag]
         inp = torch.stack([ch[:, 0] for ch in chans], dim=1).transpose(2, 3)  # [B, Cin, T, F]
         if dt is None:

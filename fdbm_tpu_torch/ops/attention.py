@@ -334,15 +334,19 @@ def _normed(q, k, v, n_head, e_dim, norms, norm_fn):
 
 def frame_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           n_head: int, e_dim: int,
-                          norms: Optional[Sequence[NormParams]] = None) -> torch.Tensor:
+                          norms: Optional[Sequence[NormParams]] = None,
+                          widen: bool = True) -> torch.Tensor:
     """Plain PyTorch version of :func:`frame_attention`. On bf16 maps it is
     the plain version of the bf16 form: q, k, v widened to fp32, the scores
     and softmax in fp32, P rounded to bf16, the value product in fp32 and
-    the result rounded to bf16."""
+    the result rounded to bf16. ``widen=False`` keeps both products in the
+    maps' dtype, only the softmax in fp32: the training route's attention,
+    as the JAX package trains it on XLA ops
+    (``fdbm_tpu/models/tfgridnet.py:373-394``)."""
     if norms is not None:
         q, k, v = _normed(q, k, v, n_head, e_dim, norms, flat_group_norms_plain)
     io_dtype = v.dtype
-    wide = torch.promote_types(io_dtype, torch.float32)
+    wide = torch.promote_types(io_dtype, torch.float32) if widen else io_dtype
     b, t_len, q_bins, _ = q.shape
     d_dim = v.shape[-1] // n_head
     q5 = q.to(wide).reshape(b, t_len, q_bins, n_head, e_dim)

@@ -7,7 +7,8 @@
 
 Port of ``fdbm_tpu/train.py`` and the root ``train.py``: train steps over
 ``SpecsDataset`` crops, scalars every ``log_every_n_steps`` steps to
-``<run>/metrics.jsonl``, then per epoch the valid loss under the EMA weights
+``<run>/metrics.jsonl`` (and as TensorBoard scalars in ``<run>`` where
+``torch.utils.tensorboard`` imports), then per epoch the valid loss under the EMA weights
 (the mean of the batch losses weighted by their real items), the evaluation
 of the first ``num_eval_files`` valid files (enhanced whole under the EMA
 weights, scored by SI-SDR, PESQ and ESTOI, the first three written to
@@ -26,8 +27,10 @@ by file and its metrics gathered over ``VALID_METRIC_SCHEMA``. Process 0
 alone writes the run directory: checkpoints, ``metrics.jsonl``, the sample
 wavs, the code snapshot (``<run>/code``: the root ``*.py``/``*.yaml`` and
 ``fdbm_tpu_torch/``; ``--nolog`` skips it) and the ``--profile_steps``
-trace (``torch.profiler`` over train steps START..END, counted from 1, a
-Chrome trace under ``<run>/profile``).
+trace (``utils.profiling.trace`` over train steps START..END, counted from
+1, a Chrome trace under ``<run>/profile``). ``compute_dtype=bfloat16``
+trains in bf16 (``model.py``); parameters, Adam, the EMA and the
+checkpoints stay fp32.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from fdbm_tpu_torch.checkpoint import CheckpointManager
 from fdbm_tpu_torch.config import load_config, parse_cli_overrides
@@ -57,6 +61,7 @@ from fdbm_tpu_torch.parallel.mesh import (broadcast_train_state, data_parallel_t
                                           data_parallel_valid_step, make_mesh)
 from fdbm_tpu_torch.utils import metrics as metrics_lib
 from fdbm_tpu_torch.utils.audio import read_wav, resample, write_wav
+from fdbm_tpu_torch.utils.profiling import trace
 
 
 def snapshot_code(log_dir: str) -> None:
@@ -75,26 +80,23 @@ def snapshot_code(log_dir: str) -> None:
 
 
 class ProfileWindow:
-    """``torch.profiler`` over train steps ``start``..``end`` (counted from
-    1: it starts before step ``start`` and stops after step ``end``, as
+    """``utils.profiling.trace`` over train steps ``start``..``end`` (counted
+    from 1: it starts before step ``start`` and stops after step ``end``, as
     ``fdbm_tpu/train.py`` traces), written as a Chrome trace to
     ``<log_dir>/profile/steps_<start>-<end>.json``."""
 
     def __init__(self, steps: Tuple[int, int], log_dir: str, device: torch.device):
         self.start, self.end = steps
-        self.path = os.path.join(log_dir, "profile", f"steps_{self.start}-{self.end}.json")
+        self.dir = os.path.join(log_dir, "profile")
+        self.name = f"steps_{self.start}-{self.end}.json"
         self.device = device
-        self.prof = None
+        self._open: Optional[contextlib.ExitStack] = None
 
     def before_step(self, step: int) -> None:
         """Called with the steps taken so far, before the next."""
         if step + 1 == self.start:
-            from torch.profiler import ProfilerActivity, profile
-
-            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                             if self.device.type == "cuda" else [])
-            self.prof = profile(activities=acts)
-            self.prof.start()
+            self._open = contextlib.ExitStack()
+            self._open.enter_context(trace(self.dir, self.name, self.device))
 
     def after_step(self, step: int) -> None:
         if step == self.end:
@@ -102,30 +104,39 @@ class ProfileWindow:
 
     def stop(self) -> None:
         """End the window (also where training ends inside it) and write it."""
-        if self.prof is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.prof.stop()
-        os.makedirs(os.path.dirname(self.path), exist_ok=True)
-        self.prof.export_chrome_trace(self.path)
-        self.prof = None
+        if self._open is not None:
+            self._open.close()
+            self._open = None
 
 
 class MetricsLogger:
-    """Scalars as JSON lines in ``<log_dir>/metrics.jsonl``."""
+    """Scalars as JSON lines in ``<log_dir>/metrics.jsonl`` and, where
+    ``torch.utils.tensorboard`` imports, as TensorBoard scalars in
+    ``log_dir`` (``fdbm_tpu/train.py:MetricsLogger``)."""
 
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
         self.jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:  # no tensorboard package: the JSON lines alone
+            self.tb = None
+        else:
+            self.tb = SummaryWriter(log_dir=log_dir)
 
     def log(self, step: int, scalars: Dict[str, float]) -> None:
         rec = {"step": step, **{k: float(v) for k, v in scalars.items()}}
         self.jsonl.write(json.dumps(rec) + "\n")
         self.jsonl.flush()
+        if self.tb is not None:
+            for k, v in scalars.items():
+                self.tb.add_scalar(k, float(v), step)
+            self.tb.flush()
 
     def close(self) -> None:
         self.jsonl.close()
+        if self.tb is not None:
+            self.tb.close()
 
 
 @contextlib.contextmanager
@@ -310,7 +321,9 @@ class Trainer:
             for batch in train_loader:
                 if self.profile is not None:
                     self.profile.before_step(state.step)
-                metrics = data_parallel_train_step(fdbm, state, fdbm.to_device(batch), generator)
+                with record_function("train_step"):  # a span of the profiler's trace
+                    metrics = data_parallel_train_step(fdbm, state, fdbm.to_device(batch),
+                                                       generator)
                 if self.profile is not None:
                     self.profile.after_step(state.step)
                 if state.step % self.log_every == 0 and self.logger is not None:
@@ -355,6 +368,9 @@ class Trainer:
         if self.rank == 0:
             self.ckpt.save(fdbm, state)
             self.logger.close()
+        loaded = train_set.loaded
+        say(f"[data] train items: native {loaded['native']}, read_wav {loaded['read_wav']}, "
+            f"load seconds {loaded['seconds']:.3f}")
         distributed.barrier()
         return state
 

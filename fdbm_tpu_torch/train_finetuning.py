@@ -34,11 +34,12 @@ from fdbm_tpu_torch.parallel.distributed import process_device, process_index
 from fdbm_tpu_torch.train import Trainer, launch
 
 # The training-procedure fields the fine-tuning config may set; every other
-# field comes from the pretrained checkpoint.
+# field comes from the pretrained checkpoint. The JAX package's set, and
+# compute_dtype: fine-tuning keeps its source's unless the config names one.
 OVERRIDABLE = frozenset({
     "N", "batch_size", "lr", "scheduler_config", "loss_type", "l1_weight", "pesq_weight",
     "num_eval_files", "save_ckpt_interval", "base_dir", "log_dir", "version", "num_workers",
-    "num_data_per_epoch", "dummy", "accumulate_grad_batches",
+    "num_data_per_epoch", "dummy", "accumulate_grad_batches", "compute_dtype",
 })
 
 

@@ -456,23 +456,36 @@ def test_two_step_serve_bf16_matches_jax(monkeypatch):
 
 
 def test_bf16_config_resolution():
-    """``inference_dtype`` as the JAX package resolves it; bf16 training
-    still raises; ``param_dtype`` is read nowhere, as in the JAX package;
-    parameters stay fp32."""
+    """``compute_dtype`` and ``inference_dtype`` as the JAX package resolves
+    them (``fdbm_tpu/model.py:162,177-180``): the serving dtype is
+    ``inference_dtype``, or ``compute_dtype`` where it is ``""``, so
+    ``compute_dtype: bfloat16`` trains and serves in bf16 unless
+    ``inference_dtype: float32``; a dtype that is neither float32 nor
+    bfloat16 raises; ``param_dtype`` is read nowhere, as in the JAX
+    package; parameters stay fp32 and each backbone gets both dtypes."""
     cfg = pmodel.FDBMConfig
     assert pmodel.serving_dtype(cfg()) == torch.float32
     assert pmodel.serving_dtype(cfg(inference_dtype="bfloat16")) == BF16
     assert pmodel.serving_dtype(cfg(inference_dtype="float32")) == torch.float32
     assert pmodel.serving_dtype(cfg(param_dtype="bfloat16")) == torch.float32
-    for bad in (dict(compute_dtype="bfloat16"),
-                dict(compute_dtype="bfloat16", inference_dtype="float32")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pmodel.FDBM(cfg(**bad), device="cpu")
-    with pytest.raises(ValueError):
-        pmodel.serving_dtype(cfg(inference_dtype="float16"))
-    f = pmodel.FDBM(cfg(backbone="ncsnpp_v2_5M", inference_dtype="bfloat16", n_fft=32,
+    assert pmodel.training_dtype(cfg()) == torch.float32
+    for kw, train, serve in ((dict(compute_dtype="bfloat16"), BF16, BF16),
+                             (dict(compute_dtype="bfloat16", inference_dtype="float32"),
+                              BF16, torch.float32),
+                             (dict(inference_dtype="bfloat16"), torch.float32, BF16)):
+        f = pmodel.FDBM(cfg(n_fft=32, hop_length=16, **kw), device="cpu")
+        assert (f.train_dtype, f.serve_dtype) == (train, serve), kw
+        assert (f.dnn.train_dtype, f.dnn.serve_dtype) == (train, serve), kw
+        jf = jmodel.FDBM(jmodel.FDBMConfig(**kw))
+        want = lambda net: BF16 if net.dtype == jnp.bfloat16 else torch.float32
+        assert (want(jf.dnn), want(jf.dnn_sample)) == (train, serve), kw
+    for bad in (dict(inference_dtype="float16"), dict(compute_dtype="float16"),
+                dict(compute_dtype="float16", inference_dtype="bfloat16")):
+        with pytest.raises(ValueError):
+            pmodel.serving_dtype(cfg(**bad))
+    f = pmodel.FDBM(cfg(backbone="ncsnpp_v2_5M", compute_dtype="bfloat16", n_fft=32,
                         hop_length=16), device="cpu")
-    assert f.dnn.serve_dtype == BF16
+    assert (f.dnn.train_dtype, f.dnn.serve_dtype) == (BF16, BF16)
     assert all(p.dtype == torch.float32 for p in f.dnn.parameters())
 
 

@@ -168,8 +168,8 @@ def test_cuda_without_a_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FDBM(FDBMConfig())
-    with pytest.raises(NotImplementedError):
-        FDBM(FDBMConfig(compute_dtype="bfloat16"), device="cpu")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        FDBM(FDBMConfig(compute_dtype="float16"), device="cpu")
 
 
 def test_infer_single_cli_on_cpu(tmp_path):
