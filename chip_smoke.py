@@ -174,6 +174,11 @@ kernel 1's fused recurrence, kernel 5's (the same with its stash), kernel
 6's reverse sweep, kernel 9's reverse sweep) with one part of their work
 switched off at a time.
 
+    python3 chip_smoke.py --probe-bf16 bf16.json
+
+reads kernel 1's bf16 step by phase, from the clock stamps that its
+kernel writes when gridrnn.cu is built with -DGM_STAMPS.
+
     python3 chip_smoke.py --probe-fp32 fp32.pt
 
 writes what the fp32 route computes (the ten kernels' outputs on fixed
@@ -579,6 +584,25 @@ def recurrence_time(fn, steps: int, calls: int = 3) -> dict:
     (``lstm_rec_kernel``), and per step of it."""
     ms = kernel_times(fn, {"rec": "lstm_rec_kernel"}, calls)["rec"]
     return {"recurrence_ms": ms, "recurrence_us_per_step": ms / steps * 1e3}
+
+
+def tensor_core_ops(library: str, kernel: str) -> dict:
+    """The tensor-core instructions (HMMA, HGMMA) in the SASS of each
+    function of ``library`` whose name holds ``kernel``, by
+    ``cuobjdump --dump-sass``: a kernel meant for the tensor cores that
+    holds none multiplies elsewhere."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", library], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if kernel in name:
+                counts[name] = 0
+        elif name in counts and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
 
 
 def cudnn_lstm(w_ih: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor, dev):
@@ -3078,10 +3102,13 @@ def kernel_bf16_phase(dev, summary: dict) -> None:
     and 7, and the fp32 form's time on the same inputs. Bound: bf16 bytes
     (fp32 weights) over the HBM rate against the operations over the bf16
     tensor-core rate (``cuda_core_bound_ms``: over the fp32 rate of the CUDA
-    cores, where the bf16 forms multiply today). Library: SDPA on bf16 (row
-    3), cuDNN's bf16 LSTM (row 7)."""
+    cores, where rows 2, 3 and 7 multiply). Row 1 runs on the tensor cores:
+    it prints its kernel's HMMA count (``tensor_core_ops``; 0 fails), its
+    stages, its time a step and its time at every plan the card runs
+    (``plans_ms``). Library: SDPA on bf16 (row 3), cuDNN's bf16 LSTM (row
+    7)."""
     from fdbm_tpu_torch.dsp import num_frames_for_length
-    from fdbm_tpu_torch.ops import attention as attn_ops, gridrnn, lstm as lstm_ops
+    from fdbm_tpu_torch.ops import _build, attention as attn_ops, gridrnn, lstm as lstm_ops
 
     rng = np.random.default_rng(SEED + 90)
     rand = lambda *shape, s=1.0: torch.as_tensor(
@@ -3095,6 +3122,9 @@ def kernel_bf16_phase(dev, summary: dict) -> None:
     w_bytes = 4 * sum(t.numel() for t in w)
     n_request = num_frames_for_length(65536, 512, 256)  # the 4 s request's 64-frame bucket
     rows = {}
+    # Row 1 runs on the tensor cores: its kernel's HMMA count, each
+    # instantiation's, and none may be 0.
+    mma_ops = tensor_core_ops(_build.build_all()["libraries"]["gridrnn"], "gridrnn_mma_kernel")
 
     def gated(name, got, plain, f64, upcast=None):
         """``bf16_gate`` within BF16_TOLS[name]; ``upcast``, the fp32 form's
@@ -3111,24 +3141,57 @@ def kernel_bf16_phase(dev, summary: dict) -> None:
         return {"bound": bound(flops, nbytes, PEAK_BF16_FLOPS),
                 "cuda_core_bound_ms": bound(flops, nbytes)[0]}
 
+    def mma_plans_ms(x, lines, length, crop, plain):
+        """Kernel 1's bf16 time at every plan (CS, lines a tile) the card
+        runs, launched directly: the plan chooses, these show the choice.
+        Each plan's output is held to the bf16 plain version ``plain``
+        within BF16_TOLS."""
+        lib = _build.load("gridrnn", gridrnn._SIGNATURES, gridrnn._RESTYPES)
+        hs = torch.empty((2, lines, length, hidden), device=dev, dtype=torch.bfloat16)
+        outs = (torch.empty_like(x), torch.empty_like(x))
+        times = {}
+        for cs in gridrnn.CLUSTERS:
+            for tile in gridrnn.MMA_LINES:
+                if (gridrnn.mma_layout(c, hidden, cs, tile) is None
+                        or gridrnn._card_mma_max_clusters(0, c, hidden, cs, tile) < 1):
+                    continue
+
+                def run(cs=cs, tile=tile):
+                    _build.check(lib.gridrnn_seq1_pair_bf16(
+                        x.data_ptr(), *(t.data_ptr() for t in w), hs.data_ptr(),
+                        outs[0].data_ptr(), outs[1].data_ptr(), x.shape[0], x.shape[1],
+                        x.shape[2], c, hidden, cs, tile, torch.cuda.current_stream().cuda_stream),
+                        f"gridrnn_seq1_pair_bf16 (cs={cs}, lines={tile})")
+                run()
+                err = max(rel_err(g.double(), r.double()) for g, r in zip(crop(outs), plain))
+                if not err <= BF16_TOLS["grid_rnn_seq1_pair"]:
+                    fail(f"gridrnn_seq1_pair_bf16 at plan cs={cs}, lines={tile} is {err} from "
+                         f"its bf16 plain version")
+                times[f"cs{cs}_lines{tile}"] = timed_ms(run, 3)
+        return times
+
     def rnn_row(b, frames):
         s_len, p_len = q_bins + 6, frames + 6
         length = s_len - 3
         x = bf(rand(b, s_len, p_len, c, s=0.5))
         x32 = x.float()
         crop = lambda pair: [t[:, 3:length] for t in pair]
-        gate = gated("grid_rnn_seq1_pair", crop(gridrnn.grid_rnn_seq1_pair(x, *w)),
-                     crop(gridrnn.grid_rnn_seq1_pair_plain(x, *w)),
+        plain = crop(gridrnn.grid_rnn_seq1_pair_plain(x, *w))
+        gate = gated("grid_rnn_seq1_pair", crop(gridrnn.grid_rnn_seq1_pair(x, *w)), plain,
                      crop(gridrnn.grid_rnn_seq1_pair_plain(x.double(), *dbl(w))),
                      crop([bf(t) for t in gridrnn.grid_rnn_seq1_pair(x32, *w)]))
         lines = b * p_len
         flops = 2 * lines * length * 2 * (4 * c * 4 * hidden + hidden * 4 * hidden
                                            + hidden * 4 * c)
+        plan = gridrnn.mma_plan(lines, c, hidden)
+        stages = kernel_times(lambda: gridrnn.grid_rnn_seq1_pair(x, *w),
+                              {"recurrence": "gridrnn_mma_kernel", "fold": "fold_kernel"})
         return dict(
-            gate, shape=list(x.shape), plan=gridrnn.fused_plan(lines, c, hidden)._asdict(),
-            stages_ms=kernel_times(lambda: gridrnn.grid_rnn_seq1_pair(x, *w),
-                                   {"recurrence": "gridrnn_fused_kernel",
-                                    "fold": "fold_kernel"}),
+            gate, shape=list(x.shape),
+            plan={**plan._asdict(), "waves": -(-plan.clusters // plan.max_clusters)},
+            plans_ms=mma_plans_ms(x, lines, length, crop, plain), tensor_core_ops=mma_ops, stages_ms=stages,
+            recurrence_ms=stages["recurrence"],
+            recurrence_us_per_step=stages["recurrence"] / length * 1e3,
             ms=timed_ms(lambda: gridrnn.grid_rnn_seq1_pair(x, *w), 5 if b > 1 else 20),
             fp32_ms=timed_ms(lambda: gridrnn.grid_rnn_seq1_pair(x32, *w), 5 if b > 1 else 20),
             plain_ms=timed_ms(lambda: gridrnn.grid_rnn_seq1_pair_plain(x, *w), 1 if b > 1 else 3),
@@ -3215,6 +3278,10 @@ def kernel_bf16_phase(dev, summary: dict) -> None:
         if not r["ok"]:
             fail(f"{BF16_FORMS[name]} disagrees with its bf16 plain version, or its up-cast "
                  f"control does not: {r}")
+        if "tensor_core_ops" in r and not (r["tensor_core_ops"]
+                                           and all(r["tensor_core_ops"].values())):
+            fail(f"{BF16_FORMS[name]}: a kernel without tensor-core instructions in its SASS: "
+                 f"{r['tensor_core_ops']}")
         summary[BF16_FORMS[name]] = r
 
     b16 = {"grid_rnn_seq1_pair": rnn_row(FOLDER_BATCH, num_frames_for_length(
@@ -3226,6 +3293,10 @@ def kernel_bf16_phase(dev, summary: dict) -> None:
         if not r["ok"]:
             fail(f"{BF16_FORMS[name]} at B={FOLDER_BATCH} disagrees with its bf16 plain "
                  f"version, or its up-cast control does not: {r}")
+        if "tensor_core_ops" in r and not (r["tensor_core_ops"]
+                                           and all(r["tensor_core_ops"].values())):
+            fail(f"{BF16_FORMS[name]}: a kernel without tensor-core instructions in its SASS: "
+                 f"{r['tensor_core_ops']}")
     torch.cuda.empty_cache()
 
 
@@ -4584,6 +4655,84 @@ def variant_text(src: str, kernel: str, name: str, spec) -> str:
 PROBE_ATTENTION_PLANS = ((24, 3), (32, 3), (40, 3), (40, 4), (48, 4), (24, 2), (8, 1), (16, 1))
 
 
+# --probe-bf16: kernel 1's bf16 step in phases, from the stamps that
+# gridrnn.cu's gridrnn_mma_kernel writes when it is built with -DGM_STAMPS:
+# clock64 of the first and the last warp of block 0 at steps 10-41, and the
+# globaltimer of every block (entry, end of the prologue, end of the steps).
+STEP_PHASES = ("h_product", "cell", "arrive", "ring_wait", "window")
+
+
+def probe_steps(work: str, dev, rand) -> dict:
+    """Kernel 1's bf16 recurrence at the main path's widths (C = 32, H =
+    100): clock cycles a step and by phase (h product, cell, arrive, the
+    ring's copy wait, the next window) for the first and the last warp of
+    block 0, and the blocks' median prologue and step loop in us, at B=1
+    (plans cs 1 and 2, 16 lines) and B=16 (cs 1, 32 lines)."""
+    import ctypes
+
+    from fdbm_tpu_torch.ops import _build
+
+    so = os.path.join(work, "gridrnn_stamps.so")
+    built = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DGM_STAMPS", "-I",
+                            str(_build.CSRC), "-o", so, str(_build.CSRC / "gridrnn.cu")],
+                           capture_output=True, text=True)
+    if built.returncode:
+        fail(f"probe_steps: gridrnn.cu with -DGM_STAMPS does not build: "
+             f"{(built.stdout + built.stderr)[-2000:]}")
+    lib = ctypes.CDLL(so)
+    fn = lib.gridrnn_seq1_pair_bf16
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    c, hidden = 32, 100
+    w = (rand(2, 4 * c, 4 * hidden, s=0.1), rand(2, hidden, 4 * hidden, s=0.1),
+         rand(2, 4 * hidden, s=0.1), rand(2 * hidden, 4 * c, s=0.1))
+    rows = {}
+    for b, cs, lines in ((1, 1, 16), (1, 2, 16), (16, 1, 32)):
+        x = rand(b, 263, 263, c, s=0.5).to(torch.bfloat16)
+        hs = torch.empty((2, b * 263, 260, hidden), device=dev, dtype=torch.bfloat16)
+        outs = (torch.empty_like(x), torch.empty_like(x))
+        for _ in range(2):
+            if fn(x.data_ptr(), *(t.data_ptr() for t in w), hs.data_ptr(), outs[0].data_ptr(),
+                  outs[1].data_ptr(), b, 263, 263, c, hidden, cs, lines,
+                  torch.cuda.current_stream().cuda_stream):
+                fail("probe_steps: the stamped kernel does not launch")
+        torch.cuda.synchronize()
+        steps, blocks = (ctypes.c_longlong * (2 * 32 * 6))(), (ctypes.c_ulonglong * (4096 * 3))()
+        if lib.gm_read_stamps(steps, blocks):
+            fail("probe_steps: reading the stamps failed")
+        st = np.array(steps[:], dtype=np.float64).reshape(2, 32, 6)
+        n_blocks = cs * -(-b * 263 // lines) * 2
+        bl = np.array(blocks[:3 * n_blocks], dtype=np.float64).reshape(n_blocks, 3)
+        rows[f"B{b}_cs{cs}_lines{lines}"] = {
+            "cycles_per_step": float(np.diff(st[0, :, 0]).mean()),
+            **{warp: dict(zip(STEP_PHASES, (float(v) for v in np.diff(st[i], axis=1).mean(0))))
+               for i, warp in enumerate(("first_warp", "last_warp"))},
+            "prologue_us": float(np.median(bl[:, 1] - bl[:, 0]) / 1e3),
+            "steps_us": float(np.median(bl[:, 2] - bl[:, 1]) / 1e3)}
+    return rows
+
+
+def probe_bf16(out_path: str) -> None:
+    """Kernel 1's bf16 step in phases (probe_steps), written to
+    ``out_path``."""
+    from fdbm_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+    emit({"phase": "device", "nvidia_smi": smi})
+    _build.build_all()
+    work = tempfile.mkdtemp(prefix="probe_bf16_", dir=_build.BUILD_DIR)
+    rng = np.random.default_rng(SEED)
+    rand = lambda *shape, s=1.0: torch.as_tensor(
+        rng.standard_normal(shape).astype(np.float32) * s, device=dev)
+    readings = {"nvidia_smi": smi, "steps": probe_steps(work, dev, rand)}
+    emit({"phase": "probe_steps", **readings["steps"]})
+    with open(out_path, "w") as f:
+        json.dump(readings, f, indent=1)
+    print(smi, flush=True)
+
+
 def probe_kernels(out_path: str) -> None:
     """Where the time of the redesigned kernels goes: each variant of
     KERNEL_VARIANTS is built from a copy of its source and timed at the main
@@ -4782,6 +4931,9 @@ if __name__ == "__main__":
     parser.add_argument("--probe-kernels", metavar="OUT",
                         help="only time the redesigned kernels with parts of their work "
                              "switched off (see probe_kernels), written to OUT (JSON)")
+    parser.add_argument("--probe-bf16", metavar="OUT",
+                        help="only read kernel 1's bf16 step by phase (see probe_bf16), "
+                             "written to OUT (JSON)")
     parser.add_argument("--kernels-only", action="store_true",
                         help="only build and check and time the kernel rows, with no paths "
                              "run and no ok line (for a before/after on one card, also "
@@ -4841,6 +4993,8 @@ if __name__ == "__main__":
         probe_fp32(cli.probe_fp32)
     elif cli.probe_kernels:
         probe_kernels(cli.probe_kernels)
+    elif cli.probe_bf16:
+        probe_bf16(cli.probe_bf16)
     elif cli.probe_seeds:
         if not cli.probe_out:
             parser.error("--probe-seeds needs --probe-out")

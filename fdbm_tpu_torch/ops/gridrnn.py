@@ -12,11 +12,13 @@ note of ``csrc/gridrnn.cu`` says what bounds the kernels on the H100 and
 how they are laid out. The differentiable twin is ``ops/gridrnn_train.py``.
 
 :func:`grid_rnn_seq1_pair` also takes a bf16 canvas (``inference_dtype:
-bfloat16``): it then launches the kernels' bf16 form, which computes the
-JAX kernel's bf16 path (``fdbm_tpu/ops/gridrnn.py:467,514-515,550-553``):
-bf16 canvas, hidden states and outputs, the weights rounded to bf16, h
-rounded to bf16 before each product, fp32 sums, bias, cell state and
-gates. Its plain version is the same function on a bf16 tensor
+bfloat16``): it then launches its bf16 form, which computes the JAX
+kernel's bf16 path (``fdbm_tpu/ops/gridrnn.py:467,514-515,550-553``): bf16
+canvas, hidden states and outputs, the weights rounded to bf16, h rounded to
+bf16 before each product, fp32 sums, bias, cell state and gates. Its
+recurrence is a kernel of its own on the tensor cores (mma.sync on bf16
+operands), its plan from :func:`mma_plan`; the fold is the fp32 form's on
+bf16 h. Its plain version is the same function on a bf16 tensor
 (:func:`grid_rnn_seq1_pair_plain`): the same operands rounded with
 ``.to(torch.bfloat16)`` and multiplied in fp32. The two forms count their
 launches apart (``launches``, ``launches_bf16``).
@@ -43,8 +45,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"gridrnn_seq1_pair": [_P] * 8 + [_I] * 7 + [_P],
                "gridrnn_seq1_pair_bf16": [_P] * 8 + [_I] * 7 + [_P],
                "gridrnn_fused_max_clusters": [_I] * 5,
-               "gridrnn_fused_smem": [_I] * 4}
-_RESTYPES = {"gridrnn_fused_smem": ctypes.c_longlong}
+               "gridrnn_fused_smem": [_I] * 4,
+               "gridrnn_mma_max_clusters": [_I] * 4,
+               "gridrnn_mma_smem": [_I] * 4}
+_RESTYPES = {"gridrnn_fused_smem": ctypes.c_longlong, "gridrnn_mma_smem": ctypes.c_longlong}
 # Kernel 4 lives beside kernel 1, whose fused recurrence it runs.
 _FOLD_SIGNATURES = {"grid_bilstm_fold": [_P] * 7 + [_I] * 6 + [_P]}
 
@@ -58,6 +62,12 @@ SMEM_LIMIT, SMS = 232448, 132
 # threads a block, a ring of 8 canvas rows.
 FUSED_LINES = (8, 16)
 FUSED_RING = 8
+# Kernel 1's bf16 form (csrc/gridrnn.cu: mma_plan): tiles of 16 or 32 lines
+# (one or two M tiles of mma), two quads of units a warp, at most 512 threads
+# a block, a ring of 8 canvas rows.
+MMA_LINES = (16, 32)
+MMA_RING, MMA_QUADS_PER_WARP, MMA_MAX_THREADS = 8, 2, 512
+MMA_STAGE = 4  # 16-byte copies of a canvas row a thread stages, at most
 
 
 class ClusterPlan(NamedTuple):
@@ -79,18 +89,15 @@ def _cdiv(a: int, b: int) -> int:
 
 def plan_clusters(lines: int, dirs: int, tiles: Tuple[int, ...],
                   layout: Callable[[int, int], Optional[Tuple[int, int]]],
-                  max_clusters: Callable[[int, int], int], lane_fmas: Callable[[int, int], int],
-                  what: str) -> ClusterPlan:
+                  max_clusters: Callable[[int, int], int],
+                  step_cycles: Callable[[int, int, int], int], what: str) -> ClusterPlan:
     """The plan of least estimated time for ``lines`` lines in each of
     ``dirs`` directions: over clusters of CLUSTERS blocks and the ``tiles``
     of lines whose ``layout(cs, tile)`` (threads, bytes) fits a block and of
     which the card runs ``max_clusters(cs, tile)`` at once. Plans whose grid
-    is one wave come first; then the least estimated step, in cycles: a
-    block's FMA dispatch on its busiest scheduler (4 per SM; a lane issues
-    ``lane_fmas(cs, tile)`` a step) at half rate, plus the cluster's
-    exchange and barrier, times the blocks an SM runs at once (fitted to the
-    H100's LSTM forward recurrence: 6.5 us a step for 4 x 12 lines, 10 us
-    for 4 x 20); then smaller clusters."""
+    is one wave come first; then the least estimated time, the cycles of a
+    block's step (``step_cycles(cs, tile, threads)``) times the blocks an SM
+    runs at once and the waves; then smaller clusters."""
     best, best_key = None, None
     for cs in CLUSTERS:
         for tile in tiles:
@@ -105,14 +112,23 @@ def plan_clusters(lines: int, dirs: int, tiles: Tuple[int, ...],
             waves = _cdiv(clusters, at_once)
             per_sm = _cdiv(at_once * cs, SMS)
             load = _cdiv(min(clusters, at_once) * cs * per_sm, at_once * cs)
-            step = 2 * _cdiv(threads // 32, 4) * lane_fmas(cs, tile) + 1000 + 800 * cs
-            key = (waves > 1, waves * load * step, cs)
+            key = (waves > 1, waves * load * step_cycles(cs, tile, threads), cs)
             if best_key is None or key < best_key:
                 best = ClusterPlan(cs, tile, clusters, at_once, threads, nbytes)
                 best_key = key
     if best is None:
         raise ValueError(f"{what} fits on this card")
     return best
+
+
+def fma_step(lane_fmas: Callable[[int, int], int]) -> Callable[[int, int, int], int]:
+    """The step estimate of the FMA recurrences, for :func:`plan_clusters`:
+    a block's FMA dispatch on its busiest scheduler (4 per SM; a lane
+    issues ``lane_fmas(cs, tile)`` a step) at half rate, plus the cluster's
+    exchange and barrier (fitted to the H100's LSTM forward recurrence: 6.5
+    us a step for 4 x 12 lines, 10 us for 4 x 20)."""
+    return lambda cs, tile, threads: (2 * _cdiv(threads // 32, 4) * lane_fmas(cs, tile)
+                                      + 1000 + 800 * cs)
 
 
 def fused_layout(c: int, hidden: int, cs: int, lines: int) -> Optional[Tuple[int, int]]:
@@ -140,7 +156,8 @@ def plan_fused(lines: int, c: int, hidden: int, max_clusters: Callable[[int, int
     for 2 units x 4 gates x tile lines. ``what`` names the caller in the
     error raised when nothing runs (kernel 5 shares the recurrence)."""
     return plan_clusters(lines, 2, FUSED_LINES, lambda cs, tile: fused_layout(c, hidden, cs, tile),
-                         max_clusters, lambda cs, tile: _cdiv(KS * c + hidden, 8) * 8 * tile,
+                         max_clusters,
+                         fma_step(lambda cs, tile: _cdiv(KS * c + hidden, 8) * 8 * tile),
                          f"{what}: no plan for C={c}, H={hidden}")
 
 
@@ -168,8 +185,8 @@ def _card_plan(device_index: int, lines: int, c: int, hidden: int) -> ClusterPla
 def fused_plan(lines: int, c: int, hidden: int,
                device: Optional[torch.device] = None) -> ClusterPlan:
     """:func:`plan_fused` with the card's counts, each queried once: the plan
-    :func:`grid_rnn_seq1_pair` (``lines`` = B * P) and :func:`grid_bilstm_fold`
-    launch for this shape."""
+    :func:`grid_rnn_seq1_pair` on an fp32 canvas (``lines`` = B * P) and
+    :func:`grid_bilstm_fold` launch for this shape."""
     dev = torch.device(device if device is not None else "cuda")
     return _card_plan(dev.index if dev.index is not None else torch.cuda.current_device(),
                       lines, c, hidden)
@@ -180,6 +197,89 @@ def fused_smem(c: int, hidden: int, cs: int, lines: int) -> int:
     it does not fit), to hold :func:`fused_layout` to it on the card."""
     lib = _build.load("gridrnn", _SIGNATURES, _RESTYPES)
     return lib.gridrnn_fused_smem(c, hidden, cs, lines)
+
+
+def mma_layout(c: int, hidden: int, cs: int, lines: int) -> Optional[Tuple[int, int]]:
+    """``(threads, shared-memory bytes)`` of a block of kernel 1's bf16
+    recurrence at widths ``c``, ``hidden`` for the plan (``cs``, ``lines``),
+    as ``csrc/gridrnn.cu:mma_plan`` lays it out (the block's gate columns of
+    the stacked [W_ih; W_hh] in bf16 over 4C + H rows, H padded to 16; two
+    bf16 copies of h; the ring of bf16 canvas rows, a line's C / 8 chunks of
+    16 bytes made odd; an mbarrier), or None if it does not fit a block or
+    its threads cannot stage a row in MMA_STAGE copies each."""
+    if (cs not in CLUSTERS or lines not in MMA_LINES or c < 8 or c % 8 or c > 64
+            or not 1 <= hidden <= 128):
+        return None
+    quads = _cdiv(_cdiv(hidden, cs), 4)
+    kh = _cdiv(hidden, 16) * 16
+    cch = c // 8 if (c // 8) % 2 else c // 8 + 1
+    threads = 32 * _cdiv(quads, MMA_QUADS_PER_WARP)
+    nbytes = 2 * (KS * c + kh) * 16 * quads + 4 * kh * lines + 16 * MMA_RING * lines * cch + 16
+    fits = (threads <= MMA_MAX_THREADS and nbytes <= SMEM_LIMIT
+            and lines * (c // 8) <= MMA_STAGE * threads)
+    return (threads, nbytes) if fits else None
+
+
+def mma_step_cycles(c: int, hidden: int, cs: int, lines: int) -> int:
+    """Estimated cycles of one step of one block of kernel 1's bf16
+    recurrence: its m16n8k16 products on the busiest of the SM's four
+    sub-partitions (a warp's two quads, about 8 cycles a product) or its
+    ldmatrix reads of shared memory (512 bytes each at 128 bytes a cycle),
+    whichever is longer, plus the step's cell and barrier (an mbarrier at
+    CS = 1, the cluster barrier and h's remote writes otherwise)."""
+    quads = _cdiv(_cdiv(hidden, cs), 4)
+    warps = _cdiv(quads, MMA_QUADS_PER_WARP)
+    k_tiles = (KS * c + _cdiv(hidden, 16) * 16) // 16
+    mt = lines // 16
+    products = _cdiv(warps, 4) * MMA_QUADS_PER_WARP * 2 * mt * k_tiles * 8
+    loads = 4 * k_tiles * (quads + warps * mt)
+    return max(products, loads) + (400 if cs == 1 else 1000 + 800 * cs)
+
+
+def plan_mma(lines: int, c: int, hidden: int, max_clusters: Callable[[int, int], int],
+             what: str = "grid_rnn_seq1_pair_bf16") -> ClusterPlan:
+    """Kernel 1's bf16 plan for ``lines`` lines in each direction (see
+    :func:`plan_clusters`), over tiles of MMA_LINES lines, a step estimated
+    by :func:`mma_step_cycles`."""
+    return plan_clusters(lines, 2, MMA_LINES, lambda cs, tile: mma_layout(c, hidden, cs, tile),
+                         max_clusters,
+                         lambda cs, tile, threads: mma_step_cycles(c, hidden, cs, tile),
+                         f"{what}: no plan for C={c}, H={hidden}")
+
+
+@functools.lru_cache(maxsize=1024)
+def _card_mma_max_clusters(device_index: int, c: int, hidden: int, cs: int, tile: int) -> int:
+    """The card's ``cudaOccupancyMaxActiveClusters`` for one plan of kernel
+    1's bf16 recurrence."""
+    with torch.cuda.device(device_index):
+        lib = _build.load("gridrnn", _SIGNATURES, _RESTYPES)
+        n = lib.gridrnn_mma_max_clusters(c, hidden, cs, tile)
+    if n < 0:
+        raise RuntimeError(f"bf16 recurrence: cudaOccupancyMaxActiveClusters failed (CUDA "
+                           f"error {-n}) for cs={cs}, lines={tile}, C={c}, H={hidden}")
+    return n
+
+
+@functools.lru_cache(maxsize=256)
+def _card_mma_plan(device_index: int, lines: int, c: int, hidden: int) -> ClusterPlan:
+    return plan_mma(lines, c, hidden, lambda cs, tile: _card_mma_max_clusters(
+        device_index, c, hidden, cs, tile))
+
+
+def mma_plan(lines: int, c: int, hidden: int,
+             device: Optional[torch.device] = None) -> ClusterPlan:
+    """:func:`plan_mma` with the card's counts, each queried once: the plan
+    :func:`grid_rnn_seq1_pair` launches on a bf16 canvas (``lines`` = B * P)."""
+    dev = torch.device(device if device is not None else "cuda")
+    return _card_mma_plan(dev.index if dev.index is not None else torch.cuda.current_device(),
+                          lines, c, hidden)
+
+
+def mma_smem(c: int, hidden: int, cs: int, lines: int) -> int:
+    """The kernel's own count of a block's shared memory for a bf16 plan (-1
+    if it does not fit), to hold :func:`mma_layout` to it on the card."""
+    lib = _build.load("gridrnn", _SIGNATURES, _RESTYPES)
+    return lib.gridrnn_mma_smem(c, hidden, cs, lines)
 
 
 def _lstm_cell(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -326,7 +426,9 @@ def grid_rnn_seq1_pair(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
       C <= 64 and H <= 128, the gate the model applies before it calls here.
       They have no backward: on a CUDA tensor this raises if an input
       requires grad. A bf16 canvas launches the bf16 form (fp32 weights,
-      rounded in the kernels) and counts on ``launches_bf16``.
+      rounded in the kernel; its recurrence on the tensor cores at
+      :func:`mma_plan`'s plan, which raises where no plan fits) and counts
+      on ``launches_bf16``.
     """
     if x.device.type == "cpu":
         return grid_rnn_seq1_pair_plain(x, w_ih, w_hh, bias, wd)
@@ -339,7 +441,9 @@ def grid_rnn_seq1_pair(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
     b, s, p, _ = x.shape
     length = s - (KS - 1)
     dev = x.device
-    cs, tile = fused_plan(b * p, c, hidden, dev)[:2]
+    if bf16 and x.data_ptr() % 16:
+        raise ValueError("grid_rnn_seq1_pair: a bf16 canvas must start on a 16-byte boundary")
+    cs, tile = (mma_plan if bf16 else fused_plan)(b * p, c, hidden, dev)[:2]
     with torch.cuda.device(dev):
         hs = torch.empty((2, b * p, length, hidden), device=dev, dtype=x.dtype)
         outf = torch.empty_like(x)

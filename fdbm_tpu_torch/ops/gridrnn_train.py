@@ -29,8 +29,8 @@ import torch
 
 from fdbm_tpu_torch.ops import _build, gridrnn
 from fdbm_tpu_torch.ops.gridrnn import (CLUSTERS, KS, SMEM_LIMIT, ClusterPlan, _cdiv,
-                                        check_rnn_args, check_tensor, grid_rnn_seq1_pair_plain,
-                                        plan_clusters, plan_fused)
+                                        check_rnn_args, check_tensor, fma_step,
+                                        grid_rnn_seq1_pair_plain, plan_clusters, plan_fused)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -98,7 +98,8 @@ def plan_train_sweep(lines: int, c: int, hidden: int,
     return plan_clusters(
         lines, 2, SWEEP_LINES, lambda cs, tile: train_sweep_layout(c, hidden, cs, tile),
         max_clusters,
-        lambda cs, tile: (_cdiv(_cdiv(hidden, cs), 8) * 16 + _cdiv(4 * (c // cs), 8) * 4) * tile,
+        fma_step(lambda cs, tile: (_cdiv(_cdiv(hidden, cs), 8) * 16
+                                   + _cdiv(4 * (c // cs), 8) * 4) * tile),
         f"grid_fold_train_pair_bwd: no reverse sweep plan for C={c}, H={hidden}")
 
 

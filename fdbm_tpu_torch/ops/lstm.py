@@ -42,7 +42,7 @@ import torch
 
 from fdbm_tpu_torch.ops import _build
 from fdbm_tpu_torch.ops.gridrnn import (CLUSTERS, SMEM_LIMIT, ClusterPlan, _cdiv, check_tensor,
-                                        lstm_plain, plan_clusters, round_bf16)
+                                        fma_step, lstm_plain, plan_clusters, round_bf16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -110,7 +110,7 @@ def plan_recurrence(lines: int, dirs: int, hidden: int,
     gates x tile lines."""
     return plan_clusters(lines, dirs, REC_LINES,
                          lambda cs, tile: recurrence_layout(hidden, cs, tile), max_clusters,
-                         lambda cs, tile: _cdiv(hidden, _KS) * 4 * tile,
+                         fma_step(lambda cs, tile: _cdiv(hidden, _KS) * 4 * tile),
                          f"lstm: no recurrence plan for H={hidden}")
 
 
@@ -121,7 +121,8 @@ def plan_sweep(lines: int, hidden: int, max_clusters: Callable[[int, int], int]
     its block's units' gate quads for 4 units x tile lines (16 x tile FMAs
     per quad)."""
     return plan_clusters(lines, 1, REC_LINES, lambda cs, tile: sweep_layout(hidden, cs, tile),
-                         max_clusters, lambda cs, tile: _cdiv(_cdiv(hidden, cs), _KS) * 16 * tile,
+                         max_clusters,
+                         fma_step(lambda cs, tile: _cdiv(_cdiv(hidden, cs), _KS) * 16 * tile),
                          f"lstm: no reverse sweep plan for H={hidden}")
 
 

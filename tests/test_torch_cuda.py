@@ -1117,7 +1117,8 @@ def _bf16_counts_moved(name, before):
 
 
 @pytest.mark.parametrize("b,s,p,c,hidden", [
-    (2, 35, 12, 16, 24), (1, 70, 5, 32, 100), (1, 12, 7, 64, 128), (2, 263, 9, 32, 100)])
+    (2, 35, 12, 8, 24), (2, 35, 12, 16, 24), (1, 70, 5, 32, 100), (1, 12, 7, 64, 128),
+    (2, 263, 9, 32, 100)])
 def test_grid_rnn_bf16_matches_plain(dev, b, s, p, c, hidden):
     rng = np.random.default_rng(10)
     x = _rand(rng, (b, s, p, c), 0.5, dev).to(torch.bfloat16)
@@ -1134,6 +1135,45 @@ def test_grid_rnn_bf16_matches_plain(dev, b, s, p, c, hidden):
     for g, r, f, u in zip(got, plain, f64, upcast):
         assert g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
         _bf16_gates(BF16_TOLS["grid_rnn_seq1_pair"], g, r, f, u)
+
+
+@pytest.mark.parametrize("b,s,p,c,hidden", [
+    (2, 35, 12, 8, 24), (1, 40, 21, 24, 40), (1, 70, 33, 32, 100), (1, 20, 9, 64, 128)])
+def test_grid_rnn_bf16_every_plan_matches_plain(dev, b, s, p, c, hidden):
+    """Every plan (cluster size, lines a tile) that fits a block, launched
+    directly, matches the bf16 plain version: one and two M tiles, with
+    and without a cluster, at C = 8 (a lane's first k-chunk is tap 1)."""
+    from fdbm_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(13)
+    x = _rand(rng, (b, s, p, c), 0.5, dev).to(torch.bfloat16)
+    w = (_rand(rng, (2, 4 * c, 4 * hidden), 0.1, dev),
+         _rand(rng, (2, hidden, 4 * hidden), 0.1, dev),
+         _rand(rng, (2, 4 * hidden), 0.1, dev), _rand(rng, (2 * hidden, 4 * c), 0.1, dev))
+    plain = gridrnn.grid_rnn_seq1_pair_plain(x, *w)
+    f64 = gridrnn.grid_rnn_seq1_pair_plain(x.double(), *(a.double() for a in w))
+    lib = _build.load("gridrnn", gridrnn._SIGNATURES, gridrnn._RESTYPES)
+    hs = torch.empty((2, b * p, s - 3, hidden), device=dev, dtype=torch.bfloat16)
+    ran = []
+    for cs in gridrnn.CLUSTERS:
+        for lines in gridrnn.MMA_LINES:
+            if (gridrnn.mma_layout(c, hidden, cs, lines) is None
+                    or gridrnn._card_mma_max_clusters(torch.cuda.current_device(), c, hidden,
+                                                      cs, lines) < 1):
+                continue
+            outs = (torch.full_like(x, float("nan")), torch.full_like(x, float("nan")))
+            err = lib.gridrnn_seq1_pair_bf16(
+                x.data_ptr(), *(t.data_ptr() for t in w), hs.data_ptr(), outs[0].data_ptr(),
+                outs[1].data_ptr(), b, s, p, c, hidden, cs, lines,
+                torch.cuda.current_stream().cuda_stream)
+            assert err == 0, (cs, lines, err)
+            torch.cuda.synchronize()
+            for g, r, f in zip(outs, plain, f64):
+                assert torch.isfinite(g.float()).all(), (cs, lines)
+                _bf16_gates(BF16_TOLS["grid_rnn_seq1_pair"], g, r, f)
+            ran.append((cs, lines))
+    assert {lines for _, lines in ran} == set(gridrnn.MMA_LINES)
+    assert any(cs > 1 and lines == 32 for cs, lines in ran), ran
 
 
 @pytest.mark.parametrize("n_head", [3, 4])
@@ -1211,6 +1251,32 @@ def test_bf16_wrappers_refuse_bf16_weights(dev):
     with pytest.raises(ValueError):
         lstm_ops.bilstm_fused_forward(xs, torch.zeros(2, 8, 32, device=dev, dtype=torch.bfloat16),
                                       w[1], w[2])
+
+
+def test_bf16_tensor_core_layouts_match_the_kernel(dev):
+    """Kernel 1's bf16 plan mirrored in Python (tests/test_torch_bf16_plans.py)
+    lays out shared memory as the kernel counts it."""
+    for c, hidden in ((32, 100), (64, 128), (16, 24), (8, 1)):
+        for cs in gridrnn.CLUSTERS:
+            for lines in gridrnn.MMA_LINES:
+                lay = gridrnn.mma_layout(c, hidden, cs, lines)
+                assert gridrnn.mma_smem(c, hidden, cs, lines) == (-1 if lay is None else lay[1])
+
+
+def test_bf16_tensor_core_plan_is_one_wave_on_the_card(dev):
+    """A 4 s request's bf16 RNN calls (B=1) are one wave on the card's counts."""
+    rnn = gridrnn.mma_plan(263, 32, 100, dev)
+    assert rnn.clusters <= rnn.max_clusters
+
+
+def test_bf16_rnn_wrapper_refuses_a_canvas_off_16_bytes(dev):
+    """The tensor-core kernel stages the canvas by 16-byte copies: a bf16
+    canvas off a 16-byte boundary raises rather than fall back."""
+    x = torch.zeros(12 * 7 * 32 + 4, device=dev, dtype=torch.bfloat16)[4:].view(1, 12, 7, 32)
+    w = (torch.zeros(2, 128, 400, device=dev), torch.zeros(2, 100, 400, device=dev),
+         torch.zeros(2, 400, device=dev), torch.zeros(200, 128, device=dev))
+    with pytest.raises(ValueError, match="16-byte"):
+        gridrnn.grid_rnn_seq1_pair(x, *w)
 
 
 def test_small_backbone_bf16_kernels_match_plain_route(dev):
