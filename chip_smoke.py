@@ -158,7 +158,9 @@ same bf16 inputs, rounded to bf16 after) must miss for kernels 1, 3 and 7,
 and within 1.5x the plain version's distance to float64 plus 1e-3; a bf16
 backbone or 2-step serve within that float64 gate (their rel-L2 to the bf16
 plain route printed: random weights amplify the kernels' rare one-step
-differences); ncsnpp_v2 in bf16 between
+differences), 6l48c200's serve over WIDE_GATE_DRAWS draws: the median of
+its distance over that limit at most 1, no draw above WIDE_GATE_W, and two
+fault controls missing it (``wide_gate_phase``); ncsnpp_v2 in bf16 between
 1e-4 and NCSNPP_BF16_TOL of float64; on trained weights, bf16 against fp32
 at least 15 dB SI-SDR and within 0.5 dB enhanced-vs-clean.
 
@@ -166,6 +168,12 @@ at least 15 dB SI-SDR and within 0.5 dB enhanced-vs-clean.
 
 reads only the 6l48c200 checks over four seeds, the readings the float64
 gate's limits come from, and
+
+    python3 chip_smoke.py --probe-bf16-gate readings.json 8
+
+reads only 6l48c200's bf16 2-step serve over eight draws, through the kernel
+route, the routes with kernel 3's or kernel 7's plain version in its place
+and the fault controls: the readings WIDE_GATE_W comes from, and
 
     python3 chip_smoke.py --probe-kernels readings.json
 
@@ -2183,16 +2191,21 @@ def step_decisions(times) -> list:
 
 
 @contextlib.contextmanager
-def backbone_swapped(name: str, fn):
-    """While open, 5l32c100 calls ``fn`` where it calls ``tfgridnet.<name>``."""
-    from fdbm_tpu_torch.models import tfgridnet
-
-    saved = getattr(tfgridnet, name)
-    setattr(tfgridnet, name, fn)
+def swapped(module, name: str, fn):
+    """While open, callers of ``module.<name>`` call ``fn``."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
     try:
         yield
     finally:
-        setattr(tfgridnet, name, saved)
+        setattr(module, name, saved)
+
+
+def backbone_swapped(name: str, fn):
+    """While open, TF-GridNet calls ``fn`` where it calls ``tfgridnet.<name>``."""
+    from fdbm_tpu_torch.models import tfgridnet
+
+    return swapped(tfgridnet, name, fn)
 
 
 def kernel1_fault(fault):
@@ -3102,11 +3115,12 @@ def kernel_bf16_phase(dev, summary: dict) -> None:
     and 7, and the fp32 form's time on the same inputs. Bound: bf16 bytes
     (fp32 weights) over the HBM rate against the operations over the bf16
     tensor-core rate (``cuda_core_bound_ms``: over the fp32 rate of the CUDA
-    cores, where rows 2, 3 and 7 multiply). Row 1 runs on the tensor cores:
-    it prints its kernel's HMMA count (``tensor_core_ops``; 0 fails), its
-    stages, its time a step and its time at every plan the card runs
-    (``plans_ms``). Library: SDPA on bf16 (row 3), cuDNN's bf16 LSTM (row
-    7)."""
+    cores). Rows 1, 3 and 7 run on the tensor cores: each prints its
+    kernels' HMMA counts (``tensor_core_ops``; 0 fails), its stages (row 1:
+    recurrence and fold, row 7: projection and recurrence, with its time a
+    step) and its time at every plan the card runs (``plans_ms``), each
+    plan's output held to BF16_TOLS. Library: SDPA on bf16 (row 3), cuDNN's
+    bf16 LSTM (row 7)."""
     from fdbm_tpu_torch.dsp import num_frames_for_length
     from fdbm_tpu_torch.ops import _build, attention as attn_ops, gridrnn, lstm as lstm_ops
 
@@ -3124,7 +3138,11 @@ def kernel_bf16_phase(dev, summary: dict) -> None:
     rows = {}
     # Row 1 runs on the tensor cores: its kernel's HMMA count, each
     # instantiation's, and none may be 0.
-    mma_ops = tensor_core_ops(_build.build_all()["libraries"]["gridrnn"], "gridrnn_mma_kernel")
+    libraries = _build.build_all()["libraries"]
+    mma_ops = tensor_core_ops(libraries["gridrnn"], "gridrnn_mma_kernel")
+    attn_mma_ops = tensor_core_ops(libraries["attention"], "attn_mma_kernel")
+    lstm_mma_ops = {**tensor_core_ops(libraries["lstm"], "dense_mma_kernel"),
+                    **tensor_core_ops(libraries["lstm"], "lstm_mma_kernel")}
 
     def gated(name, got, plain, f64, upcast=None):
         """``bf16_gate`` within BF16_TOLS[name]; ``upcast``, the fp32 form's
@@ -3229,14 +3247,32 @@ def kernel_bf16_phase(dev, summary: dict) -> None:
         t2 = b * n_head * frames * frames
         run = lambda: attn_ops.frame_attention(q, k, v, n_head, e_dim)
         q32, k32, v32 = q.float(), k.float(), v.float()
+        plain_attn = attn_ops.frame_attention_plain(q, k, v, n_head, e_dim)
+        plans_ms = {}
+        for mt in attn_ops.MMA_ROW_TILES:
+            for slices in attn_ops.MMA_SLICES:
+                if (attn_ops.attention_mma_layout(frames, q_bins, e_dim, d_dim, mt, slices) is None
+                        or attn_ops._card_mma_max_clusters(0, frames, q_bins, e_dim, d_dim,
+                                                           16 * mt, slices) < 1):
+                    continue
+                at = lambda mt=mt, slices=slices: attn_ops.launch_frame_attention_bf16(
+                    q, k, v, n_head, e_dim, 16 * mt, slices)
+                err = rel_err(at().double(), plain_attn.double())
+                if not err <= BF16_TOLS["frame_attention"]:
+                    fail(f"frame_attention_bf16 at plan rows={16 * mt}, slices={slices} is "
+                         f"{err} from its bf16 plain version")
+                plans_ms[f"rows{16 * mt}_slices{slices}"] = timed_ms(at, 3)
+        plan = attn_ops.card_attention_mma_plan(b, frames, q_bins, n_head, e_dim, d_dim)
         out["frame_attention"] = dict(
-            gated("frame_attention", run(), attn_ops.frame_attention_plain(q, k, v, n_head, e_dim),
+            gated("frame_attention", run(), plain_attn,
                   attn_ops.frame_attention_plain(q.double(), k.double(), v.double(), n_head,
                                                  e_dim),
                   bf(attn_ops.frame_attention(q32, k32, v32, n_head, e_dim))),
             shape=[list(q.shape), list(v.shape)],
-            plan=attn_ops.card_attention_plan(b, frames, q_bins, n_head, e_dim,
-                                              d_dim)._asdict(),
+            plan={**plan._asdict(), "waves": -(-plan.blocks // (plan.max_clusters
+                                                                 * plan.slices))},
+            plans_ms=plans_ms, tensor_core_ops=attn_mma_ops,
+            stages_ms=kernel_times(run, {"attention": "attn_mma_kernel"}),
             ms=timed_ms(run),
             fp32_ms=timed_ms(lambda: attn_ops.frame_attention(q32, k32, v32, n_head, e_dim)),
             plain_ms=timed_ms(lambda: attn_ops.frame_attention_plain(q, k, v, n_head, e_dim), 3),
@@ -3257,19 +3293,41 @@ def kernel_bf16_phase(dev, summary: dict) -> None:
     n = x.shape[0] * x.shape[1]
     lib = cudnn_lstm(*w2, dev).to(torch.bfloat16)
     with torch.no_grad():
+        plain7 = lstm_ops.bilstm_fused_forward_plain(x, *w2)
+        plans7 = {}
+        for cs in lstm_ops.REC_CLUSTERS:
+            for tile in lstm_ops.MMA_LINES:
+                if (lstm_ops.recurrence_mma_layout(wide_h, cs, tile) is None
+                        or lstm_ops._card_max_clusters(0, wide_h, cs, tile, "mma") < 1):
+                    continue
+                at = lambda cs=cs, tile=tile: lstm_ops._forward(
+                    "bilstm_fused_forward", x, *w2, 2, False, plan=(cs, tile))
+                err = max(rel_err(g.double(), r.double()) for g, r in zip(at(), plain7))
+                if not err <= BF16_TOLS["bilstm_fused_forward"]:
+                    fail(f"bilstm_fused_forward_bf16 at plan cs={cs}, lines={tile} is {err} "
+                         f"from its bf16 plain version")
+                plans7[f"cs{cs}_lines{tile}"] = timed_ms(at, 3)
+        run7 = lambda: lstm_ops.bilstm_fused_forward(x, *w2)
+        stages7 = kernel_times(run7, {"projection": "dense_mma_kernel",
+                                      "recurrence": "lstm_mma_kernel"})
         rows["bilstm_fused_forward"] = dict(
-            gated("bilstm_fused_forward", lstm_ops.bilstm_fused_forward(x, *w2),
-                  lstm_ops.bilstm_fused_forward_plain(x, *w2),
+            gated("bilstm_fused_forward", run7(), plain7,
                   lstm_ops.bilstm_fused_forward_plain(x.double(), *dbl(w2)),
                   [bf(t) for t in lstm_ops.bilstm_fused_forward(x.float(), *w2)]),
-            shape=list(x.shape), plan=lstm_ops.recurrence_plan(x.shape[1], 2, wide_h)._asdict(),
-            ms=timed_ms(lambda: lstm_ops.bilstm_fused_forward(x, *w2)),
+            shape=list(x.shape),
+            plan=lstm_ops.recurrence_mma_plan(x.shape[1], 2, wide_h)._asdict(),
+            plans_ms=plans7, tensor_core_ops=lstm_mma_ops, stages_ms=stages7,
+            recurrence_ms=stages7.get("recurrence"),
+            recurrence_us_per_step=stages7.get("recurrence", 0.0) / length * 1e3,
+            fp32_stages_ms=kernel_times(lambda: lstm_ops.bilstm_fused_forward(x.float(), *w2),
+                                        {"projection": "dense_kernel",
+                                         "recurrence": "lstm_rec_kernel"}),
+            ms=timed_ms(run7),
             fp32_ms=timed_ms(lambda: lstm_ops.bilstm_fused_forward(x.float(), *w2)),
             plain_ms=timed_ms(lambda: lstm_ops.bilstm_fused_forward_plain(x, *w2), 3),
             **bounds(2 * n * (2 * d * 4 * wide_h + 2 * wide_h * 4 * wide_h),
                      2 * x.numel() + 4 * sum(t.numel() for t in w2) + 2 * 2 * n * wide_h),
             library_ms=timed_ms(lambda: lib(x)),
-            **recurrence_time(lambda: lstm_ops.bilstm_fused_forward(x, *w2), length),
             calls="one intra path of 6l48c200's 4 s request (B=1)")
     del x, lib
     for name, r in rows.items():
@@ -3376,22 +3434,21 @@ def backbone_bf16_phase(dev) -> None:
 
 def serve_check_bf16_phase(dev) -> None:
     """A 2-step sde_ei serve at ``inference_dtype=bfloat16``: 5l32c100 at B=1
-    (1 s) and B=16 (16 rows of 1 s), 6l48c200 at B=1, each through the kernel
-    route against the bf16 plain route and the plain network in float64 in
-    the same sampler (``Float64Backbone``), on the same noise
-    (``bf16_gate``); the kernel route launches only bf16 forms."""
+    (1 s) and B=16 (16 rows of 1 s), each through the kernel route against
+    the bf16 plain route and the plain network in float64 in the same
+    sampler (``Float64Backbone``), on the same noise (``bf16_gate``), and
+    6l48c200 at B=1 over several draws (``wide_gate_phase``); the kernel
+    route launches only bf16 forms."""
     from fdbm_tpu_torch import ops
     from fdbm_tpu_torch.model import FDBMConfig
-    from fdbm_tpu_torch.models.tfgridnet import TFGridNet, tfgridnet_5l32c100
+    from fdbm_tpu_torch.models.tfgridnet import tfgridnet_5l32c100
 
     rng = np.random.default_rng(SEED + 92)
     cfg = FDBMConfig(inference_dtype="bfloat16")
-    for name, make, rows, per_call in (
-            (RNN_MODEL, tfgridnet_5l32c100, 1, BF16_CALL_LAUNCHES),
-            (RNN_MODEL, tfgridnet_5l32c100, FOLDER_BATCH, BF16_CALL_LAUNCHES),
-            (WIDE, TFGridNet, 1, {"bilstm_fused_forward_bf16": WIDE_PATHS,
-                                  "frame_attention_bf16": 6})):
+    expected = {k: 2 * v for k, v in BF16_CALL_LAUNCHES.items()}
+    for rows in (1, FOLDER_BATCH):
         torch.manual_seed(SEED)
+        make = tfgridnet_5l32c100
         fdbm = fdbm_with(make, dev, cfg, serve_dtype=torch.bfloat16)
         plain = fdbm_with(make, dev, cfg, use_kernels=False, serve_dtype=torch.bfloat16)
         plain.dnn.load_state_dict(fdbm.dnn.state_dict())
@@ -3407,13 +3464,217 @@ def serve_check_bf16_phase(dev) -> None:
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         gate = bf16_gate(out, serve(plain), serve(f64), tol=None)
-        expected = {k: 2 * v for k, v in per_call.items()}
-        emit({"phase": "serve_check_bf16", "backbone": name, "batch": rows, "sampler": "sde_ei",
-              "N": 2, "samples": audio.shape[-1], **gate, "launches": counts})
+        emit({"phase": "serve_check_bf16", "backbone": RNN_MODEL, "batch": rows,
+              "sampler": "sde_ei", "N": 2, "samples": audio.shape[-1], **gate,
+              "launches": counts})
         if not (gate["ok"] and only_bf16(counts, expected)):
-            fail(f"{name} bf16 serve at B={rows}: {gate}, launches {counts}, "
+            fail(f"{RNN_MODEL} bf16 serve at B={rows}: {gate}, launches {counts}, "
                  f"expected {expected}")
         del fdbm, plain, f64
+    audio = torch.as_tensor(rng.standard_normal((1, 16000)).astype(np.float32) * 0.3, device=dev)
+    wide_gate_phase(dev, audio, {"bilstm_fused_forward_bf16": 2 * WIDE_PATHS,
+                                 "frame_attention_bf16": 2 * 6})
+
+
+# serve_check_bf16's 6l48c200 gate judges WIDE_GATE_DRAWS draws (weights
+# from torch.manual_seed(SEED + i), 1 s of audio, the sampler's noise from
+# SEED + i; draw 0 is the draw a single-draw gate read). On each draw
+# the kernel route's distance to the float64 serve over its limit, BF16_F64_K
+# x the bf16 plain route's distance + BF16_F64_ABS, is its ratio; the
+# median ratio must be <= 1 and no draw's above WIDE_GATE_W. A 2-step serve
+# of random weights through the E=2 q/k norms is chaotic: one draw judged
+# the draw (with the exact plain attention in kernel 3's place, draw 0
+# missed a single-draw gate). W was calibrated on the kernels' CUDA-core bf16
+# forms, before their tensor-core forms (--probe-bf16-gate, 8 draws, on an
+# H100 at 700 W, PERF.md §6): the
+# worst ratio of the kernel route (median 0.696, worst 1.200), the route
+# with frame_attention_plain in kernel 3's place (0.631, 1.240) and the
+# route with bilstm_fused_forward_plain in kernel 7's place (0.660, 0.706),
+# all three right by construction, is 1.240; W = 1.25 x that. The controls,
+# the kernel route with one fault in every call, must miss the gate
+# (WIDE_CONTROLS): kernel 7's output with one line dropped (median 1.954 on
+# the 8 draws) and kernel 3's with one head scaled by 1 + 1e-1 (1.520), the
+# smallest scale of 1e-2, 3e-2, 1e-1 that it catches; 1 + 1e-2 (0.719) and
+# 1 + 3e-2 (0.982) pass it, so the scale of 1e-2 is read and reported
+# (WIDE_REPORTED), not required to miss.
+WIDE_GATE_DRAWS = 5
+WIDE_GATE_W = 1.55
+
+
+def wide_gate_audio(draw: int, dev) -> torch.Tensor:
+    """Draw ``draw``'s 1 s of audio (draws above 0; draw 0 keeps the phase's)."""
+    rng = np.random.default_rng((SEED + 92, draw))
+    return torch.as_tensor(rng.standard_normal((1, 16000)).astype(np.float32) * 0.3, device=dev)
+
+
+def attention_head_scaled(scale: float):
+    """While open, kernel 3's output has its first head's values scaled by
+    ``1 + scale`` (in bf16, as the kernel returns it)."""
+    from fdbm_tpu_torch.models import tfgridnet
+
+    fn = tfgridnet.frame_attention
+
+    def faulty(q, k, v, n_head, e_dim, norms=None):
+        out = fn(q, k, v, n_head, e_dim, norms=norms)
+        out.view(*out.shape[:-1], n_head, -1)[..., 0, :] *= 1 + scale
+        return out
+
+    return swapped(tfgridnet, "frame_attention", faulty)
+
+
+def lstm_lines_dropped(lines: int):
+    """While open, kernel 7's forward output has ``lines`` lines from line 1
+    on zeroed."""
+    from fdbm_tpu_torch.models import layers
+
+    fn = layers.bilstm_fused_forward
+
+    def faulty(x, *weights):
+        fwd, bwd = fn(x, *weights)
+        fwd = fwd.clone()
+        fwd[:, 1:1 + lines] = 0
+        return fwd, bwd
+
+    return swapped(layers, "bilstm_fused_forward", faulty)
+
+
+def plain_in_place(which: str):
+    """While open, the 6l48c200 serve runs kernel 3's (``attention``) or
+    kernel 7's (``lstm``) plain version in the kernel's place."""
+    from fdbm_tpu_torch.models import layers, tfgridnet
+    from fdbm_tpu_torch.ops import attention, lstm
+
+    if which == "attention":
+        return swapped(tfgridnet, "frame_attention", attention.frame_attention_plain)
+    return swapped(layers, "bilstm_fused_forward", lstm.bilstm_fused_forward_plain)
+
+
+# The gate's fault controls, which must miss it, and the fault it cannot
+# see, read beside them.
+WIDE_CONTROLS = {
+    "lstm_line_dropped": lambda: lstm_lines_dropped(1),
+    "attention_head_scaled_1e-1": lambda: attention_head_scaled(1e-1),
+}
+WIDE_REPORTED = {"attention_head_scaled_1e-2": lambda: attention_head_scaled(1e-2)}
+# --probe-bf16-gate's routes beside them: the two plain-in-place routes that
+# calibrate W, and other faults of both kinds, for the smallest one caught.
+WIDE_PROBE_ROUTES = {
+    "plain_attention": lambda: plain_in_place("attention"),
+    "plain_lstm": lambda: plain_in_place("lstm"),
+    **WIDE_CONTROLS,
+    **WIDE_REPORTED,
+    "attention_head_scaled_3e-2": lambda: attention_head_scaled(3e-2),
+    "attention_head_scaled_3e-1": lambda: attention_head_scaled(3e-1),
+    "attention_head_scaled_1": lambda: attention_head_scaled(1.0),
+    "lstm_lines_dropped_16": lambda: lstm_lines_dropped(16),
+    "lstm_lines_dropped_64": lambda: lstm_lines_dropped(64),
+}
+
+
+def wide_gate_draws(dev, draws: int, first_audio: torch.Tensor, routes: dict,
+                    expected: dict) -> list:
+    """The 2-step bf16 serve of 6l48c200 on ``draws`` draws: the kernel
+    route, the bf16 plain route and the plain network in float64
+    (``bf16_gate``), the kernel route's launches against ``expected``, and
+    each of ``routes`` (a context that changes the kernel route) against the
+    same float64 serve and limit. One record a draw, with the ratios."""
+    from fdbm_tpu_torch import ops
+    from fdbm_tpu_torch.model import FDBMConfig
+    from fdbm_tpu_torch.models.tfgridnet import TFGridNet
+
+    cfg = FDBMConfig(inference_dtype="bfloat16")
+    records = []
+    for i in range(draws):
+        torch.manual_seed(SEED + i)
+        fdbm = fdbm_with(TFGridNet, dev, cfg, serve_dtype=torch.bfloat16)
+        plain = fdbm_with(TFGridNet, dev, cfg, use_kernels=False, serve_dtype=torch.bfloat16)
+        plain.dnn.load_state_dict(fdbm.dnn.state_dict())
+        f64 = fdbm_with(TFGridNet, dev, cfg, use_kernels=False, serve_dtype=torch.float32)
+        f64.dnn.load_state_dict(fdbm.dnn.state_dict())
+        f64.dnn = Float64Backbone(f64.dnn).eval()
+        audio = first_audio if i == 0 else wide_gate_audio(i, dev)
+        serve = lambda f: f.enhance_batch(
+            audio, torch.Generator(device=dev).manual_seed(SEED + i), sampler_type="sde_ei", N=2)
+        ops.reset_launch_counts()
+        out = serve(fdbm)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = serve(f64)
+        gate = bf16_gate(out, serve(plain), want, tol=None)
+        rec = {"draw": i, **gate, "ratio": gate["kernel_f64"] / gate["limit_f64"],
+               "finite": bool(torch.isfinite(as_real64(out)).all()),
+               "launches": counts, "launches_ok": only_bf16(counts, expected)}
+        for name, route in routes.items():
+            with route():
+                got = serve(fdbm)
+            dist = rel_err(as_real64(got), as_real64(want))
+            rec[name] = {"kernel_f64": dist, "ratio": dist / gate["limit_f64"],
+                         "finite": bool(torch.isfinite(as_real64(got)).all())}
+        records.append(rec)
+        del fdbm, plain, f64
+    return records
+
+
+def several_draws(ratios) -> dict:
+    """The several-draw gate on one route's ratios."""
+    med, worst = float(np.median(ratios)), float(max(ratios))
+    return {"ratios": list(ratios), "median_ratio": med, "worst_ratio": worst,
+            "w": WIDE_GATE_W, "ok": med <= 1.0 and worst <= WIDE_GATE_W}
+
+
+def wide_gate_phase(dev, first_audio: torch.Tensor, expected: dict) -> None:
+    """serve_check_bf16's 6l48c200 gate over WIDE_GATE_DRAWS draws: the
+    kernel route passes ``several_draws``, launching only the bf16 forms as
+    ``expected`` on every draw, and each of WIDE_CONTROLS misses it;
+    WIDE_REPORTED's gates are printed."""
+    records = wide_gate_draws(dev, WIDE_GATE_DRAWS, first_audio,
+                              {**WIDE_CONTROLS, **WIDE_REPORTED}, expected)
+    for rec in records:
+        emit({"phase": "serve_check_bf16_draw", "backbone": WIDE, "batch": 1,
+              "sampler": "sde_ei", "N": 2, **rec})
+    gate = several_draws([r["ratio"] for r in records])
+    controls = {name: several_draws([r[name]["ratio"] for r in records])
+                for name in (*WIDE_CONTROLS, *WIDE_REPORTED)}
+    ok = (gate["ok"] and all(r["launches_ok"] and r["finite"] for r in records)
+          and not any(controls[name]["ok"] for name in WIDE_CONTROLS))
+    emit({"phase": "serve_check_bf16", "backbone": WIDE, "batch": 1, "sampler": "sde_ei",
+          "N": 2, "draws": WIDE_GATE_DRAWS, **gate,
+          "controls_missed": {name: not controls[name]["ok"] for name in WIDE_CONTROLS},
+          "controls": controls, "ok": ok})
+    if not ok:
+        fail(f"{WIDE} bf16 serve over {WIDE_GATE_DRAWS} draws: {gate}, controls {controls}, "
+             f"launches {[r['launches'] for r in records]}, expected {expected}")
+
+
+def probe_bf16_gate(out_path: str, draws: int) -> None:
+    """Only the 6l48c200 bf16 serve over ``draws`` draws through the kernel
+    route and WIDE_PROBE_ROUTES (the plain-in-place routes that calibrate
+    WIDE_GATE_W, the controls and larger faults of their kinds), each
+    route's several-draw gate, written to ``out_path`` as JSON; fails on
+    nothing."""
+    from fdbm_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    emit({"phase": "device", "nvidia_smi": nvidia_smi()})
+    emit({"phase": "build", "nvcc_seconds": _build.build_all()["seconds"]})
+    rng = np.random.default_rng(SEED + 92)
+    rng.standard_normal((1, 16000))
+    rng.standard_normal((FOLDER_BATCH, 16000))  # serve_check_bf16's draws before 6l48c200's
+    first = torch.as_tensor(rng.standard_normal((1, 16000)).astype(np.float32) * 0.3, device=dev)
+    records = wide_gate_draws(dev, draws, first, WIDE_PROBE_ROUTES, {})
+    for rec in records:
+        emit({"phase": "probe_bf16_gate_draw", **{k: v for k, v in rec.items()
+                                                   if k != "launches"}})
+    gates = {"kernel": several_draws([r["ratio"] for r in records])}
+    gates.update({name: several_draws([r[name]["ratio"] for r in records])
+                  for name in WIDE_PROBE_ROUTES})
+    emit({"phase": "probe_bf16_gate", "draws": draws, "gates": gates})
+    with open(out_path, "w") as f:
+        json.dump({"records": records, "gates": gates}, f)
 
 
 def quality_pairs(count: int, seconds: float, seed: int):
@@ -4590,6 +4851,37 @@ KERNEL_VARIANTS = {
                                "    }\n    __syncthreads();\n  }\n  cluster.sync();\n}"),
         "no_xp_loads": (_LSTM_CU_FILE, "xp[(row0 + q) * N + g * H + unit] : 0.f;", "0.f : 0.f;"),
     },
+    # Kernel 7's bf16 form: the tensor-core recurrence's parts (the
+    # projection is unchanged; its time is read apart), and its cell with the
+    # accurate activations in place of the fast ones.
+    "bilstm_fused_forward_bf16": {
+        "no_product": (_LSTM_CU_FILE, "    for (int kk = 0; kk < p.kh / 16; ++kk) {",
+                       "    for (int kk = 0; kk < 0; ++kk) {"),
+        "no_cluster_barrier": (
+            _LSTM_CU_FILE, "    if (s > 0) cluster_wait();  // every block's h of the last step "
+            "is in hcur\n", "",
+            (("    cluster_arrive();\n    if (s + 1 < S) load_xp(s + 1);",
+              "    if (s + 1 < S) load_xp(s + 1);"),
+             ("  cluster_wait();  // no block leaves while another may still write its h",
+              "  cluster.sync();"))),
+        "no_remote_h": (_LSTM_CU_FILE, "          for (int r = 0; r < p.cs; ++r) "
+                        "cluster.map_shared_rank(hnext, r)[at] = hv;", "          hnext[at] = hv;"),
+        "no_cell": (_LSTM_CU_FILE, "          const bf16 hv = __float2bfloat16(og * fast_tanh(c));",
+                    "          const bf16 hv = __float2bfloat16(acc[m][i][0][2 * hr]);",
+                    (("          c = fg * c + ig * gg;\n", ""),)),
+        "accurate_cell": (
+            _LSTM_CU_FILE,
+            "          const float ig = fast_sigmoid(acc[m][i][0][2 * hr] + xv[m][i][hr][0]);",
+            "          const float ig = sigmoidf_(acc[m][i][0][2 * hr] + xv[m][i][hr][0]);",
+            (("          const float fg = fast_sigmoid(acc[m][i][0][2 * hr + 1] + xv[m][i][hr][1]);",
+              "          const float fg = sigmoidf_(acc[m][i][0][2 * hr + 1] + xv[m][i][hr][1]);"),
+             ("          const float gg = fast_tanh(acc[m][i][1][2 * hr] + xv[m][i][hr][2]);",
+              "          const float gg = tanhf(acc[m][i][1][2 * hr] + xv[m][i][hr][2]);"),
+             ("          const float og = fast_sigmoid(acc[m][i][1][2 * hr + 1] + xv[m][i][hr][3]);",
+              "          const float og = sigmoidf_(acc[m][i][1][2 * hr + 1] + xv[m][i][hr][3]);"),
+             ("          const bf16 hv = __float2bfloat16(og * fast_tanh(c));",
+              "          const bf16 hv = __float2bfloat16(og * tanhf(c));"))),
+    },
     # Kernel 1: the fused recurrence's parts (the fold is unchanged).
     "grid_rnn_seq1_pair": {
         "no_window": (_GRID_CU, "    if (s + 1 < L) window(s + 1);", ""),
@@ -4733,7 +5025,7 @@ def probe_bf16(out_path: str) -> None:
     print(smi, flush=True)
 
 
-def probe_kernels(out_path: str) -> None:
+def probe_kernels(out_path: str, only=()) -> None:
     """Where the time of the redesigned kernels goes: each variant of
     KERNEL_VARIANTS is built from a copy of its source and timed at the main
     path's shape and plan beside the unchanged source, on the same inputs
@@ -4741,8 +5033,10 @@ def probe_kernels(out_path: str) -> None:
     the plans of PROBE_ATTENTION_PLANS; bilstm_fused_forward: 262 lines, two
     directions, H=200; grid_rnn_seq1_pair: the canvas [1, 263, 263, 32],
     H=100; grid_fold_train_pair and its backward: [263, 524, 32], H=100;
-    lstm_core_bwd: [260, 524, 192], H=200). Writes the times to
-    ``out_path``."""
+    lstm_core_bwd: [260, 524, 192], H=200; bilstm_fused_forward_bf16: x
+    [260, 263, 192] in bf16, H=200, the recurrence's time a step beside the
+    projection's time). ``only`` names the kernels to read (all by default).
+    Writes the times to ``out_path``."""
     import ctypes
 
     from fdbm_tpu_torch.ops import _build, attention as attn_ops, gridrnn, gridrnn_train
@@ -4762,6 +5056,8 @@ def probe_kernels(out_path: str) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     readings = {"nvidia_smi": smi}
     for kernel, variants in KERNEL_VARIANTS.items():
+        if only and kernel not in only:
+            continue
         src_name = next(iter(variants.values()))[0]
         src = (_build.CSRC / src_name).read_text()
         texts = {"unchanged": src}
@@ -4830,6 +5126,33 @@ def probe_kernels(out_path: str) -> None:
                 if call():
                     fail(f"probe variant {kernel}/{name} does not launch")
                 row[name] = timed_ms(call, 10)
+            readings[kernel] = row
+            emit({"phase": "probe_kernels", "kernel": kernel, **row})
+        elif kernel == "bilstm_fused_forward_bf16":
+            s_len, lines, d_in, hidden = 260, 263, 192, 200
+            x = rand(s_len, lines, d_in).to(torch.bfloat16)
+            sc = hidden ** -0.5
+            w = (rand(2, d_in, 4 * hidden, s=sc), rand(2, hidden, 4 * hidden, s=sc),
+                 rand(2, 4 * hidden, s=sc))
+            xp = torch.empty(2, s_len, lines, 4 * hidden, device=dev)
+            out = torch.empty(2, s_len, lines, hidden, device=dev, dtype=torch.bfloat16)
+            plan = lstm_ops.recurrence_mma_plan(lines, 2, hidden)
+            row = {"plan": plan._asdict()}
+            for name, lib in libs.items():
+                fn, proj = lib.lstm_forward_bf16, lib.lstm_projection_bf16
+                fn.argtypes, fn.restype = lstm_ops._SIGNATURES["lstm_forward_bf16"], ctypes.c_int
+                proj.argtypes = lstm_ops._SIGNATURES["lstm_projection_bf16"]
+                proj.restype = ctypes.c_int
+                call = lambda: fn(x.data_ptr(), *(t.data_ptr() for t in w), xp.data_ptr(),
+                                  out.data_ptr(), s_len, lines, d_in, hidden, 2, 0, plan.cs,
+                                  plan.lines, stream)
+                project = lambda: proj(x.data_ptr(), w[0].data_ptr(), w[2].data_ptr(),
+                                       xp.data_ptr(), s_len * lines, d_in, 4 * hidden, 2, stream)
+                if call() or project():
+                    fail(f"probe variant {kernel}/{name} does not launch")
+                ms, proj_ms = timed_ms(call, 10), timed_ms(project, 10)
+                row[name] = {"ms": ms, "projection_ms": proj_ms,
+                             "recurrence_us_per_step": (ms - proj_ms) / s_len * 1e3}
             readings[kernel] = row
             emit({"phase": "probe_kernels", "kernel": kernel, **row})
         elif kernel == "grid_rnn_seq1_pair":
@@ -4928,12 +5251,17 @@ if __name__ == "__main__":
                         help="only read the 6l48c200 checks over this many seeds (see probe)")
     parser.add_argument("--probe-first", type=int, default=SEED, help="the first probe seed")
     parser.add_argument("--probe-out", help="where --probe-seeds writes its readings (JSON)")
-    parser.add_argument("--probe-kernels", metavar="OUT",
-                        help="only time the redesigned kernels with parts of their work "
-                             "switched off (see probe_kernels), written to OUT (JSON)")
+    parser.add_argument("--probe-kernels", nargs="+", metavar=("OUT", "KERNEL"),
+                        help="only time the redesigned kernels (or the KERNELs named, keys of "
+                             "KERNEL_VARIANTS) with parts of their work switched off (see "
+                             "probe_kernels), written to OUT (JSON)")
     parser.add_argument("--probe-bf16", metavar="OUT",
                         help="only read kernel 1's bf16 step by phase (see probe_bf16), "
                              "written to OUT (JSON)")
+    parser.add_argument("--probe-bf16-gate", nargs="+", metavar=("OUT", "DRAWS"),
+                        help="only read the 6l48c200 bf16 serve over DRAWS draws (default 8) "
+                             "through the kernel route, the plain-in-place routes and the "
+                             "fault controls (see probe_bf16_gate), written to OUT (JSON)")
     parser.add_argument("--kernels-only", action="store_true",
                         help="only build and check and time the kernel rows, with no paths "
                              "run and no ok line (for a before/after on one card, also "
@@ -4992,9 +5320,12 @@ if __name__ == "__main__":
     elif cli.probe_fp32:
         probe_fp32(cli.probe_fp32)
     elif cli.probe_kernels:
-        probe_kernels(cli.probe_kernels)
+        probe_kernels(cli.probe_kernels[0], tuple(cli.probe_kernels[1:]))
     elif cli.probe_bf16:
         probe_bf16(cli.probe_bf16)
+    elif cli.probe_bf16_gate:
+        out, *draws = cli.probe_bf16_gate
+        probe_bf16_gate(out, int(draws[0]) if draws else 8)
     elif cli.probe_seeds:
         if not cli.probe_out:
             parser.error("--probe-seeds needs --probe-out")

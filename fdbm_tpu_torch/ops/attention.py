@@ -17,10 +17,12 @@ launch their kernels' bf16 forms, the JAX kernels' bf16 paths
 (``fdbm_tpu/ops/attention.py:199,229,351-353``): the norm reads and writes
 bf16 with fp32 statistics and parameters; the attention reads bf16 q, k, v
 and writes bf16, with fp32 score sums and softmax and P rounded to bf16
-before the value product (fp32 sums). Their plain versions are the same
-functions on bf16 tensors, the operands widened to fp32 and P rounded with
-``.to(torch.bfloat16)``. The two forms count their launches apart
-(``launches``, ``launches_bf16``).
+before the value product (fp32 sums), both products on the tensor cores
+(``attn_mma_kernel``; its plan from :func:`attention_mma_plan`, which
+mirrors the kernel's shared-memory layout in :func:`attention_mma_layout`).
+Their plain versions are the same functions on bf16 tensors, the operands
+widened to fp32 and P rounded with ``.to(torch.bfloat16)``. The two forms
+count their launches apart (``launches``, ``launches_bf16``).
 """
 
 from __future__ import annotations
@@ -42,8 +44,12 @@ _SIGNATURES = {
     "frame_attention_bf16": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
     "frame_attention_smem": [_I] * 6,
     "frame_attention_max_clusters": [_I] * 6,
+    "frame_attention_mma_smem": [_I] * 6,
+    "frame_attention_mma_threads": [_I] * 6,
+    "frame_attention_mma_max_clusters": [_I] * 6,
 }
-_RESTYPES = {"frame_attention_smem": ctypes.c_longlong}
+_RESTYPES = {"frame_attention_smem": ctypes.c_longlong,
+             "frame_attention_mma_smem": ctypes.c_longlong}
 _EPS = 1e-5
 
 NormParams = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -174,6 +180,216 @@ def attention_plan(batch: int, t_len: int, q_bins: int, n_head: int, e_dim: int,
             f"{attention_max_frames(q_bins, e_dim, d_dim)} at Q={q_bins}, E={e_dim}, "
             f"D={d_dim}: an 8-row score tile no longer fits in a block's shared memory")
     return best
+
+
+# The bf16 attention on the tensor cores (csrc/attention.cu: attn_mma_plan):
+# blocks of 16 MT query rows (MT m16 tiles), clusters of 1, 2, 4 or 8, V
+# stages of 32 keys, K chunks of at most 80 keys, 4-16 warps.
+MMA_ROW_TILES = (1, 2, 3, 4)
+MMA_SLICES = (1, 2, 4, 8)
+_AM_VK, _AM_KC_MAX, _AM_MIN_WARPS, _AM_MAX_WARPS = 32, 80, 4, 16
+
+
+class AttentionMmaLayout(NamedTuple):
+    """A block of the bf16 plan (MT, NS) as ``attn_mma_plan`` lays it out:
+    ``threads``, ``smem_bytes``; each rank's ``rank_keys`` keys (the last
+    rank's fewer), taken in chunks of ``key_chunk``; each rank's
+    ``rank_bins`` bins of the value width in ``passes`` passes of
+    ``pass_bins``, through ``v_stages`` V stages."""
+    threads: int
+    smem_bytes: int
+    rank_keys: int
+    key_chunk: int
+    rank_bins: int
+    pass_bins: int
+    passes: int
+    v_stages: int
+
+
+def _mma_npw(mt: int) -> int:
+    """n8 tiles of the value slice a warp holds (csrc/attention.cu: am_npw)."""
+    return 8 if mt <= 2 else (6 if mt == 3 else 5)
+
+
+def attention_mma_layout(t_len: int, q_bins: int, e_dim: int, d_dim: int, mt: int,
+                         slices: int) -> Optional[AttentionMmaLayout]:
+    """The block of the bf16 plan (``mt`` m16 tiles of query rows,
+    ``slices`` blocks a cluster), as ``csrc/attention.cu:attn_mma_plan``
+    lays it out: the fp32 scores [16 mt][T rounded to 32, + 8]; then, in the
+    score phase, the query tile and a key chunk head-major in bf16 (rows of
+    the Q*E depth rounded to 16, + 8 lanes) and the depth split's partial
+    sums, or, in the value phase, P in bf16 [16 mt][T rounded to 32, + 8]
+    and 3 (else 2) V stages of 32 keys x the pass's columns. None if it does
+    not fit a block."""
+    if (mt not in MMA_ROW_TILES or slices not in MMA_SLICES or min(t_len, q_bins, e_dim,
+                                                                   d_dim) < 1):
+        return None
+    tr = 16 * mt
+    qes = 16 * _cdiv(q_bins * e_dim, 16) + 8
+    kr = 2 * _cdiv(_cdiv(t_len, slices), 2)
+    kc = min(16 * _cdiv(kr, 16), _AM_KC_MAX)
+    t32 = 32 * _cdiv(t_len, 32)
+    l8 = 8 // math.gcd(8, d_dim) * d_dim
+    ub = l8 // d_dim
+    br = ub * _cdiv(_cdiv(q_bins, slices), ub)
+    npw = _mma_npw(mt)
+    nw = min(_AM_MAX_WARPS, max(_AM_MIN_WARPS, _cdiv(br * d_dim // 8, npw)))
+    items = mt * (kc // 16)
+    ksplit = max(1, nw // items)
+    score = 2 * (tr + kc) * qes + (4 * ksplit * tr * kc if ksplit > 1 else 0)
+    # the widest pass the warps hold, halved in whole units while the V ring
+    # does not fit beside P
+    bp = min(br, nw * npw * 8 // l8 * ub)
+    while bp >= ub:
+        pt = bp * d_dim // 8
+        vst = 8 * pt + (0 if pt % 2 else 8)
+        for nvs in (3, 2):
+            nbytes = 4 * tr * (t32 + 8) + max(score, 2 * tr * (t32 + 8) + 2 * nvs * _AM_VK * vst)
+            if nbytes <= SMEM_LIMIT:
+                return AttentionMmaLayout(32 * nw, nbytes, kr, kc, br, bp, _cdiv(br, bp), nvs)
+        if bp == ub:
+            break
+        bp = max(ub, bp // 2 // ub * ub)
+    return None
+
+
+def attention_mma_max_frames(q_bins: int, e_dim: int, d_dim: int) -> int:
+    """The most frames any bf16 plan takes: the T at which a 16-row score
+    tile still fits beside the rest of the block's shared memory."""
+    best = 0
+    for slices in MMA_SLICES:
+        lo, hi = 0, 1 << 16
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if attention_mma_layout(mid, q_bins, e_dim, d_dim, 1, slices) is None:
+                hi = mid - 1
+            else:
+                lo = mid
+        best = max(best, lo)
+    return best
+
+
+def _copy_bytes(width: int) -> int:
+    """The widest copy (16, 8, 4 or 2 bytes) that divides a run of ``width``
+    bf16 lanes (csrc/attention.cu: copy_bytes)."""
+    nb = 2 * width
+    return next(c for c in (16, 8, 4, 2) if nb % c == 0)
+
+
+def attention_mma_block_cycles(t_len: int, q_bins: int, e_dim: int, d_dim: int, mt: int,
+                               slices: int, lay: AttentionMmaLayout) -> float:
+    """Estimated cycles of one block of the bf16 plan on its SM: about 8 a
+    m16n8k16 product (a block's products are a chain of dependent
+    fragments, not the tensor cores' rate), one a staging copy (the head's
+    lanes are copied 2E or 2D bytes at a time) and 6000 a block of its
+    cluster (the scores written to every block, the cluster's barriers).
+    Fitted to the H100's times of every plan at the main path's shapes (B=1
+    and B=16; PERF.md §6)."""
+    score = mt * 2 * _cdiv(lay.rank_keys, 16) * _cdiv(q_bins * e_dim, 16)
+    value = mt * _cdiv(lay.rank_bins * d_dim, 8) * _cdiv(t_len, 16)
+    copies = ((16 * mt + lay.rank_keys) * q_bins * (2 * e_dim // _copy_bytes(e_dim))
+              + t_len * lay.rank_bins * (2 * d_dim // _copy_bytes(d_dim)))
+    return 8 * (score + value) + copies + 6000 * slices
+
+
+def attention_mma_plan(batch: int, t_len: int, q_bins: int, n_head: int, e_dim: int,
+                       d_dim: int, max_clusters: Optional[Callable[[int, int], int]] = None
+                       ) -> AttentionPlan:
+    """The plan of one bf16 :func:`frame_attention` call (``rows`` = 16 MT).
+    ``max_clusters(rows, slices)`` is the card's count of clusters of that
+    plan at once (by default every SM takes one block). Among the plans that
+    fit, those whose grid is one wave come first, then the least estimated
+    time: :func:`attention_mma_block_cycles` times the blocks an SM runs at
+    once and the waves. Raises ValueError above
+    :func:`attention_mma_max_frames`."""
+    if max_clusters is None:
+        max_clusters = lambda rows, slices: SMS // slices
+    best, best_key = None, None
+    for mt in MMA_ROW_TILES:
+        for slices in MMA_SLICES:
+            lay = attention_mma_layout(t_len, q_bins, e_dim, d_dim, mt, slices)
+            if lay is None:
+                continue
+            at_once = max_clusters(16 * mt, slices)
+            if at_once < 1:
+                continue
+            clusters = batch * n_head * _cdiv(t_len, 16 * mt)
+            waves = _cdiv(clusters, at_once)
+            per_sm = _cdiv(at_once * slices, SMS)
+            load = _cdiv(min(clusters, at_once) * slices * per_sm, at_once * slices)
+            cost = waves * load * attention_mma_block_cycles(t_len, q_bins, e_dim, d_dim, mt,
+                                                             slices, lay)
+            key = (waves > 1, cost, slices, -mt)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = AttentionPlan(16 * mt, slices, lay.threads, lay.smem_bytes,
+                                     clusters * slices, at_once)
+    if best is None:
+        raise ValueError(
+            f"frame_attention (bf16): T={t_len} frames is above the kernel's limit of "
+            f"{attention_mma_max_frames(q_bins, e_dim, d_dim)} at Q={q_bins}, E={e_dim}, "
+            f"D={d_dim}: a 16-row score tile no longer fits in a block's shared memory")
+    return best
+
+
+@functools.lru_cache(maxsize=4096)
+def _card_mma_max_clusters(device_index: int, t_len: int, q_bins: int, e_dim: int, d_dim: int,
+                           rows: int, slices: int) -> int:
+    """The card's ``cudaOccupancyMaxActiveClusters`` for one bf16 plan."""
+    with torch.cuda.device(device_index):
+        lib = _build.load("attention", _SIGNATURES, _RESTYPES)
+        n = lib.frame_attention_mma_max_clusters(t_len, q_bins, e_dim, d_dim, rows // 16, slices)
+    if n < 0:
+        raise RuntimeError(f"frame_attention (bf16): cudaOccupancyMaxActiveClusters failed "
+                           f"(CUDA error {-n}) for rows={rows}, slices={slices}")
+    return n
+
+
+@functools.lru_cache(maxsize=256)
+def _card_mma_plan(device_index: int, batch: int, t_len: int, q_bins: int, n_head: int,
+                   e_dim: int, d_dim: int) -> AttentionPlan:
+    return attention_mma_plan(batch, t_len, q_bins, n_head, e_dim, d_dim,
+                              lambda rows, slices: _card_mma_max_clusters(
+                                  device_index, t_len, q_bins, e_dim, d_dim, rows, slices))
+
+
+def card_attention_mma_plan(batch: int, t_len: int, q_bins: int, n_head: int, e_dim: int,
+                            d_dim: int, device: Optional[torch.device] = None) -> AttentionPlan:
+    """:func:`attention_mma_plan` with the card's counts, each queried once:
+    the plan :func:`frame_attention` launches on bf16 maps."""
+    dev = torch.device(device if device is not None else "cuda")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _card_mma_plan(index, batch, t_len, q_bins, n_head, e_dim, d_dim)
+
+
+def frame_attention_mma_smem(t_len: int, q_bins: int, e_dim: int, d_dim: int, mt: int,
+                             slices: int) -> Tuple[int, int]:
+    """The kernel's own ``(threads, shared-memory bytes)`` of a bf16 plan
+    (-1, -1 if it does not fit), to hold :func:`attention_mma_layout` to it
+    on the card."""
+    lib = _build.load("attention", _SIGNATURES, _RESTYPES)
+    return (lib.frame_attention_mma_threads(t_len, q_bins, e_dim, d_dim, mt, slices),
+            lib.frame_attention_mma_smem(t_len, q_bins, e_dim, d_dim, mt, slices))
+
+
+def launch_frame_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                n_head: int, e_dim: int, rows: int, slices: int
+                                ) -> torch.Tensor:
+    """The bf16 kernel at the plan (``rows`` query rows a block, ``slices``
+    blocks a cluster) on checked bf16 maps: the launch :func:`frame_attention`
+    makes, also used to time or test every plan. Counts nothing."""
+    b, t_len, q_bins, _ = q.shape
+    d_dim = v.shape[-1] // n_head
+    dev = q.device
+    with torch.cuda.device(dev):
+        out = torch.empty_like(v)
+        lib = _build.load("attention", _SIGNATURES, _RESTYPES)
+        code = lib.frame_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t_len, q_bins, n_head,
+            e_dim, d_dim, 1.0 / math.sqrt(e_dim * q_bins), rows // 16, slices,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, f"frame_attention_bf16 (plan rows={rows}, slices={slices})")
+    return out
 
 
 @functools.lru_cache(maxsize=4096)
@@ -399,22 +615,21 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check("frame_attention", "q", q, dev, dtype=io_dtype)
     _check("frame_attention", "k", k, dev, q.shape, io_dtype)
     _check("frame_attention", "v", v, dev, (b, t_len, q_bins, hd), io_dtype)
+    if io_dtype == torch.bfloat16:
+        plan = card_attention_mma_plan(b, t_len, q_bins, n_head, e_dim, d_dim, dev)
+        out = launch_frame_attention_bf16(q, k, v, n_head, e_dim, plan.rows, plan.slices)
+        frame_attention.launches_bf16 += 1
+        return out
     plan = card_attention_plan(b, t_len, q_bins, n_head, e_dim, d_dim, dev)
-    bf16 = io_dtype == torch.bfloat16
     with torch.cuda.device(dev):
         out = torch.empty_like(v)
         lib = _build.load("attention", _SIGNATURES, _RESTYPES)
-        entry = lib.frame_attention_bf16 if bf16 else lib.frame_attention
-        code = entry(
+        code = lib.frame_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, t_len, q_bins, n_head, e_dim, d_dim, 1.0 / math.sqrt(e_dim * q_bins),
             plan.rows, plan.slices, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(code, f"frame_attention{'_bf16' if bf16 else ''} (plan rows={plan.rows}, "
-                 f"slices={plan.slices})")
-    if bf16:
-        frame_attention.launches_bf16 += 1
-    else:
-        frame_attention.launches += 1
+    _build.check(code, f"frame_attention (plan rows={plan.rows}, slices={plan.slices})")
+    frame_attention.launches += 1
     return out
 
 

@@ -55,14 +55,38 @@
 //   refused, never cut short.
 //
 // The bf16 forms (inference_dtype=bfloat16; fdbm_tpu/ops/attention.py:199,
-// 229, 351-353) are the same kernels on T = __nv_bfloat16 (bf16_io.cuh):
-// the norm reads and writes bf16 with fp32 statistics and parameters; the
-// attention reads bf16 q, k and v and writes bf16, with fp32 score sums,
-// scale and softmax, and P rounded to bf16 before the value product, whose
-// sums stay fp32 (the TPU kernel's mm_dt = bf16 with fp32 accumulation).
-// cp.async cannot widen, so the bf16 attention stages its tiles with plain
-// vector loads widened to float on the way into shared memory: the shared
-// layout, the plan and the products are the fp32 kernel's.
+// 229, 351-353). The norm is norm_segments_kernel on T = __nv_bfloat16
+// (bf16_io.cuh): bf16 in and out, fp32 statistics and parameters. The
+// attention (attn_mma_kernel) computes what _attn_kernel computes with
+// mm_dt = bf16: S = scale * Q_h K_h^T with bf16 operands and fp32 sums,
+// P = softmax(S) in fp32, normalised, then rounded to bf16, O = P V_h with
+// bf16 operands, fp32 sums and a bf16 output.
+//   What bounds it on the H100: bytes (10.6 MB at B=1, T=257, Q=257, D=8:
+//   3.2 us at 3.35 TB/s; its 1.36 GFLOP take 1.4 us at the bf16 tensor
+//   cores' 989 TFLOP/s); then the loads from L2, whose head-minor lanes
+//   (E = 2 bf16, 4 bytes, at a stride of H*E; D = 8, 16 bytes, at H*D) fill
+//   a quarter or half of each 32-byte sector a copy touches.
+//   Design: both products on mma.sync m16n8k16 (mma_bf16.cuh). The two-phase
+//   form of the fp32 kernel stays: a block takes one batch item, one head
+//   and TR = 16 MT query rows, a cluster of NS blocks shares them; rank r
+//   computes the scores of keys [r*KR, (r+1)*KR) and writes them, scaled,
+//   into the fp32 score tile of every block of its cluster (distributed
+//   shared memory), so no score reaches device memory. The relayout is the
+//   kernel's own staging: q and k reach shared memory head-major, a row per
+//   frame with the head's Q*E lanes contiguous (2E-byte cp.async copies,
+//   rows padded to an odd count of 16-byte chunks, so that the eight rows an
+//   ldmatrix reads fall in eight bank groups), and the score fragments are
+//   ldmatrix loads of them (A: the query rows; B: the keys, one per column).
+//   After one cluster barrier each block takes the fp32 softmax of its TR x
+//   T rows (a warp a row), writes P rounded to bf16 as the A operand of P.V,
+//   and sweeps slice r of the value width (whole bins of the head's D
+//   lanes): V through a ring of 32-key stages filled by cp.async rows of the
+//   head's D lanes (16 bytes at D = 8, three 8-byte copies at D = 12), its B
+//   fragments by ldmatrix.trans from the key-major stage, each warp NPW n8
+//   tiles of every m16 tile, written as bf16 pairs straight to the
+//   head-minor output. The plan (MT, NS) is chosen by the wrapper
+//   (ops/attention.py: attention_mma_plan, which mirrors attn_mma_plan's
+//   layout); a plan that does not fit is refused, never cut short.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -72,6 +96,7 @@
 #include <numeric>
 
 #include "bf16_io.cuh"
+#include "mma_bf16.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -329,29 +354,11 @@ __device__ __forceinline__ void copy_lanes(float* dst, const float* src, bool va
   else cp_async<4>(dst, src, valid);
 }
 
-// N elements of src into N floats at dst (zeros when !valid): cp.async for
-// float, a plain load widened to float for bf16 (cp.async cannot widen).
+// N floats of src into dst (zeros when !valid).
 template <int N>
 __device__ __forceinline__ void stage_vec(float* dst, const float* src, bool valid) {
   cp_async<4 * N>(dst, src, valid);
 }
-template <int N>
-__device__ __forceinline__ void stage_vec(float* dst, const __nv_bfloat16* src, bool valid) {
-  float v[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = 0.f;
-  if (valid) load_vec<N>(src, v);
-#pragma unroll
-  for (int i = 0; i < N; ++i) dst[i] = v[i];
-}
-
-__device__ __forceinline__ void copy_lanes(float* dst, const __nv_bfloat16* src, bool valid,
-                                           int w) {
-  if (w == 4) stage_vec<4>(dst, src, valid);
-  else if (w == 2) stage_vec<2>(dst, src, valid);
-  else stage_vec<1>(dst, src, valid);
-}
-
 __device__ __forceinline__ void unpack(const float4 a, float* o) {
   o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
 }
@@ -374,10 +381,10 @@ __device__ __forceinline__ Cover cover(int ncols, int nt, int tid) {
 // vector (4, 2 or 1 floats) that divides D. Every warp stages a share of
 // each copy: dispatching the copies (a sector of each 128-byte line) is what
 // bounds the loads, and it runs on all four schedulers of the SM.
-template <int VW, class TS = float>
+template <int VW>
 __global__ void __launch_bounds__(AT_MAX_THREADS)
-attn_kernel(const TS* __restrict__ q, const TS* __restrict__ k, const TS* __restrict__ v,
-            TS* __restrict__ out, int T, int Q, int H, int E, int D, float scale,
+attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, float* __restrict__ out, int T, int Q, int H, int E, int D, float scale,
             AttnPlan p) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -400,7 +407,7 @@ attn_kernel(const TS* __restrict__ q, const TS* __restrict__ k, const TS* __rest
   const Cover cq = cover(QE, nt, tid);
   if (cq.active)
     for (int kk = cq.c0; kk < QE; kk += cq.cstep) {
-      const TS* col = q + b * T * qk_row + (kk / E) * HE + h * E + kk % E;
+      const float* col = q + b * T * qk_row + (kk / E) * HE + h * E + kk % E;
       for (int r = cq.r0; r < tr; r += cq.rstep) {
         const int t = t0 + r;
         stage_vec<1>(sQ + kk * tr + r, t < T ? col + t * qk_row : q, t < T);
@@ -425,7 +432,7 @@ attn_kernel(const TS* __restrict__ q, const TS* __restrict__ k, const TS* __rest
     if (!ck.active) return;
     for (int c = ck.c0; c < per_key; c += ck.cstep) {
       const int kg = kc0 + c * ew;
-      const TS* col = k + b * T * qk_row + (kg / E) * HE + h * E + kg % E;
+      const float* col = k + b * T * qk_row + (kg / E) * HE + h * E + kg % E;
       for (int u = ck.r0; u < ut; u += ck.rstep) {
         const bool ok = ut0 + u < ub;
         copy_lanes(dst + u * AT_KCP + c * ew, ok ? col + (ut0 + u) * qk_row : k, ok, ew);
@@ -524,7 +531,7 @@ attn_kernel(const TS* __restrict__ q, const TS* __restrict__ k, const TS* __rest
     if (pi < parts)
       for (int u = pi; u < T; u += parts) {
         float* s = sP + (long long)u * tr + r;
-        *s = round_to<TS>(expf(*s - m) * inv);  // bf16: P rounded before the value product
+        *s = expf(*s - m) * inv;
       }
     __syncthreads();
   }
@@ -546,7 +553,7 @@ attn_kernel(const TS* __restrict__ q, const TS* __restrict__ k, const TS* __rest
       float* dst = ring + (ci % p.nvs) * stage_floats;
       for (int c = cv.c0; c < cpr; c += cv.cstep) {
         const int tcl = c / (8 / VW), j = (c % (8 / VW)) * VW, n = col0 + tcl * 8 + j;
-        const TS* col = v + b * T * v_row + (n / D) * HD + h * D + n % D;
+        const float* col = v + b * T * v_row + (n / D) * HD + h * D + n % D;
         float* dcol = dst + ((j >> 2) * tcp + tcl) * 4 + (j & 3);
         for (int uu = cv.r0; uu < p.uk; uu += cv.rstep) {
           const bool ok = u0 + uu < T && n < c_hi;
@@ -592,7 +599,7 @@ attn_kernel(const TS* __restrict__ q, const TS* __restrict__ k, const TS* __rest
       for (int i = 0; i < AT_RM; ++i) {
         const int t = t0 + rgv * AT_RM + i;
         if (t >= T) continue;
-        TS* orow = out + (b * T + t) * v_row + h * D;
+        float* orow = out + (b * T + t) * v_row + h * D;
 #pragma unroll
         for (int j = 0; j < 8; j += VW) {
           const int n = col0 + tcx * 8 + j;
@@ -604,29 +611,25 @@ attn_kernel(const TS* __restrict__ q, const TS* __restrict__ k, const TS* __rest
   }
 }
 
-template <class TS>
-using AttnKernel = void (*)(const TS*, const TS*, const TS*, TS*, int, int, int, int, int, float,
-                            AttnPlan);
+using AttnKernel = void (*)(const float*, const float*, const float*, float*, int, int, int, int,
+                            int, float, AttnPlan);
 
-template <class TS>
-AttnKernel<TS> attn_kernel_for(int D) {
-  if (D % 4 == 0) return attn_kernel<4, TS>;
-  if (D % 2 == 0) return attn_kernel<2, TS>;
-  return attn_kernel<1, TS>;
+AttnKernel attn_kernel_for(int D) {
+  if (D % 4 == 0) return attn_kernel<4>;
+  if (D % 2 == 0) return attn_kernel<2>;
+  return attn_kernel<1>;
 }
 
 // The launch configuration of a plan, with the kernel's shared memory set.
-template <class TS = float>
 struct AttnLaunch {
-  AttnKernel<TS> fn;
+  AttnKernel fn;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
 };
 
-template <class TS>
-cudaError_t attn_launch_config(AttnLaunch<TS>& L, const AttnPlan& p, int D, dim3 grid,
+cudaError_t attn_launch_config(AttnLaunch& L, const AttnPlan& p, int D, dim3 grid,
                                cudaStream_t stream) {
-  L.fn = attn_kernel_for<TS>(D);
+  L.fn = attn_kernel_for(D);
   cudaError_t err = cudaFuncSetAttribute(L.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(p.bytes));
   if (err != cudaSuccess) return err;
@@ -699,20 +702,412 @@ int norm_segments(const long long* desc, int n_seg, int n_head, void* stream_ptr
   return cudaGetLastError();
 }
 
-template <class TS>
-int attention(const TS* q, const TS* k, const TS* v, TS* out, int B, int T, int Q, int H, int E,
-              int D, float scale, int tr, int ns, void* stream_ptr) {
+int attention(const float* q, const float* k, const float* v, float* out, int B, int T, int Q,
+              int H, int E, int D, float scale, int tr, int ns, void* stream_ptr) {
   AttnPlan p;
   if (B < 1 || Q < 1 || H < 1 || E < 1 || D < 1 || B > 65535 || H > 65535 ||
       !attn_plan(T, Q, E, D, tr, ns, p))
     return cudaErrorInvalidValue;
-  AttnLaunch<TS> L;
+  AttnLaunch L;
   cudaError_t err = attn_launch_config(L, p, D, dim3(ns * cdiv(T, tr), H, B),
                                        static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&L.cfg, L.fn, q, k, v, out, T, Q, H, E, D, scale, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+
+// ---- frame_attention's bf16 form on the tensor cores ---------------------------------
+constexpr int AM_VK = 32;         // keys a V ring stage: two k16 tiles of P.V
+constexpr int AM_KC_MAX = 80;     // keys a staged K chunk
+constexpr int AM_MIN_WARPS = 4, AM_MAX_WARPS = 16;
+
+// n8 tiles of the value slice a warp holds: MT x NPW accumulators of 4.
+__host__ __device__ constexpr int am_npw(int mt) { return mt <= 2 ? 8 : (mt == 3 ? 6 : 5); }
+
+struct AttnMmaPlan {
+  int mt, tr, ns;      // m16 tiles of query rows a block (TR = 16 MT); blocks a cluster
+  int nw, nt;          // warps and threads
+  int qe, qek, qes;    // the score depth Q*E, its k16 tiles, sQ's and sK's row stride
+  int kr, kc;          // keys a rank (even), keys a staged K chunk (a multiple of 16)
+  int items, ksplit;   // score work items (m16 tile, 16 keys) a chunk; depth split
+  int t16, t32;        // T rounded up to 16 and to 32
+  int ldp, ldb;        // row strides of the fp32 scores and of bf16 P
+  int ub, br;          // bins of a unit (lcm(8, D) / D), bins a rank (whole units)
+  int bp, pt, passes;  // bins, n8 tiles and passes of the value sweep
+  int vst, nvs;        // a V stage's row stride, V stages
+  long long p_bytes, region, bytes;
+};
+
+// The layout of a plan; false if it does not fit a block.
+bool attn_mma_plan(int T, int Q, int E, int D, int mt, int ns, AttnMmaPlan& p) {
+  if (T < 1 || Q < 1 || E < 1 || D < 1 || mt < 1 || mt > 4 ||
+      (ns != 1 && ns != 2 && ns != 4 && ns != 8))
+    return false;
+  p.mt = mt;
+  p.tr = 16 * mt;
+  p.ns = ns;
+  p.qe = Q * E;
+  p.qek = cdiv(p.qe, 16);
+  p.qes = 16 * p.qek + 8;
+  p.kr = round_up(cdiv(T, ns), 2);
+  p.kc = std::min(round_up(p.kr, 16), AM_KC_MAX);
+  p.t16 = round_up(T, 16);
+  p.t32 = round_up(T, 32);
+  p.ldp = p.t32 + 8;
+  p.ldb = p.t32 + 8;
+  const int l8 = 8 / std::gcd(8, D) * D;  // lcm(8, D)
+  p.ub = l8 / D;
+  p.br = round_up(cdiv(Q, ns), p.ub);
+  const int npw = am_npw(mt);
+  p.nw = std::min(AM_MAX_WARPS, std::max(AM_MIN_WARPS, cdiv(p.br * D / 8, npw)));
+  p.nt = 32 * p.nw;
+  p.items = mt * (p.kc / 16);
+  p.ksplit = std::max(1, p.nw / p.items);
+  p.p_bytes = 4LL * p.tr * p.ldp;
+  const long long score =
+      2LL * (p.tr + p.kc) * p.qes + (p.ksplit > 1 ? 4LL * p.ksplit * p.tr * p.kc : 0);
+  // The widest pass the warps hold, halved (in whole units) while the V ring
+  // does not fit beside P; 3 stages, else 2.
+  p.bp = std::min(p.br, p.nw * npw * 8 / l8 * p.ub);
+  while (p.bp >= p.ub) {
+    p.pt = p.bp * D / 8;
+    p.passes = cdiv(p.br, p.bp);
+    p.vst = 8 * p.pt + (p.pt % 2 ? 0 : 8);
+    for (p.nvs = 3; p.nvs >= 2; --p.nvs) {
+      p.region = std::max(score, 2LL * p.tr * p.ldb + 2LL * p.nvs * AM_VK * p.vst);
+      p.bytes = p.p_bytes + p.region;
+      if (p.bytes <= SMEM_LIMIT) return true;
+    }
+    if (p.bp == p.ub) break;
+    p.bp = std::max(p.ub, p.bp / 2 / p.ub * p.ub);
+  }
+  return false;
+}
+
+// The widest copy (16, 8, 4 or 2 bytes) that divides a run of w bf16 lanes.
+__host__ __device__ __forceinline__ int copy_bytes(int w) {
+  const int nb = 2 * w;
+  return nb % 16 == 0 ? 16 : nb % 8 == 0 ? 8 : nb % 4 == 0 ? 4 : 2;
+}
+
+// rows x bins runs of W bf16 lanes into shared memory: run (r, c) of
+// src + (row0 + r) * row_stride + c * bin_stride (zeros where row0 + r >=
+// row_end or c >= bins_real) to dst + r * dst_stride + c * W, in CW-byte
+// copies; the threads walk the runs' copies in order.
+template <int CW>
+__device__ __forceinline__ void stage_runs(__nv_bfloat16* dst, int dst_stride,
+                                           const __nv_bfloat16* src, long long row_stride,
+                                           int bin_stride, int row0, int row_end, int rows,
+                                           int bins, int bins_real, int W, int tid, int nt) {
+  constexpr int EL = CW / 2;  // lanes a copy
+  const int per_bin = W / EL, per_row = bins * per_bin, n = rows * per_row;
+  int r = tid / per_row, c = tid - r * per_row;
+  const int dr = nt / per_row, dc = nt - dr * per_row;
+  for (int e = tid; e < n; e += nt) {
+    const int bin = per_bin == 1 ? c : c / per_bin, el = (c - bin * per_bin) * EL;
+    const bool ok = row0 + r < row_end && bin < bins_real;
+    const __nv_bfloat16* s =
+        ok ? src + (long long)(row0 + r) * row_stride + (long long)bin * bin_stride + el : src;
+    cp_async_bytes<CW>(dst + r * dst_stride + bin * W + el, s, ok);
+    r += dr;
+    c += dc;
+    if (c >= per_row) {
+      c -= per_row;
+      ++r;
+    }
+  }
+}
+
+__device__ __forceinline__ void stage_runs_any(int cw, __nv_bfloat16* dst, int dst_stride,
+                                               const __nv_bfloat16* src, long long row_stride,
+                                               int bin_stride, int row0, int row_end, int rows,
+                                               int bins, int bins_real, int W, int tid, int nt) {
+  switch (cw) {
+    case 16: stage_runs<16>(dst, dst_stride, src, row_stride, bin_stride, row0, row_end, rows,
+                            bins, bins_real, W, tid, nt); break;
+    case 8: stage_runs<8>(dst, dst_stride, src, row_stride, bin_stride, row0, row_end, rows,
+                          bins, bins_real, W, tid, nt); break;
+    case 4: stage_runs<4>(dst, dst_stride, src, row_stride, bin_stride, row0, row_end, rows,
+                          bins, bins_real, W, tid, nt); break;
+    default: stage_runs<2>(dst, dst_stride, src, row_stride, bin_stride, row0, row_end, rows,
+                           bins, bins_real, W, tid, nt);
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int m = 16; m; m >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, m));
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+// grid (NS * row tiles, H, B), clusters of NS blocks along x, p.nt threads.
+// Shared memory: the fp32 scores [tr][ldp]; then a region that holds, in the
+// score phase, the query tile sQ [tr][qes] and a K chunk sK [kc][qes]
+// (head-major bf16; depth lanes past Q*E zero) and the depth split's partial
+// sums [ksplit][tr][kc]; in the value phase P [tr][ldb] (bf16) and the V ring
+// [nvs][AM_VK][vst] (bf16, key-major, the pass's bins' D lanes contiguous).
+template <int MT>
+__global__ void __launch_bounds__(AM_MAX_WARPS * 32, 1)
+attn_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int T,
+                int Q, int H, int E, int D, float scale, AttnMmaPlan p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int NPW = am_npw(MT);
+  extern __shared__ __align__(16) unsigned char am_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, nt = p.nt, nw = p.nw, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int t0 = (blockIdx.x / p.ns) * p.tr;
+  const int HE = H * E, HD = H * D;
+  float* sP = reinterpret_cast<float*>(am_smem);
+  bf16* sQ = reinterpret_cast<bf16*>(am_smem + p.p_bytes);
+  bf16* sK = sQ + p.tr * p.qes;
+  float* red = reinterpret_cast<float*>(sK + p.kc * p.qes);
+  bf16* sPb = sQ;
+  bf16* ring = sPb + p.tr * p.ldb;
+  // A fragment rows and depth of a lane (a 16 x 16 tile, row-major); B
+  // fragment key and depth of a lane (two n8 tiles of keys, k fastest).
+  const int a_row = lane & 15, a_k = (lane >> 4) * 8;
+  const int b_key = (lane & 7) + ((lane >> 4) << 3), b_k = ((lane >> 3) & 1) * 8;
+
+  // -- the query tile, head-major; the depth padding of sQ and sK rows -------------
+  const int kpad = 16 * p.qek - p.qe;
+  for (int e = tid; e < (p.tr + p.kc) * kpad; e += nt)
+    sQ[(e / kpad) * p.qes + p.qe + e % kpad] = __float2bfloat16(0.f);
+  const long long qk_row = (long long)Q * HE;
+  const int cw_e = copy_bytes(E);
+  stage_runs_any(cw_e, sQ, p.qes, q + b * T * qk_row + h * E, qk_row, HE, t0, T, p.tr, Q, Q, E,
+                 tid, nt);
+  cp_async_commit();
+  cluster.sync();  // every block of the cluster runs before any remote write
+
+  // -- scores of the rank's keys [ua, ub) into every block's sP -------------------
+  const int ua = rank * p.kr, ub = min(T, ua + p.kr);
+  const int n_ch = ub > ua ? cdiv(ub - ua, p.kc) : 0;
+  for (int ch = 0; ch < n_ch; ++ch) {
+    const int u0 = ua + ch * p.kc, un = min(p.kc, ub - u0), pairs = cdiv(un, 16);
+    stage_runs_any(cw_e, sK, p.qes, k + b * T * qk_row + h * E, qk_row, HE, u0, ub, 16 * pairs,
+                   Q, Q, E, tid, nt);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // Work unit = (m16 tile, 16 keys) x a share of the depth's k16 tiles.
+    for (int unit = warp; unit < p.items * p.ksplit; unit += nw) {
+      const int item = unit % p.items, part = unit / p.items;
+      const int m = item % MT, pair = item / MT;
+      if (pair >= pairs) continue;
+      float acc[2][4] = {};
+      const bf16* qa = sQ + (m * 16 + a_row) * p.qes + a_k;
+      const bf16* kb = sK + (pair * 16 + b_key) * p.qes + b_k;
+      for (int kk = part; kk < p.qek; kk += p.ksplit) {
+        unsigned a[4], bb[4];
+        ldsm_x4(a, qa + kk * 16);
+        ldsm_x4(bb, kb + kk * 16);
+        mma_bf16(acc[0], a, bb[0], bb[1]);
+        mma_bf16(acc[1], a, bb[2], bb[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = m * 16 + g + 8 * hr, kl = pair * 16 + j * 8 + 2 * t4;
+          if (p.ksplit > 1) {
+            *reinterpret_cast<float2*>(red + (part * p.tr + row) * p.kc + kl) =
+                make_float2(acc[j][2 * hr], acc[j][2 * hr + 1]);
+          } else if (kl < un) {
+            const float s0 = acc[j][2 * hr] * scale, s1 = acc[j][2 * hr + 1] * scale;
+            for (int rr = 0; rr < p.ns; ++rr) {
+              float* dst = cluster.map_shared_rank(sP, rr) + row * p.ldp + u0 + kl;
+              if (kl + 1 < un) *reinterpret_cast<float2*>(dst) = make_float2(s0, s1);
+              else dst[0] = s0;
+            }
+          }
+        }
+    }
+    if (p.ksplit > 1) {
+      __syncthreads();
+      for (int o = tid; o < p.tr * un; o += nt) {
+        const int row = o / un, kl = o - row * un;
+        float s = 0.f;
+        for (int part = 0; part < p.ksplit; ++part) s += red[(part * p.tr + row) * p.kc + kl];
+        s *= scale;
+        for (int rr = 0; rr < p.ns; ++rr)
+          cluster.map_shared_rank(sP, rr)[row * p.ldp + u0 + kl] = s;
+      }
+    }
+    __syncthreads();  // sK and the partial sums are free again
+  }
+  cp_async_wait<0>();
+  cluster.sync();  // every block holds all TR x T scores; no remote access after this
+
+  // -- softmax, a warp a row; P normalised, then rounded to bf16 --------------------------
+  for (int r = warp; r < p.tr; r += nw) {
+    float* row = sP + r * p.ldp;
+    float mx = -INFINITY;
+    for (int u = lane; u < T; u += 32) mx = fmaxf(mx, row[u]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int u = lane; u < T; u += 32) {
+      const float e = expf(row[u] - mx);
+      row[u] = e;
+      sum += e;
+    }
+    const float inv = 1.f / warp_sum(sum);
+    bf16* pb = sPb + r * p.ldb;
+    for (int u = lane; u < p.t32; u += 32) pb[u] = __float2bfloat16(u < T ? row[u] * inv : 0.f);
+  }
+  __syncthreads();
+
+  // -- values: slice `rank` of the bins, in passes of p.bp bins -------------------------
+  const int bin_lo = rank * p.br, bin_hi = min(Q, bin_lo + p.br);
+  const long long v_row = (long long)Q * HD;
+  const bf16* vb = v + b * T * v_row + h * D;
+  const int cw_d = copy_bytes(D), n_kt = p.t16 / 16, n_chunks = cdiv(p.t16, AM_VK);
+  const int stage = AM_VK * p.vst;
+  // B fragments of two n8 tiles by ldmatrix.x4.trans: lanes 0-15 the first
+  // tile's k rows 0-15, lanes 16-31 the second's.
+  const int v_k = lane & 15, v_hi = lane >> 4;
+  for (int pb0 = bin_lo; pb0 < bin_hi; pb0 += p.bp) {
+    const int pbins = min(p.bp, bin_hi - pb0), ptiles = cdiv(pbins * D, 8);
+    auto stage_chunk = [&](int ci) {
+      stage_runs_any(cw_d, ring + (ci % p.nvs) * stage, p.vst, vb + (long long)pb0 * HD, v_row,
+                     HD, ci * AM_VK, T, AM_VK, pbins, pbins, D, tid, nt);
+    };
+    float acc[MT][NPW][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NPW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+    for (int ci = 0; ci < p.nvs - 1; ++ci) {
+      if (ci < n_chunks) stage_chunk(ci);
+      cp_async_commit();
+    }
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      if (ci + p.nvs - 1 < n_chunks) stage_chunk(ci + p.nvs - 1);
+      cp_async_commit();
+      cp_async_wait_n(p.nvs - 1);
+      __syncthreads();
+      const bf16* vs = ring + (ci % p.nvs) * stage;
+#pragma unroll
+      for (int kk = 0; kk < AM_VK / 16; ++kk) {
+        const int kt = ci * (AM_VK / 16) + kk;
+        if (kt >= n_kt) break;
+        unsigned bfr[NPW][2];
+#pragma unroll
+        for (int j = 0; j < NPW; j += 2) {
+          const int jt0 = warp + nw * j, jt1 = warp + nw * (j + 1);
+          if (jt0 >= ptiles) break;
+          const bf16* row = vs + (kk * 16 + v_k) * p.vst;
+          if (j + 1 < NPW && jt1 < ptiles) {
+            unsigned r4[4];
+            ldsm_x4_trans(r4, row + 8 * (v_hi ? jt1 : jt0));
+            bfr[j][0] = r4[0];
+            bfr[j][1] = r4[1];
+            bfr[j + 1][0] = r4[2];
+            bfr[j + 1][1] = r4[3];
+          } else {
+            unsigned r2[2];
+            ldsm_x2_trans(r2, row + 8 * jt0);
+            bfr[j][0] = r2[0];
+            bfr[j][1] = r2[1];
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          unsigned a[4];
+          ldsm_x4(a, sPb + (m * 16 + a_row) * p.ldb + kt * 16 + a_k);
+#pragma unroll
+          for (int j = 0; j < NPW; ++j)
+            if (warp + nw * j < ptiles) mma_bf16(acc[m][j], a, bfr[j][0], bfr[j][1]);
+        }
+      }
+      __syncthreads();  // stage ci of the ring is free again
+    }
+    cp_async_wait<0>();
+    // The outputs: row t0 + m*16 + g (+8), pass columns 8 jt + 2 t4 (+1).
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NPW; ++j) {
+        const int jt = warp + nw * j;
+        if (jt >= ptiles) continue;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int t = t0 + m * 16 + g + 8 * hr;
+          if (t >= T) continue;
+          bf16* orow = out + (b * T + t) * v_row + h * D;
+          const int col = 8 * jt + 2 * t4;
+          if (D % 2 == 0) {
+            const int bin = col / D, d = col - bin * D;
+            if (bin < pbins)
+              *reinterpret_cast<__nv_bfloat162*>(orow + (long long)(pb0 + bin) * HD + d) =
+                  __floats2bfloat162_rn(acc[m][j][2 * hr], acc[m][j][2 * hr + 1]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int bin = (col + e) / D, d = col + e - bin * D;
+              if (bin < pbins)
+                orow[(long long)(pb0 + bin) * HD + d] = __float2bfloat16(acc[m][j][2 * hr + e]);
+            }
+          }
+        }
+      }
+  }
+}
+
+using AttnMmaKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+                               __nv_bfloat16*, int, int, int, int, int, float, AttnMmaPlan);
+
+AttnMmaKernel attn_mma_kernel_for(int mt) {
+  switch (mt) {
+    case 1: return attn_mma_kernel<1>;
+    case 2: return attn_mma_kernel<2>;
+    case 3: return attn_mma_kernel<3>;
+    case 4: return attn_mma_kernel<4>;
+    default: return nullptr;
+  }
+}
+
+struct AttnMmaLaunch {
+  AttnMmaPlan plan;
+  AttnMmaKernel fn;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+};
+
+// The launch of plan (mt, ns) over `grid`, with the kernel's shared memory
+// set; cudaErrorInvalidValue if the plan does not fit.
+cudaError_t attn_mma_launch_config(AttnMmaLaunch& L, int T, int Q, int E, int D, int mt, int ns,
+                                   dim3 grid, cudaStream_t stream) {
+  if (!attn_mma_plan(T, Q, E, D, mt, ns, L.plan)) return cudaErrorInvalidValue;
+  L.fn = attn_mma_kernel_for(mt);
+  cudaError_t err = cudaFuncSetAttribute(L.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L.plan.bytes));
+  if (err != cudaSuccess) return err;
+  L.cfg = {};
+  L.cfg.gridDim = grid;
+  L.cfg.blockDim = dim3(L.plan.nt);
+  L.cfg.dynamicSmemBytes = L.plan.bytes;
+  L.cfg.stream = stream;
+  L.attr[0].id = cudaLaunchAttributeClusterDimension;
+  L.attr[0].val.clusterDim.x = ns;
+  L.attr[0].val.clusterDim.y = 1;
+  L.attr[0].val.clusterDim.z = 1;
+  L.cfg.attrs = L.attr;
+  L.cfg.numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -742,7 +1137,7 @@ long long frame_attention_smem(int T, int Q, int E, int D, int tr, int ns) {
 int frame_attention_max_clusters(int T, int Q, int E, int D, int tr, int ns) {
   AttnPlan p;
   if (!attn_plan(T, Q, E, D, tr, ns, p)) return 0;
-  AttnLaunch<> L;
+  AttnLaunch L;
   cudaError_t err = attn_launch_config(L, p, D, dim3(ns), nullptr);
   if (err != cudaSuccess) return -static_cast<int>(err);
   int n = 0;
@@ -754,14 +1149,48 @@ int frame_attention_max_clusters(int T, int Q, int E, int D, int tr, int ns) {
 // block, clusters of ns blocks.
 int frame_attention(const float* q, const float* k, const float* v, float* out, int B, int T,
                     int Q, int H, int E, int D, float scale, int tr, int ns, void* stream_ptr) {
-  return attention<float>(q, k, v, out, B, T, Q, H, E, D, scale, tr, ns, stream_ptr);
+  return attention(q, k, v, out, B, T, Q, H, E, D, scale, tr, ns, stream_ptr);
 }
 
-// The bf16 form: q, k, v and out bf16, on the same plan.
+// The bf16 form on the tensor cores: q, k, v and out bf16 (16-byte
+// aligned); the plan: mt m16 tiles of query rows a block, clusters of ns
+// blocks.
 int frame_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                          const __nv_bfloat16* v, __nv_bfloat16* out, int B, int T, int Q, int H,
-                         int E, int D, float scale, int tr, int ns, void* stream_ptr) {
-  return attention<__nv_bfloat16>(q, k, v, out, B, T, Q, H, E, D, scale, tr, ns, stream_ptr);
+                         int E, int D, float scale, int mt, int ns, void* stream_ptr) {
+  if (B < 1 || H < 1 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
+  AttnMmaLaunch L;
+  cudaError_t err = attn_mma_launch_config(L, T, Q, E, D, mt, ns,
+                                           dim3(ns * cdiv(T, 16 * mt), H, B),
+                                           static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&L.cfg, L.fn, q, k, v, out, T, Q, H, E, D, scale, L.plan);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Dynamic shared memory of the bf16 plan (mt, ns), or -1 if it does not fit.
+long long frame_attention_mma_smem(int T, int Q, int E, int D, int mt, int ns) {
+  AttnMmaPlan p;
+  return attn_mma_plan(T, Q, E, D, mt, ns, p) ? p.bytes : -1;
+}
+
+// The threads of a block of the bf16 plan (mt, ns), or -1 if it does not fit.
+int frame_attention_mma_threads(int T, int Q, int E, int D, int mt, int ns) {
+  AttnMmaPlan p;
+  return attn_mma_plan(T, Q, E, D, mt, ns, p) ? p.nt : -1;
+}
+
+// The card's most clusters of the bf16 plan (mt, ns) at once, 0 if the plan
+// does not fit a block, or minus a CUDA error.
+int frame_attention_mma_max_clusters(int T, int Q, int E, int D, int mt, int ns) {
+  AttnMmaLaunch L;
+  cudaError_t err = attn_mma_launch_config(L, T, Q, E, D, mt, ns, dim3(ns), nullptr);
+  if (err == cudaErrorInvalidValue) return 0;
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, L.fn, &L.cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -196,13 +196,8 @@ __device__ __forceinline__ void fused_sum(
   }
 }
 
-// The cell's activations with the fast exponential and division (relative
-// error about 1e-7, far inside the kernel's 1e-4 gate): they sit on the
-// step's chain.
-__device__ __forceinline__ float fast_sigmoid(float v) {
-  return __fdividef(1.f, 1.f + __expf(-v));
-}
-__device__ __forceinline__ float fast_tanh(float v) { return 2.f * fast_sigmoid(2.f * v) - 1.f; }
+// The cell's activations: mma_bf16.cuh's fast_sigmoid and fast_tanh (they
+// sit on the step's chain).
 
 // The training forward (ACCURATE) takes the accurate ones: its gradient is
 // held to 1e-3 of the plain route's on every leaf of a training step, and
@@ -536,13 +531,6 @@ bool mma_plan(int C, int H, int cs, int mt, MmaPlan& p) {
   p.r_bytes = 16LL * GM_RING * p.lines * p.cch;
   p.bytes = p.w_bytes + p.h_bytes + p.r_bytes + 16;  // and the block's mbarrier
   return p.nt <= GM_MAX_THREADS && p.bytes <= FR_SMEM && p.lines * (C / 8) <= GM_STAGE * p.nt;
-}
-
-// Swizzled bf16 tiles of 16 k x rows, each row two 16-byte chunks, the
-// chunks of rows 4-7 (mod 8) swapped, so that the eight rows an ldmatrix
-// reads at one chunk fall in eight different bank groups.
-__device__ __forceinline__ int swz(int k, int row) {
-  return (row * 2 + (((k >> 3) & 1) ^ ((row >> 2) & 1))) * 8 + (k & 7);
 }
 
 // x [B][S][P][C] bf16 canvas, w_ih [2][4C][4H], w_hh [2][H][4H], bias [2][4H]

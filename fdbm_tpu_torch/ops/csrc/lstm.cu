@@ -59,18 +59,43 @@
 //      the same gradients, bit for bit.
 //
 // The bf16 form of bilstm_fused_forward (lstm_forward_bf16; the JAX kernel's
-// bf16 io, fdbm_tpu/ops/lstm.py:500-521,548) is the same two kernels on T =
-// __nv_bfloat16 (bf16_io.cuh): x and the hidden states are bf16 in device
-// memory, w_ih and w_hh are rounded to bf16 as they are staged, h is rounded
-// to bf16 before it enters the next step's product, and the pre-activations
-// (xp, scratch in device memory, as the TPU kernel keeps them in VMEM), the
-// bias, c and the gates stay fp32.
+// bf16 io, fdbm_tpu/ops/lstm.py:500-521,548): x and the hidden states are
+// bf16 in device memory, w_ih and w_hh are rounded to bf16 as they are
+// staged, h is rounded to bf16 before it enters the next step's product, and
+// the pre-activations (xp, scratch in device memory, as the TPU kernel keeps
+// them in VMEM), the bias, c and the gates stay fp32. Both of its products
+// run on the tensor cores (mma.sync m16n8k16, mma_bf16.cuh).
+//   What bounds it on the H100: the recurrence's chain, as in fp32; its
+//   products (85 GFLOP at the main path's shape, x [260, 263, 192], H = 200,
+//   both directions) take 87 us at 989 TFLOP/s, and the projection's fp32
+//   pre-activations (438 MB written and read) 0.26 ms at 3.35 TB/s.
+//   Projection (dense_mma_kernel): persistent blocks, each holding one
+//   160-column tile of a direction's w_ih for the whole depth, rounded to
+//   bf16 as it is staged ([k][n], read by ldmatrix.trans), and walking the
+//   rows' 128-row (or 64-row) tiles, the next x tile staged by 16-byte
+//   cp.async while the current one is multiplied; the bias is added in the
+//   epilogue, which writes the fp32 pre-activations.
+//   Recurrence (lstm_mma_kernel): kernel 1's bf16 design without the window:
+//   a cluster of CS blocks takes a tile of 16 or 32 lines of one direction,
+//   block r the gate columns of units [r*uc, (r+1)*uc) of w_hh, rounded to
+//   bf16 and swizzled for ldmatrix (at H = 200, 320 KB a direction: 160 KB a
+//   block at CS = 2, 80 KB at CS = 4), resident for the whole sweep, in the
+//   column order of gridrnn_mma_kernel (a quad of units is two n8 tiles,
+//   (i, f) then (g, o)), so that one lane's accumulators hold all four gates
+//   of its cells and the cell runs in registers, c in fp32. h, rounded to
+//   bf16, goes into the next step's swizzled h tile of every block of the
+//   cluster (distributed shared memory), from which the next step loads its
+//   A fragments; one cluster barrier a step, split: a lane loads its cells'
+//   next pre-activations between the arrive and the wait. The plan (CS,
+//   lines) is one wave of clusters on the card (ops/lstm.py:
+//   recurrence_mma_plan, which mirrors lstm_mma_plan).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
-#include "bf16_io.cuh"
+#include "mma_bf16.cuh"
 #include "simt_gemm.cuh"
 #include "split_k.cuh"
 #include "tile_gemm.cuh"
@@ -81,13 +106,11 @@ namespace {
 
 // ---- the input projection --------------------------------------------------------
 // out[d][m][n] = sum_k A[m][k] W_d[k][n] + bias[d][n] with A [M][K] row-major
-// (shared by the directions) and W_d = W + d * w_dir, [K][N] row-major. A of
-// storage type T; under bf16 W is rounded to bf16 as it is staged.
+// (shared by the directions) and W_d = W + d * w_dir, [K][N] row-major.
 constexpr int DN_BM = 128, DN_BN = 64;
 
-template <class T = float>
 __global__ void __launch_bounds__(GEMM_THREADS)
-dense_kernel(const T* __restrict__ A, const float* __restrict__ W, long long w_dir,
+dense_kernel(const float* __restrict__ A, const float* __restrict__ W, long long w_dir,
              const float* __restrict__ bias, float* __restrict__ out, long long M, int K,
              int N) {
   __shared__ __align__(16) float smem[GemmTile<DN_BM, DN_BN>::SMEM_FLOATS];
@@ -99,7 +122,7 @@ dense_kernel(const T* __restrict__ A, const float* __restrict__ W, long long w_d
   auto b_k = [&](int k) -> long long { return d * w_dir + (long long)k * N; };
   auto b_n = [&](int n) -> long long { return n0 + n < N ? n0 + n : -1; };
   float acc[DN_BM / 16][DN_BN / 16];
-  gemm_tile<DN_BM, DN_BN, false, T>(K, A, a_row, a_col, W, b_k, b_n, acc, smem);
+  gemm_tile<DN_BM, DN_BN, false>(K, A, a_row, a_col, W, b_k, b_n, acc, smem);
 #pragma unroll
   for (int i = 0; i < DN_BM / 16; ++i) {
     const long long row = m0 + tile_row<DN_BM, DN_BN>(i);
@@ -112,11 +135,10 @@ dense_kernel(const T* __restrict__ A, const float* __restrict__ W, long long w_d
   }
 }
 
-template <class T>
-cudaError_t dense(const T* A, const float* W, long long w_dir, const float* bias, float* out,
+cudaError_t dense(const float* A, const float* W, long long w_dir, const float* bias, float* out,
                   long long M, int K, int N, int dirs, cudaStream_t stream) {
   dim3 grid((unsigned)((M + DN_BM - 1) / DN_BM), (N + DN_BN - 1) / DN_BN, dirs);
-  dense_kernel<T><<<grid, GEMM_THREADS, 0, stream>>>(A, W, w_dir, bias, out, M, K, N);
+  dense_kernel<<<grid, GEMM_THREADS, 0, stream>>>(A, W, w_dir, bias, out, M, K, N);
   return cudaGetLastError();
 }
 
@@ -127,8 +149,7 @@ __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-
 
 // ---- the forward recurrence: a cluster of blocks per tile of lines ------------------
 // xp [dirs][S][B][4H] pre-activations (bias included), w_hh [dirs][H][4H] ->
-// hout [dirs][S][B][H] of storage type T (bf16 only without STASH: w_hh and
-// h rounded to bf16 before the product, the outputs bf16). With STASH, xp is
+// hout [dirs][S][B][H]. With STASH, xp is
 // overwritten with the activated gates (i, f, g, o) of its position and cout
 // [dirs][S][B][H] receives c.
 //
@@ -177,13 +198,12 @@ __device__ __forceinline__ void fma_gates(float (&acc)[4], float h, const float4
 }
 
 // grid (CS * tiles, dirs), clusters of CS blocks along x.
-template <int LINES, bool STASH, class T = float>
+template <int LINES, bool STASH>
 __global__ void __launch_bounds__(RC_MAX_THREADS, 1)
-lstm_rec_kernel(float* __restrict__ xp, const float* __restrict__ w_hh, T* __restrict__ hout,
+lstm_rec_kernel(float* __restrict__ xp, const float* __restrict__ w_hh, float* __restrict__ hout,
                 float* __restrict__ cout, int S, int B, int H, int uc, int wst, int lbp,
                 int rev) {
   extern __shared__ __align__(16) float smem[];
-  static_assert(!(STASH && kIsBf16<T>), "the stashing forward is fp32");
   constexpr int L4 = LINES / 4;
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
@@ -200,7 +220,7 @@ lstm_rec_kernel(float* __restrict__ xp, const float* __restrict__ w_hh, T* __res
   for (int e = tid; e < H * 4 * uc; e += nt) {
     const int k = e / (4 * uc), g = (e / uc) % 4, j = e % uc;
     ws[k * wst + 4 * j + g] =
-        u0 + j < H ? round_to<T>(w[(long long)k * N + g * H + u0 + j]) : 0.f;
+        u0 + j < H ? w[(long long)k * N + g * H + u0 + j] : 0.f;
   }
   for (int e = tid; e < H * lbp; e += nt) hb[e] = 0.f;
 
@@ -271,13 +291,13 @@ lstm_rec_kernel(float* __restrict__ xp, const float* __restrict__ w_hh, T* __res
       const float gg = tanhf(acc[q][2] + xv[q][2]);
       const float og = sigmoidf_(acc[q][3] + xv[q][3]);
       const float c = fg * c_state[q] + ig * gg;
-      const float h = round_to<T>(og * tanhf(c));  // bf16: h rounded, c stays fp32
+      const float h = og * tanhf(c);
       c_state[q] = c;
       if (!owner) continue;
       for (int r = 0; r < cs; ++r) cluster.map_shared_rank(hnext, r)[unit * lbp + lq0 + q] = h;
       if (line0 + lq0 + q < B) {
         const long long pos = row0 + q;
-        store_f(hout + pos * H + unit, h);
+        hout[pos * H + unit] = h;
         if (STASH) {
           float* gp = xp + pos * N + unit;
           gp[0] = ig;
@@ -292,18 +312,18 @@ lstm_rec_kernel(float* __restrict__ xp, const float* __restrict__ w_hh, T* __res
   }
 }
 
-template <class T = float>
-using RecKernel = void (*)(float*, const float*, T*, float*, int, int, int, int, int, int, int);
+using RecKernel = void (*)(float*, const float*, float*, float*, int, int, int, int, int, int,
+                           int);
 
-template <bool STASH, class T = float>
-RecKernel<T> rec_kernel(int lines) {
+template <bool STASH>
+RecKernel rec_kernel(int lines) {
   switch (lines) {
-    case 4: return lstm_rec_kernel<4, STASH, T>;
-    case 8: return lstm_rec_kernel<8, STASH, T>;
-    case 12: return lstm_rec_kernel<12, STASH, T>;
-    case 16: return lstm_rec_kernel<16, STASH, T>;
-    case 20: return lstm_rec_kernel<20, STASH, T>;
-    case 24: return lstm_rec_kernel<24, STASH, T>;
+    case 4: return lstm_rec_kernel<4, STASH>;
+    case 8: return lstm_rec_kernel<8, STASH>;
+    case 12: return lstm_rec_kernel<12, STASH>;
+    case 16: return lstm_rec_kernel<16, STASH>;
+    case 20: return lstm_rec_kernel<20, STASH>;
+    case 24: return lstm_rec_kernel<24, STASH>;
     default: return nullptr;
   }
 }
@@ -311,24 +331,17 @@ RecKernel<T> rec_kernel(int lines) {
 // The launch configuration of (cs, lines) over `tiles` tiles and `dirs`
 // directions, with the kernel's shared memory set; false if the plan does
 // not fit.
-template <class T = float>
 struct RecLaunch {
   RecPlan plan;
-  RecKernel<T> fn;
+  RecKernel fn;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
 };
 
-template <class T>
-cudaError_t rec_launch_config(RecLaunch<T>& L, int H, int cs, int lines, bool stash, int tiles,
+cudaError_t rec_launch_config(RecLaunch& L, int H, int cs, int lines, bool stash, int tiles,
                               int dirs, cudaStream_t stream) {
   if (!rec_plan(H, cs, lines, L.plan)) return cudaErrorInvalidValue;
-  if constexpr (kIsBf16<T>) {
-    if (stash) return cudaErrorInvalidValue;
-    L.fn = rec_kernel<false, T>(lines);
-  } else {
-    L.fn = stash ? rec_kernel<true>(lines) : rec_kernel<false>(lines);
-  }
+  L.fn = stash ? rec_kernel<true>(lines) : rec_kernel<false>(lines);
   cudaError_t err = cudaFuncSetAttribute(L.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L.plan.bytes));
   if (err != cudaSuccess) return err;
@@ -346,10 +359,10 @@ cudaError_t rec_launch_config(RecLaunch<T>& L, int H, int cs, int lines, bool st
   return cudaSuccess;
 }
 
-template <bool STASH, class T = float>
-cudaError_t launch_rec(float* xp, const float* w_hh, T* hout, float* cout, int S, int B,
+template <bool STASH>
+cudaError_t launch_rec(float* xp, const float* w_hh, float* hout, float* cout, int S, int B,
                        int H, int dirs, int rev, int cs, int lines, cudaStream_t stream) {
-  RecLaunch<T> L;
+  RecLaunch L;
   cudaError_t err = rec_launch_config(L, H, cs, lines, STASH, (B + lines - 1) / lines, dirs,
                                       stream);
   if (err != cudaSuccess) return err;
@@ -788,6 +801,403 @@ cudaError_t lstm_wgrad(const float* x, const float* h, const float* dgates, floa
   return reduce(work, dwg, (long long)M * N, splits, stream);
 }
 
+
+// ---- the bf16 form on the tensor cores: projection ----------------------------------
+// out[d][m][n] = sum_k x[m][k] W_d[k][n] + bias[d][n], x [M][K] bf16, W_d =
+// W + d * K * N fp32 [K][N] rounded to bf16 as it is staged. Eight warps, 2
+// (rows) x 4 (columns), each MW m16 tiles x DM_NT n8 tiles.
+constexpr int DM_NT = 5;               // n8 tiles a warp
+constexpr int DM_BN = 4 * 8 * DM_NT;   // 160 columns a block
+constexpr int DM_THREADS = 256;
+
+struct DenseMmaPlan {
+  int mw, bm;        // m16 tiles a warp (4 or 2), rows a tile (32 mw)
+  int kp, ast, wst;  // K rounded to 16; row strides of the x and W tiles (odd 16-byte chunks)
+  long long w_bytes, a_bytes, bytes;
+};
+
+bool dense_mma_plan(int K, DenseMmaPlan& p) {
+  if (K < 1) return false;
+  p.kp = (K + 15) / 16 * 16;
+  p.ast = p.kp + 8;
+  p.wst = DM_BN + 8;
+  for (p.mw = 4; p.mw >= 2; p.mw -= 2) {
+    p.bm = 32 * p.mw;
+    p.w_bytes = 2LL * p.kp * p.wst;
+    p.a_bytes = 2LL * p.bm * p.ast;
+    p.bytes = p.w_bytes + 2 * p.a_bytes;
+    if (p.bytes <= 4LL * SMEM_FLOATS) return true;
+  }
+  return false;
+}
+
+// grid (G, column tiles, dirs): block (i, j, d) takes column tile j of
+// direction d and row tiles i, i + G, ...
+template <int MW>
+__global__ void __launch_bounds__(DM_THREADS, 1)
+dense_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ W,
+                 const float* __restrict__ bias, float* __restrict__ out, long long M, int K,
+                 int N, DenseMmaPlan p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int BM = 32 * MW;
+  extern __shared__ __align__(16) unsigned char dm_smem[];
+  bf16* ws = reinterpret_cast<bf16*>(dm_smem);                    // [kp][wst]
+  bf16* as = reinterpret_cast<bf16*>(dm_smem + p.w_bytes);         // [2][BM][ast]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int d = blockIdx.z, n0 = blockIdx.y * DM_BN;
+  const long long m_tiles = (M + BM - 1) / BM;
+  const float* w = W + (long long)d * K * N;
+  // The W tile, rounded to bf16 (zero past K and N).
+  for (int e = tid; e < p.kp * DM_BN; e += DM_THREADS) {
+    const int k = e / DM_BN, n = e - k * DM_BN;
+    ws[k * p.wst + n] =
+        __float2bfloat16(k < K && n0 + n < N ? w[(long long)k * N + n0 + n] : 0.f);
+  }
+  // The depth padding of both x tiles, written once (the copies never reach it).
+  const int kpad = p.kp - K;
+  for (int e = tid; e < 2 * BM * kpad; e += DM_THREADS)
+    as[(e / kpad) * p.ast + K + e % kpad] = __float2bfloat16(0.f);
+  const bool vec = K % 8 == 0;
+  auto stage = [&](long long tile, int buf) {
+    bf16* dst = as + buf * BM * p.ast;
+    const long long m0 = tile * BM;
+    if (vec) {
+      const int per_row = K / 8;
+      for (int e = tid; e < BM * per_row; e += DM_THREADS) {
+        const int r = e / per_row, c = (e - r * per_row) * 8;
+        const bool ok = m0 + r < M;
+        cp_async_16(dst + r * p.ast + c, ok ? x + (m0 + r) * K + c : x, ok);
+      }
+    } else {
+      for (int e = tid; e < BM * K; e += DM_THREADS) {
+        const int r = e / K, c = e - r * K;
+        dst[r * p.ast + c] = m0 + r < M ? x[(m0 + r) * K + c] : __float2bfloat16(0.f);
+      }
+    }
+  };
+  const int a_row = lane & 15, a_k = (lane >> 4) * 8;
+  const int v_k = lane & 15, v_hi = lane >> 4;
+  long long tile = blockIdx.x;
+  if (tile < m_tiles) stage(tile, 0);
+  cp_async_commit_raw();
+  for (int i = 0; tile < m_tiles; ++i, tile += gridDim.x) {
+    const bool next = tile + gridDim.x < m_tiles;
+    if (next) stage(tile + gridDim.x, (i + 1) & 1);
+    cp_async_commit_raw();
+    cp_async_wait_raw(1);
+    __syncthreads();
+    const bf16* at = as + (i & 1) * BM * p.ast + (wm * 16 * MW + a_row) * p.ast + a_k;
+    float acc[MW][DM_NT][4];
+#pragma unroll
+    for (int m = 0; m < MW; ++m)
+#pragma unroll
+      for (int j = 0; j < DM_NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+    for (int kt = 0; kt < p.kp / 16; ++kt) {
+      unsigned bfr[DM_NT][2];
+      const bf16* wrow = ws + (kt * 16 + v_k) * p.wst + wn * 8 * DM_NT;
+#pragma unroll
+      for (int j = 0; j + 1 < DM_NT; j += 2) {
+        unsigned r4[4];
+        ldsm_x4_trans(r4, wrow + 8 * (j + v_hi));
+        bfr[j][0] = r4[0];
+        bfr[j][1] = r4[1];
+        bfr[j + 1][0] = r4[2];
+        bfr[j + 1][1] = r4[3];
+      }
+      if constexpr (DM_NT % 2) {
+        unsigned r2[2];
+        ldsm_x2_trans(r2, wrow + 8 * (DM_NT - 1));
+        bfr[DM_NT - 1][0] = r2[0];
+        bfr[DM_NT - 1][1] = r2[1];
+      }
+#pragma unroll
+      for (int m = 0; m < MW; ++m) {
+        unsigned a[4];
+        ldsm_x4(a, at + m * 16 * p.ast + kt * 16);
+#pragma unroll
+        for (int j = 0; j < DM_NT; ++j) mma_bf16(acc[m][j], a, bfr[j][0], bfr[j][1]);
+      }
+    }
+    const long long m0 = tile * BM + wm * 16 * MW;
+#pragma unroll
+    for (int m = 0; m < MW; ++m)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const long long row = m0 + m * 16 + g + 8 * hr;
+        if (row >= M) continue;
+        float* orow = out + ((long long)d * M + row) * N;
+#pragma unroll
+        for (int j = 0; j < DM_NT; ++j) {
+          const int n = n0 + wn * 8 * DM_NT + j * 8 + 2 * t4;
+          if (n + 1 < N) {
+            *reinterpret_cast<float2*>(orow + n) =
+                make_float2(acc[m][j][2 * hr] + bias[d * N + n],
+                            acc[m][j][2 * hr + 1] + bias[d * N + n + 1]);
+          } else if (n < N) {
+            orow[n] = acc[m][j][2 * hr] + bias[d * N + n];
+          }
+        }
+      }
+    __syncthreads();  // this x tile's buffer is free again
+  }
+  cp_async_wait_raw(0);
+}
+
+using DenseMmaKernel = void (*)(const __nv_bfloat16*, const float*, const float*, float*,
+                                long long, int, int, DenseMmaPlan);
+
+// The card's blocks of a dense_mma_kernel form at once.
+int dense_mma_resident(DenseMmaKernel fn, long long bytes) {
+  static int cached[2][64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
+  int& c = cached[fn == dense_mma_kernel<4> ? 0 : 1][dev];
+  if (c) return c;
+  int sms = 0, per_sm = 0;
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes)) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, DM_THREADS, bytes) !=
+          cudaSuccess)
+    return 0;
+  c = sms * per_sm;
+  return c;
+}
+
+cudaError_t dense_mma(const __nv_bfloat16* x, const float* W, const float* bias, float* out,
+                      long long M, int K, int N, int dirs, cudaStream_t stream) {
+  DenseMmaPlan p;
+  if (!dense_mma_plan(K, p)) return cudaErrorInvalidValue;
+  DenseMmaKernel fn = p.mw == 4 ? dense_mma_kernel<4> : dense_mma_kernel<2>;
+  const int resident = dense_mma_resident(fn, p.bytes);
+  if (resident < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(p.bytes));
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (N + DM_BN - 1) / DM_BN;
+  const long long m_tiles = (M + p.bm - 1) / p.bm;
+  const long long groups = std::max(1LL, std::min(m_tiles, (long long)resident /
+                                                                (n_tiles * dirs)));
+  fn<<<dim3((unsigned)groups, n_tiles, dirs), DM_THREADS, p.bytes, stream>>>(x, W, bias, out, M,
+                                                                           K, N, p);
+  return cudaGetLastError();
+}
+
+// ---- the bf16 form on the tensor cores: the recurrence ------------------------------
+constexpr int LM_QPW = 2;  // unit quads a warp
+constexpr int LM_MAX_THREADS = 512;
+
+struct LstmMmaPlan {
+  int cs, mt, lines;  // blocks a cluster; m16 tiles of lines (lines = 16 mt)
+  int uc, quads, n;   // units a block, their quads, gate columns (16 quads)
+  int kh;             // H padded to 16 (zero rows)
+  int nw, nt;         // warps (LM_QPW quads each) and threads
+  long long w_bytes, h_bytes, bytes;
+};
+
+bool lstm_mma_plan(int H, int cs, int mt, LstmMmaPlan& p) {
+  if (H < 1 || H > 256 || (cs != 1 && cs != 2 && cs != 4 && cs != 8) || (mt != 1 && mt != 2))
+    return false;
+  p.cs = cs;
+  p.mt = mt;
+  p.lines = 16 * mt;
+  p.uc = (H + cs - 1) / cs;
+  p.quads = (p.uc + 3) / 4;
+  p.n = 16 * p.quads;
+  p.kh = (H + 15) / 16 * 16;
+  p.nw = (p.quads + LM_QPW - 1) / LM_QPW;
+  p.nt = 32 * p.nw;
+  p.w_bytes = 2LL * p.kh * p.n;
+  p.h_bytes = 2LL * 2 * p.kh * p.lines;
+  p.bytes = p.w_bytes + p.h_bytes;
+  return p.nt <= LM_MAX_THREADS && p.bytes <= 4LL * SMEM_FLOATS;
+}
+
+// xp [dirs][S][B][4H] fp32 pre-activations (bias included), w_hh [dirs][H][4H]
+// fp32 -> hout [dirs][S][B][H] bf16. grid (CS * tiles, dirs), clusters of CS
+// blocks along x, p.nt threads. Shared memory: the block's gate columns of
+// w_hh in bf16, [kh / 16][n] swizzled tiles; h [2][kh / 16][lines] swizzled
+// tiles (double buffered; every block holds the whole tile's h).
+template <int MT>
+__global__ void __launch_bounds__(LM_MAX_THREADS, 1)
+lstm_mma_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
+                __nv_bfloat16* __restrict__ hout, int S, int B, int H, int rev, LstmMmaPlan p) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char lm_smem[];
+  constexpr int LINES = 16 * MT;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int N = 4 * H, n = p.n;
+  const int d = blockIdx.y;
+  const bool reverse = (d == 1) != (rev != 0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int line0 = (blockIdx.x / p.cs) * LINES;
+  const int u0 = rank * p.uc;
+  bf16* ws = reinterpret_cast<bf16*>(lm_smem);
+  bf16* hb = reinterpret_cast<bf16*>(lm_smem + p.w_bytes);
+  const int h_buf = (p.kh / 16) * LINES * 16;
+
+  // The gate columns, rounded to bf16: column 16 q + 8 (gate / 2) + 2 (j % 4)
+  // + gate % 2 holds gate `gate` of local unit j = 4 q + j % 4 (zero rows
+  // past H, zero columns past the block's units).
+  {
+    const float* w = w_hh + (long long)d * H * N;
+    const int uq = 4 * p.quads;
+    for (int e = tid; e < p.kh * 4 * uq; e += p.nt) {
+      const int k = e / (4 * uq), gate = (e / uq) % 4, j = e % uq;
+      const float val = k < H && j < p.uc && u0 + j < H ? w[(long long)k * N + gate * H + u0 + j]
+                                                        : 0.f;
+      ws[(k >> 4) * n * 16 + swz(k, (j >> 2) * 16 + (gate >> 1) * 8 + (j & 3) * 2 + (gate & 1))] =
+          __float2bfloat16(val);
+    }
+  }
+  for (int e = tid; e < 2 * h_buf; e += p.nt) hb[e] = __float2bfloat16(0.f);
+
+  // The warp's quads warp + i * nw; a lane's cells: unit 4 q + t4 of the
+  // block at lines m * 16 + g + 8 hr of the tile.
+  int unit[LM_QPW], h_at[LM_QPW][MT][2];
+  bool has_quad[LM_QPW], owner[LM_QPW], line_ok[MT][2];
+  const bf16* wb[LM_QPW];  // the quad's B fragments: lane's row and chunk of k-tile 0
+  float c_state[MT][LM_QPW][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) line_ok[m][hr] = line0 + m * 16 + g + 8 * hr < B;
+#pragma unroll
+  for (int i = 0; i < LM_QPW; ++i) {
+    const int q = warp + i * p.nw, j = 4 * q + t4;
+    has_quad[i] = q < p.quads;
+    unit[i] = u0 + j;
+    owner[i] = has_quad[i] && j < p.uc && unit[i] < H;
+    const int bcol = 16 * min(q, p.quads - 1) + (lane & 7) + (lane >> 4) * 8;
+    wb[i] = ws + swz(((lane >> 3) & 1) * 8, bcol);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        c_state[m][i][hr] = 0.f;
+        h_at[i][m][hr] =
+            owner[i] ? (unit[i] / 16) * LINES * 16 + swz(unit[i], m * 16 + g + 8 * hr) : -1;
+      }
+  }
+  // The lane's cells' pre-activations of a step (zero where no cell).
+  float xv[MT][LM_QPW][2][4];
+  auto load_xp = [&](int s) {
+    const int pos = reverse ? S - 1 - s : s;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const float* row = xp + (((long long)d * S + pos) * B + line0 + m * 16 + g + 8 * hr) * N;
+#pragma unroll
+        for (int i = 0; i < LM_QPW; ++i)
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate)
+            xv[m][i][hr][gate] =
+                owner[i] && line_ok[m][hr] ? row[gate * H + unit[i]] : 0.f;
+      }
+  };
+  const int a_row = lane & 15, a_k = (lane >> 4) * 8;
+  const int h_off = swz(a_k, a_row);
+  load_xp(0);
+  cluster.sync();  // weights and h in place in every block before any remote write
+
+  for (int s = 0; s < S; ++s) {
+    const int pos = reverse ? S - 1 - s : s;
+    const bf16* hcur = hb + (s & 1) * h_buf;
+    bf16* hnext = hb + ((s + 1) & 1) * h_buf;
+    if (s > 0) cluster_wait();  // every block's h of the last step is in hcur
+    float acc[MT][LM_QPW][2][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < LM_QPW; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][i][0][e] = acc[m][i][1][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < p.kh / 16; ++kk) {
+      unsigned a[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) ldsm_x4(a[m], hcur + kk * LINES * 16 + m * 16 * 16 + h_off);
+#pragma unroll
+      for (int i = 0; i < LM_QPW; ++i) {
+        if (!has_quad[i]) continue;
+        unsigned bw[4];
+        ldsm_x4(bw, wb[i] + kk * n * 16);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mma_bf16(acc[m][i][0], a[m], bw[0], bw[1]);
+          mma_bf16(acc[m][i][1], a[m], bw[2], bw[3]);
+        }
+      }
+    }
+    // The cell in registers (fast activations, as kernel 1's), c in fp32; h
+    // rounded to bf16 enters the next step's product (every block of the
+    // cluster) and the output.
+    bf16* hrow = hout + (((long long)d * S + pos) * B + line0) * H;
+#pragma unroll
+    for (int i = 0; i < LM_QPW; ++i) {
+      if (!has_quad[i]) continue;
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const float ig = fast_sigmoid(acc[m][i][0][2 * hr] + xv[m][i][hr][0]);
+          const float fg = fast_sigmoid(acc[m][i][0][2 * hr + 1] + xv[m][i][hr][1]);
+          const float gg = fast_tanh(acc[m][i][1][2 * hr] + xv[m][i][hr][2]);
+          const float og = fast_sigmoid(acc[m][i][1][2 * hr + 1] + xv[m][i][hr][3]);
+          float& c = c_state[m][i][hr];
+          c = fg * c + ig * gg;
+          const bf16 hv = __float2bfloat16(og * fast_tanh(c));
+          const int at = h_at[i][m][hr];
+          if (at < 0) continue;
+          for (int r = 0; r < p.cs; ++r) cluster.map_shared_rank(hnext, r)[at] = hv;
+          if (line_ok[m][hr]) hrow[(m * 16 + g + 8 * hr) * H + unit[i]] = hv;
+        }
+    }
+    cluster_arrive();
+    if (s + 1 < S) load_xp(s + 1);  // arrives during the barrier and the next product
+  }
+  cluster_wait();  // no block leaves while another may still write its h
+}
+
+using LstmMmaKernel = void (*)(const float*, const float*, __nv_bfloat16*, int, int, int, int,
+                               LstmMmaPlan);
+
+struct LstmMmaLaunch {
+  LstmMmaPlan plan;
+  LstmMmaKernel fn;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+};
+
+// The launch of plan (cs, lines = 16 mt) over `tiles` tiles and `dirs`
+// directions, with the kernel's shared memory set.
+cudaError_t lstm_mma_launch_config(LstmMmaLaunch& L, int H, int cs, int lines, int tiles,
+                                   int dirs, cudaStream_t stream) {
+  if (lines % 16 || !lstm_mma_plan(H, cs, lines / 16, L.plan)) return cudaErrorInvalidValue;
+  L.fn = L.plan.mt == 1 ? lstm_mma_kernel<1> : lstm_mma_kernel<2>;
+  cudaError_t err = cudaFuncSetAttribute(L.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L.plan.bytes));
+  if (err != cudaSuccess) return err;
+  L.cfg = {};
+  L.cfg.gridDim = dim3(cs * tiles, dirs);
+  L.cfg.blockDim = dim3(L.plan.nt);
+  L.cfg.dynamicSmemBytes = L.plan.bytes;
+  L.cfg.stream = stream;
+  L.attr[0].id = cudaLaunchAttributeClusterDimension;
+  L.attr[0].val.clusterDim.x = cs;
+  L.attr[0].val.clusterDim.y = 1;
+  L.attr[0].val.clusterDim.z = 1;
+  L.cfg.attrs = L.attr;
+  L.cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
 // Shapes every entry takes: at least one step, line and input feature, and
 // H <= 256 (the recurrences' four lanes per unit or group in 256 threads).
 inline bool shape_ok(int S, int B, int D, int H) {
@@ -814,18 +1224,57 @@ int lstm_forward(const float* x, const float* w_ih, const float* w_hh, const flo
   return launch_rec<false>(xp, w_hh, out, nullptr, S, B, H, dirs, rev, cs, lines, stream);
 }
 
-// The bf16 form of lstm_forward: x [S][B][D] and out [dirs][S][B][H] bf16,
-// the weights and bias fp32 (rounded to bf16 in the kernels), xp fp32.
+// The bf16 form of lstm_forward on the tensor cores: x [S][B][D] (16-byte
+// aligned) and out [dirs][S][B][H] bf16, the weights and bias fp32 (rounded
+// to bf16 in the kernels), xp fp32; (cs, lines) the recurrence's plan
+// (lstm_mma_plan).
 int lstm_forward_bf16(const __nv_bfloat16* x, const float* w_ih, const float* w_hh,
                       const float* bias, float* xp, __nv_bfloat16* out, int S, int B, int D,
                       int H, int dirs, int rev, int cs, int lines, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!shape_ok(S, B, D, H) || dirs < 1 || dirs > 2) return cudaErrorInvalidValue;
-  const int N = 4 * H;
-  cudaError_t err = dense(x, w_ih, (long long)D * N, bias, xp, (long long)S * B, D, N, dirs,
-                          stream);
+  LstmMmaLaunch L;
+  cudaError_t err = lstm_mma_launch_config(L, H, cs, lines, (B + lines - 1) / lines, dirs, stream);
   if (err != cudaSuccess) return err;
-  return launch_rec<false>(xp, w_hh, out, nullptr, S, B, H, dirs, rev, cs, lines, stream);
+  err = dense_mma(x, w_ih, bias, xp, (long long)S * B, D, 4 * H, dirs, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&L.cfg, L.fn, static_cast<const float*>(xp), w_hh, out, S, B, H, rev,
+                           L.plan);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The projection of lstm_forward_bf16 alone (dense_mma_kernel), for timing:
+// xp [dirs][S*B][4H] from x and w_ih, bias.
+int lstm_projection_bf16(const __nv_bfloat16* x, const float* w_ih, const float* bias, float* xp,
+                         long long M, int D, int N, int dirs, void* stream_ptr) {
+  return dense_mma(x, w_ih, bias, xp, M, D, N, dirs, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// Dynamic shared memory of the projection at depth D, or -1 if it does not fit.
+long long lstm_projection_smem(int D) {
+  DenseMmaPlan p;
+  return dense_mma_plan(D, p) ? p.bytes : -1;
+}
+
+// The card's most clusters of the bf16 recurrence plan (cs, lines) at width
+// H that can run at once, 0 if the plan does not fit a block, or minus a
+// CUDA error.
+int lstm_mma_max_clusters(int H, int cs, int lines) {
+  LstmMmaLaunch L;
+  cudaError_t err = lstm_mma_launch_config(L, H, cs, lines, 1, 1, nullptr);
+  if (err == cudaErrorInvalidValue) return 0;
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, L.fn, &L.cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// Dynamic shared memory of a block of the bf16 recurrence plan, or -1 if it
+// does not fit.
+long long lstm_mma_smem(int H, int cs, int lines) {
+  LstmMmaPlan p;
+  return lines % 16 == 0 && lstm_mma_plan(H, cs, lines / 16, p) ? p.bytes : -1;
 }
 
 // lstm_core's forward, one direction: h [S][B][H] and the stashes of its
@@ -845,7 +1294,7 @@ int lstm_train_fwd(const float* x, const float* w_ih, const float* w_hh, const f
 // that can run at once (cudaOccupancyMaxActiveClusters), 0 if the plan does
 // not fit a block, or minus a CUDA error.
 int lstm_rec_max_clusters(int H, int cs, int lines, int stash) {
-  RecLaunch<> L;
+  RecLaunch L;
   cudaError_t err = rec_launch_config(L, H, cs, lines, stash != 0, 1, 1, nullptr);
   if (err == cudaErrorInvalidValue) return 0;
   if (err != cudaSuccess) return -static_cast<int>(err);

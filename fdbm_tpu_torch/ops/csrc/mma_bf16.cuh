@@ -1,8 +1,10 @@
-// Tensor-core building blocks of kernel 1's bf16 form (gridrnn.cu's
-// gridrnn_mma_kernel): mma.sync m16n8k16 with bf16 operands and fp32
-// accumulators, ldmatrix to load its fragments from shared memory, raw
-// 16-byte cp.async of bf16 into shared memory, and a split barrier of the
-// block on an mbarrier.
+// Tensor-core building blocks of the bf16 forms of kernels 1, 3 and 7
+// (gridrnn.cu's gridrnn_mma_kernel, attention.cu's attn_mma_kernel,
+// lstm.cu's dense_mma_kernel and lstm_mma_kernel): mma.sync m16n8k16 with
+// bf16 operands and fp32 accumulators, ldmatrix (and its transposed form) to
+// load its fragments from shared memory, the swizzled tiles they read, raw
+// cp.async of bf16 into shared memory, a split barrier of the block on an
+// mbarrier, and the LSTM cell's fast activations.
 //
 // Fragments of mma.m16n8k16.row.col (lane = 4 g + t4): A (16 x 16, row
 // major) a0 = rows g, k 2t4..2t4+1; a1 = rows g+8, the same k; a2, a3 the same
@@ -31,6 +33,38 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
                : "r"(smem_addr(p)));
 }
 
+// The transposed forms (.x2: two matrices, lanes 0-15 give the row
+// addresses): a lane receives elements 2t4..2t4+1 of column g of each
+// matrix, so a tile stored k-row by k-row ([k][n], n fastest) gives the B
+// fragments of mma's "col" operand.
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// Swizzled bf16 tiles of 16 k x rows, each row two 16-byte chunks, the
+// chunks of rows 4-7 (mod 8) swapped, so that the eight rows an ldmatrix
+// reads at one chunk fall in eight different bank groups.
+__device__ __forceinline__ int swz(int k, int row) {
+  return (row * 2 + (((k >> 3) & 1) ^ ((row >> 2) & 1))) * 8 + (k & 7);
+}
+
+// An LSTM cell's activations with the fast exponential and division
+// (relative error about 1e-7, far inside the serving kernels' gates; the
+// bf16 recurrences round h to bf16, 4e-3, right after): they sit on a
+// recurrence's chain.
+__device__ __forceinline__ float fast_sigmoid(float v) {
+  return __fdividef(1.f, 1.f + __expf(-v));
+}
+__device__ __forceinline__ float fast_tanh(float v) { return 2.f * fast_sigmoid(2.f * v) - 1.f; }
+
 // d += a * b on the tensor cores: bf16 operands, fp32 sums.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
                                          unsigned b1) {
@@ -46,6 +80,21 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// N (4, 8 or 16) bytes from device to shared memory, both N-byte aligned,
+// zero-filled when !valid (src is then not read); N = 2 is a plain load and
+// store (cp.async copies at least 4 bytes).
+template <int N>
+__device__ __forceinline__ void cp_async_bytes(void* dst, const void* src, bool valid) {
+  if constexpr (N == 2) {
+    *static_cast<unsigned short*>(dst) = valid ? *static_cast<const unsigned short*>(src) : 0;
+  } else if constexpr (N == 16) {
+    cp_async_16(dst, src, valid);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "n"(N), "r"(valid ? N : 0));
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit_raw() {

@@ -27,9 +27,11 @@ hidden states in time order.
 bfloat16``) and then launches the kernels' bf16 form, the JAX kernel's bf16
 path (``fdbm_tpu/ops/lstm.py:500-521,548``): bf16 x and hidden states, w_ih
 and w_hh rounded to bf16, h rounded to bf16 before each product, fp32
-pre-activations, bias, cell state and gates. Its plain version is the same
-function on a bf16 tensor. The two forms count their launches apart
-(``launches``, ``launches_bf16``).
+pre-activations, bias, cell state and gates, both products on the tensor
+cores (the projection ``dense_mma_kernel``; the recurrence
+``lstm_mma_kernel``, planned by :func:`recurrence_mma_plan`). Its plain
+version is the same function on a bf16 tensor. The two forms count their
+launches apart (``launches``, ``launches_bf16``).
 """
 
 from __future__ import annotations
@@ -55,9 +57,14 @@ _SIGNATURES = {
     "lstm_sweep_smem": [_I] * 3,
     "lstm_train_bwd_workspace": [_I] * 4,
     "lstm_train_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    "lstm_projection_bf16": [_P] * 4 + [ctypes.c_longlong] + [_I] * 3 + [_P],
+    "lstm_projection_smem": [_I],
+    "lstm_mma_max_clusters": [_I] * 3,
+    "lstm_mma_smem": [_I] * 3,
 }
 _RESTYPES = {"lstm_train_bwd_workspace": ctypes.c_longlong, "lstm_rec_smem": ctypes.c_longlong,
-             "lstm_sweep_smem": ctypes.c_longlong}
+             "lstm_sweep_smem": ctypes.c_longlong, "lstm_projection_smem": ctypes.c_longlong,
+             "lstm_mma_smem": ctypes.c_longlong}
 MAX_HIDDEN = 256  # four lanes per unit (or group of four units) in at most 256 threads
 
 # The recurrences' plans (csrc/lstm.cu: rec_plan, sweep_plan; planned by
@@ -67,6 +74,13 @@ MAX_HIDDEN = 256  # four lanes per unit (or group of four units) in at most 256 
 REC_CLUSTERS = CLUSTERS
 REC_LINES = (4, 8, 12, 16, 20, 24)
 _KS = 4
+# The bf16 form on the tensor cores (csrc/lstm.cu): the recurrence's tiles
+# of 16 or 32 lines (lstm_mma_plan: two quads of units a warp, at most 512
+# threads); the projection's 160-column tiles of 128 or 64 rows
+# (dense_mma_plan), the whole depth of w_ih resident.
+MMA_LINES = (16, 32)
+_LM_QPW, _LM_MAX_THREADS = 2, 512
+_DM_BN = 160
 
 
 def recurrence_layout(hidden: int, cs: int, lines: int) -> Optional[Tuple[int, int]]:
@@ -99,6 +113,62 @@ def sweep_layout(hidden: int, cs: int, lines: int) -> Optional[Tuple[int, int]]:
     # a thread of the sweep owns at most lines / 4 + 1 cells (line, unit)
     fits = threads <= 256 and cells <= lines // 4 + 1 and nbytes <= SMEM_LIMIT
     return (threads, nbytes) if fits else None
+
+
+def recurrence_mma_layout(hidden: int, cs: int, lines: int) -> Optional[Tuple[int, int]]:
+    """``(threads, shared-memory bytes)`` of a block of the bf16 recurrence
+    plan (``cs``, ``lines``) at width ``hidden``, as
+    ``csrc/lstm.cu:lstm_mma_plan`` lays it out (the block's gate columns of
+    w_hh in bf16, 16 a quad of units, over H padded to 16 rows; two bf16
+    copies of the tile's h), or None if it does not fit a block."""
+    if cs not in REC_CLUSTERS or lines not in MMA_LINES or not 1 <= hidden <= MAX_HIDDEN:
+        return None
+    quads = _cdiv(_cdiv(hidden, cs), 4)
+    kh = 16 * _cdiv(hidden, 16)
+    threads = 32 * _cdiv(quads, _LM_QPW)
+    nbytes = 2 * kh * 16 * quads + 4 * kh * lines
+    return (threads, nbytes) if threads <= _LM_MAX_THREADS and nbytes <= SMEM_LIMIT else None
+
+
+def recurrence_mma_step_cycles(hidden: int, cs: int, lines: int) -> int:
+    """Estimated cycles of one step of one block of the bf16 recurrence: its
+    m16n8k16 products on the busiest of the SM's four sub-partitions (about
+    8 cycles each) or its ldmatrix reads (512 bytes each at 128 bytes a
+    cycle), whichever is longer, plus the cell and the cluster's barrier and
+    remote writes of h."""
+    quads = _cdiv(_cdiv(hidden, cs), 4)
+    warps = _cdiv(quads, _LM_QPW)
+    k_tiles = _cdiv(hidden, 16)
+    mt = lines // 16
+    products = _cdiv(warps, 4) * _LM_QPW * 2 * mt * k_tiles * 8
+    loads = 4 * k_tiles * (quads + warps * mt)
+    return max(products, loads) + 300 * mt + 1000 + 800 * cs
+
+
+def plan_recurrence_mma(lines: int, dirs: int, hidden: int,
+                        max_clusters: Callable[[int, int], int]) -> ClusterPlan:
+    """The bf16 recurrence's plan for ``lines`` lines in each of ``dirs``
+    directions (see ``ops.gridrnn.plan_clusters``), a step estimated by
+    :func:`recurrence_mma_step_cycles`."""
+    return plan_clusters(lines, dirs, MMA_LINES,
+                         lambda cs, tile: recurrence_mma_layout(hidden, cs, tile), max_clusters,
+                         lambda cs, tile, threads: recurrence_mma_step_cycles(hidden, cs, tile),
+                         f"lstm (bf16): no recurrence plan for H={hidden}")
+
+
+def projection_mma_layout(d_in: int) -> Optional[Tuple[int, int]]:
+    """``(rows a tile, shared-memory bytes)`` of the bf16 projection's block
+    at depth ``d_in``, as ``csrc/lstm.cu:dense_mma_plan`` lays it out (a
+    160-column tile of w_ih over the depth rounded to 16, and two x tiles),
+    or None if even 64-row tiles do not fit."""
+    if d_in < 1:
+        return None
+    kp = 16 * _cdiv(d_in, 16)
+    for bm in (128, 64):
+        nbytes = 2 * kp * (_DM_BN + 8) + 2 * 2 * bm * (kp + 8)
+        if nbytes <= SMEM_LIMIT:
+            return bm, nbytes
+    return None
 
 
 def plan_recurrence(lines: int, dirs: int, hidden: int,
@@ -134,6 +204,8 @@ def _card_max_clusters(device_index: int, hidden: int, cs: int, tile: int, kind:
         lib = _build.load("lstm", _SIGNATURES, _RESTYPES)
         if kind == "sweep":
             n = lib.lstm_sweep_max_clusters(hidden, cs, tile)
+        elif kind == "mma":
+            n = lib.lstm_mma_max_clusters(hidden, cs, tile)
         else:
             n = lib.lstm_rec_max_clusters(hidden, cs, tile, int(kind == "stash"))
     if n < 0:
@@ -148,6 +220,8 @@ def _card_plan(device_index: int, lines: int, dirs: int, hidden: int,
     counts = lambda cs, tile: _card_max_clusters(device_index, hidden, cs, tile, kind)
     if kind == "sweep":
         return plan_sweep(lines, hidden, counts)
+    if kind == "mma":
+        return plan_recurrence_mma(lines, dirs, hidden, counts)
     return plan_recurrence(lines, dirs, hidden, counts)
 
 
@@ -162,6 +236,27 @@ def recurrence_plan(lines: int, dirs: int, hidden: int, stash: bool = False,
     plan the wrappers launch for this shape (``stash``: :func:`lstm_core`'s)."""
     return _card_plan(_device_index(device), lines, dirs, hidden,
                       "stash" if stash else "forward")
+
+
+def recurrence_mma_plan(lines: int, dirs: int, hidden: int,
+                        device: Optional[torch.device] = None) -> ClusterPlan:
+    """:func:`plan_recurrence_mma` with the card's counts, each queried once:
+    the plan :func:`bilstm_fused_forward` launches on a bf16 x."""
+    return _card_plan(_device_index(device), lines, dirs, hidden, "mma")
+
+
+def recurrence_mma_smem(hidden: int, cs: int, lines: int) -> int:
+    """The kernel's own count of a block's shared memory for a bf16 plan (-1
+    if it does not fit), to hold :func:`recurrence_mma_layout` to it."""
+    lib = _build.load("lstm", _SIGNATURES, _RESTYPES)
+    return lib.lstm_mma_smem(hidden, cs, lines)
+
+
+def projection_mma_smem(d_in: int) -> int:
+    """The kernel's own count for the bf16 projection, against
+    :func:`projection_mma_layout`."""
+    lib = _build.load("lstm", _SIGNATURES, _RESTYPES)
+    return lib.lstm_projection_smem(d_in)
 
 
 def sweep_plan(lines: int, hidden: int, device: Optional[torch.device] = None
@@ -242,17 +337,30 @@ def _empty(dev, *shape) -> torch.Tensor:
     return torch.empty(shape, device=dev, dtype=torch.float32)
 
 
-def _forward(fn: str, x, w_ih, w_hh, bias, dirs: int, reverse: bool) -> torch.Tensor:
-    """Launch ``lstm_forward`` (``lstm_forward_bf16`` for a bf16 x) on
-    checked arguments: ``[dirs, S, B, H]`` in x's dtype."""
+def _forward(fn: str, x, w_ih, w_hh, bias, dirs: int, reverse: bool,
+             plan: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Launch ``lstm_forward`` (``lstm_forward_bf16``, on the tensor cores,
+    for a bf16 x) on checked arguments at the card's plan, or at ``plan``
+    (cs, lines): ``[dirs, S, B, H]`` in x's dtype."""
     s, b, d, hidden = x.shape + (w_hh.shape[-2],)
     dev = x.device
-    cs, tile = recurrence_plan(b, dirs, hidden, device=dev)[:2]
+    bf16 = x.dtype == torch.bfloat16
+    if plan is not None:
+        cs, tile = plan
+    elif bf16:
+        if projection_mma_layout(d) is None:
+            raise ValueError(f"{fn}: D={d} input features are above the bf16 projection's "
+                             f"limit: a 64-row tile no longer fits in a block's shared memory")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{fn}: a bf16 x must start on a 16-byte boundary")
+        cs, tile = recurrence_mma_plan(b, dirs, hidden, device=dev)[:2]
+    else:
+        cs, tile = recurrence_plan(b, dirs, hidden, device=dev)[:2]
     with torch.cuda.device(dev):
         xp = _empty(dev, dirs, s, b, 4 * hidden)
         out = torch.empty((dirs, s, b, hidden), device=dev, dtype=x.dtype)
         lib = _build.load("lstm", _SIGNATURES, _RESTYPES)
-        entry = lib.lstm_forward_bf16 if x.dtype == torch.bfloat16 else lib.lstm_forward
+        entry = lib.lstm_forward_bf16 if bf16 else lib.lstm_forward
         code = entry(
             x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), xp.data_ptr(),
             out.data_ptr(), s, b, d, hidden, dirs, int(reverse), cs, tile,

@@ -1220,9 +1220,24 @@ def test_frame_attention_bf16_matches_plain(dev, b, t, q_bins, n_head, e, c):
             norms=nm and tuple(tuple(a.double() for a in p) for p in nm))
         upcast = attn_ops.frame_attention(q.float(), k.float(), v.float(), n_head, e, norms=nm)
         _bf16_gates(BF16_TOLS["frame_attention"], got, plain, f64, upcast)
+    # Every plan of the tensor-core kernel the card runs, launched directly:
+    # a partial last query tile, T off 16, the ranks' uneven keys, D = 12.
+    plain = attn_ops.frame_attention_plain(q, k, v, n_head, e)
+    f64 = attn_ops.frame_attention_plain(q.double(), k.double(), v.double(), n_head, e)
+    ran = 0
+    for mt in attn_ops.MMA_ROW_TILES:
+        for slices in attn_ops.MMA_SLICES:
+            if (attn_ops.attention_mma_layout(t, q_bins, e, d, mt, slices) is None
+                    or attn_ops._card_mma_max_clusters(0, t, q_bins, e, d, 16 * mt, slices) < 1):
+                continue
+            got = attn_ops.launch_frame_attention_bf16(q, k, v, n_head, e, 16 * mt, slices)
+            torch.cuda.synchronize()
+            _bf16_gates(BF16_TOLS["frame_attention"], got, plain, f64)
+            ran += 1
+    assert ran >= 8
 
 
-@pytest.mark.parametrize("s,b,d,hidden", [(37, 5, 24, 20), (64, 40, 192, 200)])
+@pytest.mark.parametrize("s,b,d,hidden", [(37, 5, 24, 20), (64, 40, 192, 200), (9, 35, 20, 52)])
 def test_bilstm_fused_forward_bf16_matches_plain(dev, s, b, d, hidden):
     rng = np.random.default_rng(13)
     x, *w = _lstm_args(rng, s, b, d, hidden, dev, dirs=(2,))
@@ -1237,6 +1252,20 @@ def test_bilstm_fused_forward_bf16_matches_plain(dev, s, b, d, hidden):
     for g, r, f, u in zip(got, plain, f64, upcast):
         assert g.dtype == torch.bfloat16 and g.shape == (s, b, hidden)
         _bf16_gates(BF16_TOLS["bilstm_fused_forward"], g, r, f, u)
+    # Every recurrence plan of the tensor-core kernels the card runs (line
+    # counts off the 16- and 32-line tiles; D = 20 stages x by 2-byte loads).
+    ran = 0
+    for cs in lstm_ops.REC_CLUSTERS:
+        for lines in lstm_ops.MMA_LINES:
+            if (lstm_ops.recurrence_mma_layout(hidden, cs, lines) is None
+                    or lstm_ops._card_max_clusters(0, hidden, cs, lines, "mma") < 1):
+                continue
+            got = lstm_ops._forward("bilstm_fused_forward", x, *w, 2, False, plan=(cs, lines))
+            torch.cuda.synchronize()
+            for g, r, f in zip(got, plain, f64):
+                _bf16_gates(BF16_TOLS["bilstm_fused_forward"], g, r, f)
+            ran += 1
+    assert ran >= 4
 
 
 def test_bf16_wrappers_refuse_bf16_weights(dev):
@@ -1267,6 +1296,58 @@ def test_bf16_tensor_core_plan_is_one_wave_on_the_card(dev):
     """A 4 s request's bf16 RNN calls (B=1) are one wave on the card's counts."""
     rnn = gridrnn.mma_plan(263, 32, 100, dev)
     assert rnn.clusters <= rnn.max_clusters
+
+
+def test_bf16_attention_and_lstm_layouts_match_the_kernels(dev):
+    """The tensor-core plans of kernels 3 and 7 mirrored in Python
+    (tests/test_torch_bf16_mma_plans.py) lay out their blocks as the kernels
+    count them."""
+    for t_len, q_bins, e, d in ((257, 257, 2, 8), (257, 257, 2, 12), (1921, 257, 2, 12),
+                                (5, 3, 2, 8), (33, 17, 4, 4), (9, 5, 1, 5)):
+        for mt in attn_ops.MMA_ROW_TILES:
+            for slices in attn_ops.MMA_SLICES:
+                lay = attn_ops.attention_mma_layout(t_len, q_bins, e, d, mt, slices)
+                want = (-1, -1) if lay is None else (lay.threads, lay.smem_bytes)
+                assert attn_ops.frame_attention_mma_smem(t_len, q_bins, e, d, mt,
+                                                         slices) == want
+    for hidden in (1, 20, 52, 200, 256):
+        for cs in lstm_ops.REC_CLUSTERS:
+            for lines in lstm_ops.MMA_LINES:
+                lay = lstm_ops.recurrence_mma_layout(hidden, cs, lines)
+                assert lstm_ops.recurrence_mma_smem(hidden, cs, lines) == (
+                    -1 if lay is None else lay[1])
+    for d_in in (1, 20, 192, 300, 400):
+        lay = lstm_ops.projection_mma_layout(d_in)
+        assert lstm_ops.projection_mma_smem(d_in) == (-1 if lay is None else lay[1])
+
+
+def test_bf16_attention_and_lstm_plans_are_one_wave_on_the_card(dev):
+    """A 4 s request's bf16 attention (B=1, D = 8 and 12) and 6l48c200's
+    bf16 LSTM (263 lines) are one wave on the card's counts."""
+    for d in (8, 12):
+        plan = attn_ops.card_attention_mma_plan(1, 257, 257, 4, 2, d, dev)
+        assert plan.blocks // plan.slices <= plan.max_clusters
+    rec = lstm_ops.recurrence_mma_plan(263, 2, 200, dev)
+    assert rec.clusters <= rec.max_clusters
+
+
+def test_bf16_attention_and_lstm_refuse_what_they_cannot_run(dev):
+    """Past its frame limit the bf16 attention raises, and so does the bf16
+    LSTM past its projection's depth limit or on an x off 16 bytes: no
+    fallback to another form."""
+    limit = attn_ops.attention_mma_max_frames(257, 2, 8)
+    q = torch.zeros(1, limit + 1, 257, 8, device=dev, dtype=torch.bfloat16)
+    v = torch.zeros(1, limit + 1, 257, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-row score tile"):
+        attn_ops.frame_attention(q, q, v, 4, 2)
+    w = (torch.zeros(2, 400, 80, device=dev), torch.zeros(2, 20, 80, device=dev),
+         torch.zeros(2, 80, device=dev))
+    with pytest.raises(ValueError, match="projection"):
+        lstm_ops.bilstm_fused_forward(torch.zeros(3, 2, 400, device=dev, dtype=torch.bfloat16),
+                                      *w)
+    x = torch.zeros(3 * 2 * 24 + 4, device=dev, dtype=torch.bfloat16)[4:].view(3, 2, 24)
+    with pytest.raises(ValueError, match="16-byte"):
+        lstm_ops.bilstm_fused_forward(x, torch.zeros(2, 24, 80, device=dev), *w[1:])
 
 
 def test_bf16_rnn_wrapper_refuses_a_canvas_off_16_bytes(dev):
