@@ -1966,9 +1966,18 @@ def profile_batch(fdbm, n_steps: int = PROFILE_N, **enhance_kwargs) -> dict:
         fail("profile_batch: the profiler recorded no device time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     audio = FOLDER_BATCH * CHUNK_SAMPLES / 16000
+    # The attention (attn_kernel, attn_mma_kernel) and its q/k/v norms
+    # (norm_segments_kernel), each launched once an attention call.
+    attention = [e for e in kernels if "attn_" in e.key]
+    norms = [e for e in kernels if "norm_segments_kernel" in e.key]
     return {"batch": FOLDER_BATCH, "samples": CHUNK_SAMPLES, "N": n_steps, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
             "audio_seconds_per_second": audio / (wall_ms / 1e3),
+            "attention_share_of_busy": sum(e.self_device_time_total for e in attention) / 1e3
+            / busy_ms,
+            "norm_share_of_busy": sum(e.self_device_time_total for e in norms) / 1e3 / busy_ms,
+            "attention_launches": sum(e.count for e in attention),
+            "norm_launches": sum(e.count for e in norms),
             "busy_by_kind": busy_by_kind(kernels),
             "top_kernels": [{"name": e.key[:90], "calls": e.count,
                              "ms": e.self_device_time_total / 1e3,
